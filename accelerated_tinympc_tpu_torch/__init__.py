@@ -26,6 +26,7 @@ from .precompute import (  # noqa: F401
     CondensedOperators,
     condensed_operators,
     riccati_cache,
+    riccati_cache_jax,
 )
 from .solver import admm  # noqa: F401
 from .solver.admm import solve  # noqa: F401

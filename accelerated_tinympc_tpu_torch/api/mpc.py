@@ -158,7 +158,9 @@ def fused_mpc_rollout(
     (the reference's own per-tick early exit). ``in_kernel=False`` is a
     Python tick loop with one solve launch per tick; ``in_kernel=True`` runs
     the whole mission in one launch
-    (:func:`..ops.fused_rollout.fused_rollout`). Cones raise for now.
+    (:func:`..ops.fused_rollout.fused_rollout`). ``cone_ops``
+    (:func:`..ops.fused_admm.pad_cones`) adds second-order cones to every
+    tick's slack stage on either path.
     """
     from ..ops.fused_admm import (
         FusedCarry, fused_solve, ref_vectors, unpad_controls,

@@ -61,13 +61,29 @@ class TinyMPC:
     tier: str = "scan"
     device: Any = DEFAULT_DEVICE
     algo: str = "f32"                 # fused-tier arithmetic; only "f32" yet
+    # Second-order-cone constraints (solver/cones.py) on every tier; the
+    # fused tier projects inside the kernel (ops/fused_admm.pad_cones).
+    cones: Any = None
+    # Per-instance cone mu/shift overrides -- fused tier, batched: (nc, B)
+    # tensors over the input/state cones (constraint-parameter sweeps; see
+    # ops/fused_admm.fused_solve cone_mu_u).
+    cone_mu: Any = None
+    cone_shift: Any = None
+    cone_mu_x: Any = None
+    cone_shift_x: Any = None
+    # Fused tier, adaptive mode: > 0 enables the early-termination compaction
+    # cascade (solver/cascade.py) with this segment length (must be a
+    # multiple of check_termination). 0 = one monolithic adaptive call.
+    compaction_segment: int = 0
     # tier-internal precompute
     _ops: CondensedOperators | None = None
     _pp: PaddedProblem | None = None
+    _cone_ops: Any = None
     # mutable solve state
     state: State | None = None
     _fused_carry: FusedCarry | None = None
     _fused_result: Any = None
+    _adaptive_rho_result: Any = None
 
     # ------------------------------------------------------------- setup ----
     @classmethod
@@ -89,11 +105,13 @@ class TinyMPC:
         tier: str = "scan",
         dtype: Any = torch.float32,
         device: Any = DEFAULT_DEVICE,
-        **later,
+        **options,
     ) -> "TinyMPC":
         """Construct + precompute. Bounds default to +-inf (disabled in
         Settings when not provided, mirroring the reference's nullptr-enable
-        logic, codegen.cpp:227-243); scalars broadcast over the horizon."""
+        logic, codegen.cpp:227-243); scalars broadcast over the horizon.
+        ``options`` (``cones``, ``cone_mu``, ..., ``compaction_segment``,
+        ``algo``, ``block``) go to :meth:`from_parts`."""
         A = np.asarray(A, np.float64)
         Bm = np.asarray(B, np.float64)
         nx, nu = Bm.shape
@@ -125,7 +143,7 @@ class TinyMPC:
             en_input_bound=en_input, en_state_bound=en_state)
         return cls.from_parts(
             problem, cache, settings=settings, batch=batch, tier=tier,
-            device=device, **later,
+            device=device, **options,
         )
 
     @classmethod
@@ -151,19 +169,25 @@ class TinyMPC:
         """Bind a problem and its cache to a tier. ``problem``/``cache`` are
         moved to ``device``. What the port does not do yet raises
         ``NotImplementedError`` here, naming the ROADMAP slice that brings
-        it."""
+        it. ``cones`` (:class:`..solver.cones.ConeSet`) adds second-order
+        cones on every tier; ``cone_mu``/``cone_shift``/``cone_mu_x``/
+        ``cone_shift_x`` (``(n_cones, batch)``) override their parameters
+        per instance on the batched fused tier; ``compaction_segment > 0``
+        runs adaptive fused solves through the compaction cascade."""
         if tier not in TIERS:
             raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
         if tier == "block":
             raise _later("tier='block' (block-condensed long horizons)",
                          "slice 10")
-        if cones is not None or any(
-                a is not None for a in
-                (cone_mu, cone_shift, cone_mu_x, cone_shift_x)):
-            raise _later("second-order cones (cones=, cone_*)", "slice 6")
-        if compaction_segment:
-            raise _later("the early-termination compaction cascade "
-                         "(compaction_segment > 0)", "slice 7")
+        has_cp = any(a is not None for a in
+                     (cone_mu, cone_shift, cone_mu_x, cone_shift_x))
+        if has_cp:
+            if cones is None:
+                raise ValueError("per-instance cone parameters override a "
+                                 "base ConeSet -- pass cones= as well")
+            if tier != "fused" or batch is None:
+                raise ValueError("per-instance cone parameters need the "
+                                 "batched fused tier (tier='fused', batch=B)")
         if algo == "bf16x3" or polish is not None:
             raise _later(
                 "algo='bf16x3'/polish (a TPU MXU arithmetic mode; its Hopper "
@@ -179,7 +203,13 @@ class TinyMPC:
             tier=tier,
             device=device,
             algo=algo,
+            cones=cones,
+            compaction_segment=compaction_segment,
         )
+        rows = lambda a: None if a is None else torch.as_tensor(a).to(
+            device=device, dtype=self._dtype)
+        self.cone_mu, self.cone_shift = rows(cone_mu), rows(cone_shift)
+        self.cone_mu_x, self.cone_shift_x = rows(cone_mu_x), rows(cone_shift_x)
         self._reset_state()
         return self
 
@@ -230,6 +260,21 @@ class TinyMPC:
             self._bounded_problem(), self.cache, self._ensure_ops(),
             dtype=self._dtype, device=self.device,
         )
+        self._cone_ops = None
+        if self.cones is not None and (
+            self.cones.input_cones or self.cones.state_cones
+        ):
+            from ..ops.fused_admm import pad_cones
+
+            self._cone_ops = pad_cones(self._pp, self.cones)
+
+    def _project(self):
+        """The slack projection of the scan tier: box clip, then cones."""
+        if self.cones is None:
+            return None
+        from ..solver.cones import cone_slack_update
+
+        return cone_slack_update(self.cones)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(device=self.device, dtype=self._dtype)
@@ -303,7 +348,8 @@ class TinyMPC:
         if self.tier == "condensed":
             return self._solve_condensed()
         fn = admm.solve if self.batch is None else solve_batched
-        self.state = fn(self.state, self.problem, self.cache, self.settings)
+        self.state = fn(self.state, self.problem, self.cache, self.settings,
+                        project=self._project())
         return self._state_stats()
 
     def rollout(
@@ -324,7 +370,7 @@ class TinyMPC:
         single-instance solvers; the solver's warm-start state advances to
         the end of the rollout (continuations compose). On the fused tier
         ``in_kernel=True`` runs the whole mission inside one kernel launch
-        (:func:`..ops.fused_rollout.fused_rollout`).
+        (:func:`..ops.fused_rollout.fused_rollout`), cones included.
         """
         from .mpc import fused_mpc_rollout, mpc_rollout
 
@@ -344,7 +390,7 @@ class TinyMPC:
                 carry=self._fused_carry,
                 Xref_total=Xref_total,
                 Pinf=self.cache.Pinf if Xref_total is not None else None,
-                algo=self.algo, in_kernel=in_kernel,
+                cone_ops=self._cone_ops, algo=self.algo, in_kernel=in_kernel,
                 alpha=self.settings.alpha,
             )
             self._fused_carry = carry
@@ -354,6 +400,11 @@ class TinyMPC:
             return xf, us
         if in_kernel:
             raise ValueError("in_kernel rollout requires tier='fused'")
+        if self.cones is not None:
+            raise ValueError(
+                "rollout with cones is supported on tier='fused' "
+                "(in-kernel cone projection); scan-tier coned rollouts: "
+                "drive the tick loop with solve()/reset_duals()")
         st, xf, trace = mpc_rollout(
             self.problem, self.cache, self.settings, x0, n_ticks,
             Xref_total=Xref_total, state=self.state, batched=not single,
@@ -377,6 +428,7 @@ class TinyMPC:
         out = solve_condensed(
             flat_from_state(state, nx, nu),
             flatten_problem(self.problem, self.cache), ops, self.settings, nx,
+            cones=self.cones, nu=nu if self.cones else None,
         )
         state = state_from_flat(out, nx, nu, N)
         if single:
@@ -388,14 +440,25 @@ class TinyMPC:
         x0 = self.state.x[..., 0, :]
         if self.batch is None:
             x0 = x0[None]
-        res = fused_solve(
-            x0.contiguous(), self._fused_carry, self._pp,
+        kw = dict(
             max_iter=self.settings.max_iter,
             check_termination=self.settings.check_termination,
             abs_pri_tol=float(self.settings.abs_pri_tol),
             abs_dua_tol=float(self.settings.abs_dua_tol),
             algo=self.algo, alpha=self.settings.alpha,
+            cone_ops=self._cone_ops,
+            cone_mu_u=self.cone_mu, cone_shift_u=self.cone_shift,
+            cone_mu_x=self.cone_mu_x, cone_shift_x=self.cone_shift_x,
         )
+        if self.compaction_segment and self.settings.check_termination > 0:
+            from ..solver.cascade import cascade_solve
+
+            res = cascade_solve(
+                x0.contiguous(), self._fused_carry, self._pp,
+                segment_iters=self.compaction_segment, **kw)
+        else:
+            res = fused_solve(
+                x0.contiguous(), self._fused_carry, self._pp, **kw)
         self._fused_carry = res.carry
         self._fused_result = res
         stats = res.stats.cpu().numpy()
@@ -412,11 +475,86 @@ class TinyMPC:
             "dual_residual_input_max": float(stats[:, 5].max()),
         }
 
-    def solve_adaptive_rho(self, **kw) -> dict[str, Any]:
-        """Solve with OSQP-style rho adaptation -- not ported yet."""
-        raise _later("solve_adaptive_rho", "slice 7")
+    def solve_adaptive_rho(self, *, rho0=None, **kw) -> dict[str, Any]:
+        """Solve with OSQP-style stall-guarded rho adaptation (beyond the
+        reference, which bakes rho at build time -- codegen.cpp:254-258).
+
+        Single instance: runs :func:`..solver.adaptive_rho.solve_adaptive_rho`
+        and adopts the adapted cache for subsequent solves. Batched: runs the
+        per-instance form on the device
+        (:func:`..solver.batched_ops.solve_adaptive_rho_batched`) with this
+        solver's plant expanded over the batch; per-instance rho/iters are
+        returned in the stats dict, the iterates and caches by
+        :attr:`adaptive_rho_result`. ``rho0 (batch,)`` (batched only) starts
+        each instance at its own penalty in place of the cache's. Keyword
+        args pass through (chunk, adapt_factor, rho_min/max, riccati, ...).
+        """
+        from ..solver.adaptive_rho import solve_adaptive_rho
+        from ..solver.batched_ops import solve_adaptive_rho_batched
+
+        if self.batch is None:
+            if rho0 is not None:
+                raise ValueError("rho0 is per instance: it needs batch=B")
+            res = solve_adaptive_rho(
+                self.state, self._bounded_problem(), self.cache,
+                self.settings, **kw,
+            )
+            self.state = res.state
+            self.cache = res.cache
+            self._ops = None  # the condensed operators bake the cache
+            if self.tier == "fused":
+                self._build_fused()
+            return {
+                "rho": res.rho,
+                "iterations": res.iterations,
+                "solved": res.converged,
+                "rho_history": res.rho_history,
+            }
+
+        B = self.batch
+        prob = self._bounded_problem()
+        bcast = lambda a: a.expand((B,) + tuple(a.shape))
+        prob_b = Problem(**{k: bcast(v) for k, v in prob.tensors().items()})
+        if rho0 is None:
+            rho0 = torch.full((B,), float(self.cache.rho), dtype=self._dtype,
+                              device=self.device)
+        else:
+            rho0 = self._tensor(rho0).reshape(B)
+        res = solve_adaptive_rho_batched(
+            self.state.x[:, 0, :], prob_b,
+            prob_b.A, prob_b.B, prob_b.Q, prob_b.R,
+            rho0, self.settings, **kw,
+        )
+        self._adaptive_rho_result = res
+        solved = res.state.solved
+        return {
+            "rho": res.rho.cpu().numpy(),
+            "iterations": res.total_iter.cpu().numpy(),
+            "solved": solved.cpu().numpy(),
+            "rounds": int(res.rounds),
+            "converged_fraction": float(solved.to(torch.float32).mean()),
+        }
 
     # ------------------------------------------------------------ getters ----
+    @property
+    def adaptive_rho_result(self):
+        """What the last batched :meth:`solve_adaptive_rho` returned
+        (:class:`..solver.batched_ops.AdaptiveRhoBatchedResult`: iterates,
+        per-instance rho, caches at the final rho), or None."""
+        return self._adaptive_rho_result
+
+    def get_slacks(self) -> tuple[np.ndarray, np.ndarray]:
+        """The newest projected slacks ``(z, v)``: input slack ``(N-1, nu)``
+        and state slack ``(N, nx)``, batch-leading for a batched solver.
+        They satisfy the box bounds and every cone exactly. On the fused
+        tier they follow :meth:`rollout` as well as :meth:`solve`."""
+        if self.tier == "fused":
+            nx, nu, N = self._pp.dims
+            z = self._fused_carry.Z.cpu().numpy().reshape(-1, N - 1, nu)
+            v = self._fused_carry.V.cpu().numpy().reshape(-1, N, nx)
+            return (z[0], v[0]) if self.batch is None else (z, v)
+        return self.state.znew.cpu().numpy(), self.state.vnew.cpu().numpy()
+
     def get_u(self) -> np.ndarray:
         """Control trajectory (reference: tiny_wrapper.cpp:165-176). Shape
         (N-1, nu) or (batch, N-1, nu)."""

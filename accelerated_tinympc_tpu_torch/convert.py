@@ -3,9 +3,17 @@ dataclasses out (and back).
 
 Every function takes a dict of numpy arrays keyed by the field names of the
 JAX package's dataclass of the same name (``Problem``, ``Cache``, ``State``,
-``FusedCarry``, ``FusedResult``), plus ``device=``/``dtype=``. A caller that
+``FusedCarry``, ``FusedResult``, ``InstanceOps``), plus
+``device=``/``dtype=``. A batch-leading ``Cache`` goes through
+:func:`cache_from_numpy` unchanged (every field keeps its leading axis). A caller that
 holds JAX objects builds the dicts itself (``np.asarray`` of each field);
 this module imports no JAX.
+
+Cones: :func:`cone_set_from` rebuilds a ``ConeSet`` from the JAX one's plain
+values. The JAX ``FusedConeOps`` is *not* converted: it holds gather/scatter
+matrices and mask rows laid out for the TPU's lanes, while the port's holds
+indices; rebuild it with the port's ``pad_cones`` from the converted
+``ConeSet``.
 
 The JAX fused tier keeps its carries and results padded to 128 lanes
 (``Du -> 128``, ``Dx -> 128``-multiples, stats ``(B, 128)`` with 6 lanes
@@ -133,3 +141,26 @@ def fused_result_to_numpy(res: FusedResult) -> dict[str, Any]:
                   for k in ("D", "Y", "G", "Z", "V")},
         "stats": _pad(res.stats),
     }
+
+
+def cone_set_from(cones):
+    """The port's ``ConeSet`` from the JAX package's (or any object with
+    ``input_cones``/``state_cones`` of ``(ball, axis, mu, shift)`` tuples)."""
+    from .solver.cones import Cone, ConeSet
+
+    conv = lambda group: tuple(
+        Cone(tuple(int(b) for b in c[0]), int(c[1]), float(c[2]),
+             float(c[3]) if len(c) > 3 else 0.0) for c in group)
+    return ConeSet(input_cones=conv(cones.input_cones),
+                   state_cones=conv(cones.state_cones))
+
+
+def instance_ops_from_numpy(fields: Mapping[str, Any], *,
+                            dtype: Any = torch.float32,
+                            device: Any = DEFAULT_DEVICE):
+    """``InstanceOps`` (batch-leading per-instance operators) from the JAX
+    one's fields; the layouts are the same."""
+    from .solver.batched_ops import InstanceOps
+
+    return InstanceOps(**{k: _t(fields[k], dtype, device)
+                          for k in InstanceOps._fields})

@@ -3,10 +3,12 @@
 from .fused_admm import (  # noqa: F401
     LAUNCH_COUNTS,
     FusedCarry,
+    FusedConeOps,
     FusedResult,
     PaddedProblem,
     fused_solve,
     fused_solve_plain,
+    pad_cones,
     pad_problem,
     ref_vectors,
     reset_launch_counts,
@@ -20,4 +22,12 @@ from .fused_rollout import (  # noqa: F401
     fused_rollout_plain,
     rollout_const_seq,
     rollout_ops,
+)
+from .riccati_kernel import (  # noqa: F401
+    riccati_cache_kernel,
+    riccati_cache_kernel_plain,
+    riccati_cache_newton,
+    riccati_cache_newton_plain,
+    riccati_fixed_point_kernel,
+    riccati_newton_kernel,
 )

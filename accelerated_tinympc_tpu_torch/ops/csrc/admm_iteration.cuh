@@ -44,6 +44,22 @@
 //     iteration can read the old slack for the dual residual and still leave
 //     it in place for an instance that freezes.
 //
+//   * Second-order cones (template parameter CONES; replaces the TPU
+//     package's _cone_apply, ops/fused_admm.py) couple the ball and axis
+//     entries of one knot, which in general sit in different threads' register
+//     tiles (a knot of 12 states spans three column groups; a knot of 6 or 3
+//     starts off the float4 grid). So with cones the stage splits in three
+//     with a barrier between: the forward product clips as before and leaves
+//     the pre-projection iterate (in S), the relaxed iterate + old dual (in
+//     YG) and the clipped slack (in the new slack buffer) in shared memory;
+//     a cone pass with one thread per (instance, knot) projects the clipped
+//     slack in place, each cone in order (exact projection, three cases);
+//     an elementwise pass, float4 per thread again, does dual ascent,
+//     S = slack - dual, the residual terms and the violation flag against
+//     the projected slack. It needs no buffer beyond the box layout's (only
+//     the per-instance mu/shift rows when given). The box-only
+//     instantiations keep the fused per-element path.
+//
 // Stage order per iteration is the reference's (src/tinympc/admm.cpp:117-150)
 // in its folded condensed form: forward (x0 terms hoisted into XbUb), slack
 // projection (fminf/fmaxf, safe with infinite bounds), dual ascent, then the
@@ -58,23 +74,38 @@ namespace atm {
 constexpr int RI = 8;  // instances per register tile; tile % RI == 0
 constexpr int TJ = 4;  // adjacent columns per register tile (one float4)
 
+constexpr int MAX_CONES = 8;  // input cones + state cones of one problem
+constexpr int MAX_BALL = 8;   // ball entries of one cone
+
 struct Dims {
   int nx, nu, N;    // knot widths and horizon
   int Dx, Du, Dz;   // N*nx, (N-1)*nu, Dx+Du
   int DuP, DzP;     // Du, Dz rounded up to 4 (float4 rows, zero padded)
   int tile;         // instances per block
   int ksplit;       // lanes sharing one backward tile's depth (power of 2)
+  int ncp;          // cones with per-instance mu/shift rows (0 or all)
+};
+
+// The cones of one problem, input cones first, then state cones: per cone
+// the ball indices and the axis index inside a knot, and the static mu and
+// shift of ||w[ball]|| <= mu * (w[axis] + shift).
+struct ConeTable {
+  int nc_u, nc_x;
+  int nball[MAX_CONES], axis[MAX_CONES], ball[MAX_CONES][MAX_BALL];
+  float mu[MAX_CONES], shift[MAX_CONES];
 };
 
 __host__ __device__ inline int r4(int n) { return (n + 3) & ~3; }
 
-__host__ __device__ inline Dims make_dims(int nx, int nu, int N, int tile) {
+__host__ __device__ inline Dims make_dims(int nx, int nu, int N, int tile,
+                                          int ncp = 0) {
   Dims d;
   d.nx = nx; d.nu = nu; d.N = N;
   d.Dx = N * nx; d.Du = (N - 1) * nu; d.Dz = d.Dx + d.Du;
   d.DuP = r4(d.Du); d.DzP = r4(d.Dz);
   d.tile = tile;
   d.ksplit = 1;
+  d.ncp = ncp;
   return d;
 }
 
@@ -85,6 +116,7 @@ struct Layout {
   int Wf, Wb, lo, hi, cd, A, Bm;             // staged once per block
   int D, S, YG, ZV, Xb, x0, u0, stat;        // per-instance floats
   int res, done, zpar, viol;                 // per-instance ints
+  int cmu, csh;                              // per-instance cone mu, shift
   int total;
 };
 
@@ -110,6 +142,8 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
   L.done = o; o += r4(d.tile);
   L.zpar = o; o += r4(d.tile);
   L.viol = o; o += r4(d.tile);
+  L.cmu = o;  o += r4(d.ncp * d.tile);       // [cone][instance]
+  L.csh = o;  o += r4(d.ncp * d.tile);
   L.total = o;
   return L;
 }
@@ -123,6 +157,11 @@ struct Args {
   const float *cd;              // (Du) const_d, or (ticks,Du) when tracking
   const float *lo, *hi;         // (Dz) bounds over z = [x | u]
   const float *A, *Bm;          // plant (nx,nx), (nx,nu); rollout only
+  // cones (coned kernels only): the table, and per-instance mu/shift rows
+  // (nc,B) over all cones in the table's order, or nullptr for the static
+  // values
+  ConeTable cones;
+  const float *cone_mu, *cone_shift;
   // outputs
   float *U, *X, *D, *Y, *G, *Z, *V, *stats;   // stats (B,6)
   float *us;                    // (ticks,B,nu)  rollout only
@@ -138,6 +177,7 @@ struct Smem {
   float *Wf, *Wb, *lo, *hi, *cd, *A, *Bm;
   float *D, *S, *YG, *ZV, *Xb, *x0, *u0, *stat;
   int *res, *done, *zpar, *viol;
+  float *cmu, *csh;
 };
 
 __device__ inline Smem carve(float* base, const Layout& L) {
@@ -151,6 +191,7 @@ __device__ inline Smem carve(float* base, const Layout& L) {
   s.done = reinterpret_cast<int*>(base + L.done);
   s.zpar = reinterpret_cast<int*>(base + L.zpar);
   s.viol = reinterpret_cast<int*>(base + L.viol);
+  s.cmu = base + L.cmu; s.csh = base + L.csh;
   return s;
 }
 
@@ -202,6 +243,12 @@ __device__ inline void load_carry(const Args& a, const Smem& s, int b0, int nb,
     s.ZV[i * d.DzP + j] = a.V0[gsrc];
     if (with_duals) s.YG[i * d.DzP + j] = a.G0[gsrc];
   }
+  // Per-instance cone parameters; the ragged edge keeps mu = shift = 0.
+  for (int it = tid; it < d.ncp * nb; it += nt) {
+    int c = it / nb, i = it - c * nb;
+    s.cmu[c * d.tile + i] = a.cone_mu[(size_t)c * a.B + b0 + i];
+    s.csh[c * d.tile + i] = a.cone_shift[(size_t)c * a.B + b0 + i];
+  }
 }
 
 // Per-solve bookkeeping: live flags (the ragged edge of the batch is born
@@ -241,6 +288,11 @@ __device__ inline void compute_xbub(const Args& a, const Smem& s,
 //   record   : accumulate the four residual maxima of this iteration
 //   keep_u0  : keep the first-knot controls of this iteration in s.u0
 //   Uout/Xout: not nullptr -> write this iteration's U, X to global
+// CONES = true: the stage ends after the box clip; it leaves the
+// pre-projection iterate in S (and in u0, U, X where asked), t = relaxed
+// iterate + old dual in YG and the clipped slack in the new slack buffer,
+// for cone_stage and finish_stage.
+template <bool CONES>
 __device__ inline void forward_stage(const Args& a, const Smem& s, int b0,
                                      bool check, bool record, bool keep_u0,
                                      float* Uout, float* Xout) {
@@ -294,6 +346,51 @@ __device__ inline void forward_stage(const Args& a, const Smem& s, int b0,
           }
         }
       }
+    }
+    if constexpr (CONES) {
+      const float4 l4 = *reinterpret_cast<const float4*>(s.lo + j0);
+      const float4 h4 = *reinterpret_cast<const float4*>(s.hi + j0);
+      const float lo[TJ] = {l4.x, l4.y, l4.z, l4.w};
+      const float hi[TJ] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+      for (int r = 0; r < RI; ++r) {
+        if (dn[r]) continue;
+        const int i = i0 + r;
+        const int idx = i * d.DzP + j0;
+        const int zp = s.zpar[i];
+        const float4 xb4 = *reinterpret_cast<const float4*>(s.Xb + idx);
+        const float4 y4 = *reinterpret_cast<const float4*>(s.YG + idx);
+        const float4 z4 =
+            *reinterpret_cast<const float4*>(s.ZV + zp * zstride + idx);
+        const float xu[TJ] = {xb4.x + acc[r][0], xb4.y + acc[r][1],
+                              xb4.z + acc[r][2], xb4.w + acc[r][3]};
+        const float yo[TJ] = {y4.x, y4.y, y4.z, y4.w};
+        const float zo[TJ] = {z4.x, z4.y, z4.z, z4.w};
+        float t[TJ], zn[TJ];
+#pragma unroll
+        for (int c = 0; c < TJ; ++c) {
+          const int j = j0 + c;
+          const float xr =
+              relax ? alpha * xu[c] + (1.0f - alpha) * zo[c] : xu[c];
+          t[c] = xr + yo[c];
+          zn[c] = fminf(fmaxf(t[c], lo[c]), hi[c]);  // box clip, inf-safe
+          if (j < d.Dz) {
+            if (Uout != nullptr) {
+              if (j < d.Dx) Xout[(size_t)(b0 + i) * d.Dx + j] = xu[c];
+              else Uout[(size_t)(b0 + i) * d.Du + (j - d.Dx)] = xu[c];
+            }
+            if (keep_u0 && j >= d.Dx && j < d.Dx + d.nu)
+              s.u0[i * d.nu + (j - d.Dx)] = xu[c];
+          }
+        }
+        *reinterpret_cast<float4*>(s.S + idx) =
+            make_float4(xu[0], xu[1], xu[2], xu[3]);
+        *reinterpret_cast<float4*>(s.YG + idx) =
+            make_float4(t[0], t[1], t[2], t[3]);
+        *reinterpret_cast<float4*>(s.ZV + (zp ^ 1) * zstride + idx) =
+            make_float4(zn[0], zn[1], zn[2], zn[3]);
+      }
+      continue;
     }
     float lo[TJ], hi[TJ];
     {
@@ -377,6 +474,109 @@ __device__ inline void forward_stage(const Args& a, const Smem& s, int b0,
           if (leader && m > 0) atomicMax(&s.res[i * 4 + q], m);
         }
       }
+    }
+  }
+}
+
+// Cone projections, one thread per (instance, knot): knots 0..N-1 are the
+// state knots, N..2N-2 the input knots. forward_stage<true> has left the
+// box-clipped slack in the new slack buffer; each cone of the knot's kind is
+// applied to it in order, in place (exact projection of (w[ball], w[axis] +
+// shift) onto ||v|| <= mu s: inside -> unchanged, polar -> 0, else the
+// boundary point; a == 0 guarded). mu and shift come from the per-instance
+// rows when given (d.ncp > 0), else from the table: the arithmetic is the
+// same either way.
+__device__ inline void cone_stage(const Args& a, const Smem& s) {
+  const Dims& d = a.d;
+  const ConeTable& ct = a.cones;
+  // Only the knots of a kind that has cones: [k_lo, k_hi).
+  const int k_lo = ct.nc_x ? 0 : d.N;
+  const int k_hi = ct.nc_u ? 2 * d.N - 1 : d.N;
+  const int nk = k_hi - k_lo;
+  const int zstride = d.tile * d.DzP;
+  for (int item = threadIdx.x; item < d.tile * nk; item += blockDim.x) {
+    const int i = item / nk, k = k_lo + item - i * nk;
+    if (s.done[i] != 0) continue;
+    const bool is_x = k < d.N;
+    const int j0 = is_x ? k * d.nx : d.Dx + (k - d.N) * d.nu;
+    float* zn = s.ZV + (s.zpar[i] ^ 1) * zstride + i * d.DzP + j0;
+    const int c0 = is_x ? ct.nc_u : 0;
+    const int c1 = is_x ? ct.nc_u + ct.nc_x : ct.nc_u;
+    for (int q = c0; q < c1; ++q) {
+      const float mu = d.ncp ? s.cmu[q * d.tile + i] : ct.mu[q];
+      const float shift = d.ncp ? s.csh[q * d.tile + i] : ct.shift[q];
+      float a2 = 0.0f;
+      for (int b = 0; b < ct.nball[q]; ++b) {
+        const float v = zn[ct.ball[q][b]];
+        a2 = fmaf(v, v, a2);
+      }
+      const float sv = zn[ct.axis[q]] + shift;
+      const float an = sqrtf(a2);
+      const bool inside = an <= mu * sv;
+      const bool polar = mu * an <= -sv;
+      const float cc = (mu * an + sv) / (mu * mu + 1.0f);
+      const float safe_a = a2 == 0.0f ? 1.0f : an;
+      const float scale = polar ? 0.0f : (inside ? 1.0f : mu * cc / safe_a);
+      const float s_new = inside ? sv : (polar ? 0.0f : cc);
+      for (int b = 0; b < ct.nball[q]; ++b) zn[ct.ball[q][b]] *= scale;
+      zn[ct.axis[q]] = s_new - shift;
+    }
+  }
+}
+
+// Closes the coned slack stage, one thread per (instance, group of TJ
+// columns): dual ascent against the *projected* slack, S = slack - dual, the
+// residual terms, the violation flag and (on the recording iteration) the
+// maxima. Reads t = relaxed iterate + old dual from YG, the pre-projection
+// iterate from S and the projected slack from the new slack buffer.
+__device__ inline void finish_stage(const Args& a, const Smem& s, bool check,
+                                    bool record) {
+  const Dims& d = a.d;
+  const int ncg = d.DzP / TJ;
+  const int zstride = d.tile * d.DzP;
+  for (int item = threadIdx.x; item < d.tile * ncg; item += blockDim.x) {
+    const int i = item / ncg, j0 = (item - i * ncg) * TJ;
+    if (s.done[i] != 0) continue;
+    const int idx = i * d.DzP + j0;
+    const int zp = s.zpar[i];
+    const float4 x4 = *reinterpret_cast<const float4*>(s.S + idx);
+    const float4 t4 = *reinterpret_cast<const float4*>(s.YG + idx);
+    const float4 o4 =
+        *reinterpret_cast<const float4*>(s.ZV + zp * zstride + idx);
+    const float4 n4 =
+        *reinterpret_cast<const float4*>(s.ZV + (zp ^ 1) * zstride + idx);
+    const float xu[TJ] = {x4.x, x4.y, x4.z, x4.w};
+    const float t[TJ] = {t4.x, t4.y, t4.z, t4.w};
+    const float zo[TJ] = {o4.x, o4.y, o4.z, o4.w};
+    const float zn[TJ] = {n4.x, n4.y, n4.z, n4.w};
+    float yn[TJ], sv[TJ];
+    int mx[4] = {0, 0, 0, 0};  // pri_x, dua_x, pri_u, dua_u as int views
+    bool viol = false;
+#pragma unroll
+    for (int c = 0; c < TJ; ++c) {
+      const int j = j0 + c;
+      yn[c] = t[c] - zn[c];   // dual ascent
+      sv[c] = zn[c] - yn[c];
+      if (j < d.Dz) {
+        const float pr = fabsf(xu[c] - zn[c]);
+        const float dr = fabsf(zo[c] - zn[c]);
+        if (check) viol |= !(pr < a.pri_tol) || !(dr * a.rho < a.dua_tol);
+        if (record) {
+          const int o = j < d.Dx ? 0 : 2;
+          mx[o] = max(mx[o], __float_as_int(pr));
+          mx[o + 1] = max(mx[o + 1], __float_as_int(dr));
+        }
+      }
+    }
+    *reinterpret_cast<float4*>(s.YG + idx) =
+        make_float4(yn[0], yn[1], yn[2], yn[3]);
+    *reinterpret_cast<float4*>(s.S + idx) =
+        make_float4(sv[0], sv[1], sv[2], sv[3]);
+    if (viol) s.viol[i] = 1;
+    if (record) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (mx[q] > 0) atomicMax(&s.res[i * 4 + q], mx[q]);
     }
   }
 }
@@ -553,7 +753,10 @@ __device__ inline void emit_frozen(const Args& a, const Smem& s, int b0,
 //     columns are filled only where U and X are asked for (Uout != nullptr).
 // Afterwards shared memory holds each instance's result (a barrier has
 // passed since its last write); U and X are in global memory where asked.
-template <bool ADAPTIVE>
+// CONES = true splits the slack stage (forward product and clip, barrier,
+// cone_stage, barrier, finish_stage); emit_frozen needs no cone code, since
+// the new slacks it reads are the projected ones.
+template <bool ADAPTIVE, bool CONES>
 __device__ inline void solve_core(const Args& a, const Smem& s, int b0,
                                   float* Uout, float* Xout, bool keep_u0) {
   // The last iteration that checks: its residuals are what an instance that
@@ -565,10 +768,16 @@ __device__ inline void solve_core(const Args& a, const Smem& s, int b0,
     const bool is_check =
         ADAPTIVE && it > a.warmup && (it % a.check_every) == 0;
     const bool record = ADAPTIVE ? is_check && it == last_check : is_last;
-    forward_stage(a, s, b0, is_check, record,
-                  keep_u0 && (is_check || is_last),
-                  is_last ? Uout : nullptr, Xout);
+    forward_stage<CONES>(a, s, b0, is_check, record,
+                         keep_u0 && (is_check || is_last),
+                         is_last ? Uout : nullptr, Xout);
     __syncthreads();
+    if constexpr (CONES) {
+      cone_stage(a, s);
+      __syncthreads();
+      finish_stage(a, s, is_check, record);
+      __syncthreads();
+    }
     if (decide_stage<ADAPTIVE>(a, s, it, is_check, record)) break;
     backward_stage(a, s);
     __syncthreads();

@@ -8,6 +8,11 @@
 //   fused_rollout_kernel         replaces ops/fused_rollout.py
 //                                _kernel_rollout
 //
+// Each has a second instantiation with second-order cones in the slack stage
+// (template parameter CONES; replaces fused_admm.py _cone_apply, which the
+// TPU kernels close over when cone operands are given). The box-only
+// instantiations contain no cone code.
+//
 // All three are bound by operations (FP32 FMA), not bytes: global memory is
 // read once and written once per solve; the rollout writes one u0/iteration
 // trace row per tick and keeps the (x0, D, Z, V) carry in shared memory
@@ -25,7 +30,7 @@ namespace atm {
 
 extern __shared__ float4 smem4[];
 
-template <bool ADAPTIVE>
+template <bool ADAPTIVE, bool CONES>
 __device__ inline void solve_block(const Args& a) {
   float* base = reinterpret_cast<float*>(smem4);
   const Layout L = make_layout(a.d);
@@ -40,22 +45,33 @@ __device__ inline void solve_block(const Args& a) {
   __syncthreads();
   compute_xbub(a, s, s.x0, nb);
   __syncthreads();
-  solve_core<ADAPTIVE>(a, s, b0, a.U, a.X, /*keep_u0=*/false);
+  solve_core<ADAPTIVE, CONES>(a, s, b0, a.U, a.X, /*keep_u0=*/false);
   write_result(a, s, b0, nb);
 }
 
 __global__ void __launch_bounds__(256, 1) fused_solve_fixed_kernel(Args a) {
-  solve_block<false>(a);
+  solve_block<false, false>(a);
 }
 
 __global__ void __launch_bounds__(256, 1) fused_solve_adaptive_kernel(Args a) {
-  solve_block<true>(a);
+  solve_block<true, false>(a);
+}
+
+__global__ void __launch_bounds__(256, 1)
+fused_solve_fixed_cones_kernel(Args a) {
+  solve_block<false, true>(a);
+}
+
+__global__ void __launch_bounds__(256, 1)
+fused_solve_adaptive_cones_kernel(Args a) {
+  solve_block<true, true>(a);
 }
 
 // Whole mission: per tick dual reset, solve (fixed or adaptive, warm-started
 // D and slacks), trace of the pre-projection u0 and the iteration count,
 // plant step x+ = A x + B u0. The final tick's full result is returned.
-__global__ void __launch_bounds__(256, 1) fused_rollout_kernel(Args a) {
+template <bool CONES>
+__device__ inline void rollout_block(const Args& a) {
   float* base = reinterpret_cast<float*>(smem4);
   const Dims& d = a.d;
   const Layout L = make_layout(d);
@@ -82,8 +98,8 @@ __global__ void __launch_bounds__(256, 1) fused_rollout_kernel(Args a) {
     __syncthreads();
     float* Uo = last ? a.U : nullptr;
     float* Xo = last ? a.X : nullptr;
-    if (a.check_every > 0) solve_core<true>(a, s, b0, Uo, Xo, true);
-    else solve_core<false>(a, s, b0, Uo, Xo, true);
+    if (a.check_every > 0) solve_core<true, CONES>(a, s, b0, Uo, Xo, true);
+    else solve_core<false, CONES>(a, s, b0, Uo, Xo, true);
 
     // Trace: pre-projection first-knot control and iteration count.
     for (int it = tid; it < nb * d.nu; it += nt) {
@@ -109,6 +125,44 @@ __global__ void __launch_bounds__(256, 1) fused_rollout_kernel(Args a) {
   for (int it = tid; it < nb * d.nx; it += nt)
     a.x_final[(size_t)b0 * d.nx + it] = xc[it];
   write_result(a, s, b0, nb);
+}
+
+__global__ void __launch_bounds__(256, 1) fused_rollout_kernel(Args a) {
+  rollout_block<false>(a);
+}
+
+__global__ void __launch_bounds__(256, 1) fused_rollout_cones_kernel(Args a) {
+  rollout_block<true>(a);
+}
+
+// Fill the cone table from the host arrays of the C interface: cone_idx =
+// [nc_u, nc_x, then per cone nball, axis, ball[MAX_BALL]], cone_par = per
+// cone [mu, shift]. Returns false if a count or an index is out of range.
+static bool fill_cones(Args& a, const int* cone_idx, const float* cone_par,
+                       const float* cone_mu, const float* cone_shift) {
+  ConeTable& ct = a.cones;
+  ct.nc_u = cone_idx[0];
+  ct.nc_x = cone_idx[1];
+  const int nc = ct.nc_u + ct.nc_x;
+  if (ct.nc_u < 0 || ct.nc_x < 0 || nc < 1 || nc > MAX_CONES) return false;
+  if ((cone_mu == nullptr) != (cone_shift == nullptr)) return false;
+  for (int c = 0; c < nc; ++c) {
+    const int* row = cone_idx + 2 + c * (2 + MAX_BALL);
+    const int dim = c < ct.nc_u ? a.d.nu : a.d.nx;
+    ct.nball[c] = row[0];
+    ct.axis[c] = row[1];
+    if (row[0] < 0 || row[0] > MAX_BALL || row[1] < 0 || row[1] >= dim)
+      return false;
+    for (int b = 0; b < MAX_BALL; ++b) {
+      ct.ball[c][b] = b < row[0] ? row[2 + b] : 0;
+      if (ct.ball[c][b] < 0 || ct.ball[c][b] >= dim) return false;
+    }
+    ct.mu[c] = cone_par[2 * c];
+    ct.shift[c] = cone_par[2 * c + 1];
+  }
+  a.cone_mu = cone_mu;
+  a.cone_shift = cone_shift;
+  return true;
 }
 
 template <typename K>
@@ -138,12 +192,17 @@ static int launch(K kernel, Args a, int threads, int smem_bytes,
 extern "C" {
 
 // Bytes of dynamic shared memory one block needs (the layout's own count).
-int atm_fused_smem_bytes(int nx, int nu, int N, int tile) {
-  return atm::make_layout(atm::make_dims(nx, nu, N, tile)).total * 4;
+// ncp: cones with per-instance mu/shift rows (0 when the values are static).
+int atm_fused_smem_bytes(int nx, int nu, int N, int tile, int ncp) {
+  return atm::make_layout(atm::make_dims(nx, nu, N, tile, ncp)).total * 4;
 }
+
 
 // One batched solve. check_every == 0: fixed max_iter iterations; > 0: the
 // adaptive kernel with a check every check_every iterations after warmup.
+// cone_idx != nullptr selects the coned instantiation: cone_idx and cone_par
+// are host arrays (see fill_cones), cone_mu / cone_shift device arrays
+// (nc, B) of per-instance values, or both nullptr for the static ones.
 int atm_fused_solve(
     const float* x0, const float* D0, const float* Y0, const float* G0,
     const float* Z0, const float* V0,
@@ -151,6 +210,8 @@ int atm_fused_solve(
     const float* lo, const float* hi,
     float* U, float* X, float* D, float* Y, float* G, float* Z, float* V,
     float* stats,
+    const int* cone_idx, const float* cone_par,
+    const float* cone_mu, const float* cone_shift,
     int B, int nx, int nu, int N, int max_iter, int check_every, int warmup,
     float rho, float alpha, float pri_tol, float dua_tol,
     int tile, int threads, int smem_bytes, void* stream) {
@@ -163,8 +224,19 @@ int atm_fused_solve(
   a.B = B; a.ticks = 1; a.tracking = 0;
   a.max_iter = max_iter; a.check_every = check_every; a.warmup = warmup;
   a.rho = rho; a.alpha = alpha; a.pri_tol = pri_tol; a.dua_tol = dua_tol;
-  a.d = atm::make_dims(nx, nu, N, tile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cone_idx != nullptr) {
+    const int nc = cone_idx[0] + cone_idx[1];
+    a.d = atm::make_dims(nx, nu, N, tile, cone_mu != nullptr ? nc : 0);
+    if (!atm::fill_cones(a, cone_idx, cone_par, cone_mu, cone_shift))
+      return -1;
+    if (check_every > 0)
+      return atm::launch(atm::fused_solve_adaptive_cones_kernel, a, threads,
+                         smem_bytes, st);
+    return atm::launch(atm::fused_solve_fixed_cones_kernel, a, threads,
+                       smem_bytes, st);
+  }
+  a.d = atm::make_dims(nx, nu, N, tile);
   if (check_every > 0)
     return atm::launch(atm::fused_solve_adaptive_kernel, a, threads,
                        smem_bytes, st);
@@ -173,7 +245,8 @@ int atm_fused_solve(
 }
 
 // One mission of `ticks` receding-horizon ticks. tracking != 0: cd is
-// (ticks, Du), one row per tick; else (Du).
+// (ticks, Du), one row per tick; else (Du). cone_idx / cone_par as in
+// atm_fused_solve (static cone parameters only).
 int atm_fused_rollout(
     const float* x0, const float* D0, const float* Z0, const float* V0,
     const float* Wf, const float* Wb, const float* Wx, const float* cd,
@@ -181,6 +254,7 @@ int atm_fused_rollout(
     float* us, int* iters, float* x_final,
     float* U, float* X, float* D, float* Y, float* G, float* Z, float* V,
     float* stats,
+    const int* cone_idx, const float* cone_par,
     int B, int nx, int nu, int N, int ticks, int tracking,
     int max_iter, int check_every, int warmup,
     float rho, float alpha, float pri_tol, float dua_tol,
@@ -197,6 +271,11 @@ int atm_fused_rollout(
   a.max_iter = max_iter; a.check_every = check_every; a.warmup = warmup;
   a.rho = rho; a.alpha = alpha; a.pri_tol = pri_tol; a.dua_tol = dua_tol;
   a.d = atm::make_dims(nx, nu, N, tile);
+  if (cone_idx != nullptr) {
+    if (!atm::fill_cones(a, cone_idx, cone_par, nullptr, nullptr)) return -1;
+    return atm::launch(atm::fused_rollout_cones_kernel, a, threads, smem_bytes,
+                       static_cast<cudaStream_t>(stream));
+  }
   return atm::launch(atm::fused_rollout_kernel, a, threads, smem_bytes,
                      static_cast<cudaStream_t>(stream));
 }

@@ -26,6 +26,13 @@ reference but not on the iteration, so it is hoisted out of the loop.
 = iterations, solved, pri_state, dua_state, pri_input, dua_input. The
 kernel sees the two spaces concatenated, ``z = [x | u]``.
 
+**Second-order cones.** ``cone_ops`` (from :func:`pad_cones`) appends exact
+cone projections to the slack stage, after the box clip and in the cones'
+order, exactly as the scan tier's ``cone_slack_update``
+(:mod:`..solver.cones`). On the card they run inside the coned
+instantiations of the three kernels (``cone_stage`` in
+``csrc/admm_iteration.cuh``), one thread per (instance, knot).
+
 Beside the kernel sits :func:`fused_solve_plain`, batched tensor code that
 repeats the kernel's arithmetic stage by stage. :func:`fused_solve` takes it
 only for tensors that lie on the CPU; for CUDA tensors it launches the
@@ -51,6 +58,10 @@ LAUNCH_COUNTS = {
     "fused_solve_fixed": 0,
     "fused_solve_adaptive": 0,
     "fused_rollout": 0,
+    # the coned instantiations (cone_ops given)
+    "fused_solve_fixed_cones": 0,
+    "fused_solve_adaptive_cones": 0,
+    "fused_rollout_cones": 0,
 }
 
 # Kernel geometry. Instances per block are a multiple of the register tile;
@@ -62,6 +73,9 @@ MAX_TILE = 64
 MAX_THREADS = 256
 THREADS_PER_INSTANCE = 16
 SMEM_LIMIT_BYTES = 232_448
+# Limits of the kernels' cone table (csrc/admm_iteration.cuh).
+MAX_CONES = 8
+MAX_BALL = 8
 
 
 def reset_launch_counts() -> None:
@@ -198,6 +212,137 @@ def fold_const_d(pp: PaddedProblem, xref_q=None, pterm_c=None) -> torch.Tensor:
     return torch.matmul(xq, pp.W_eq_u) + torch.matmul(pc, pp.W_ep_u)
 
 
+@dataclasses.dataclass(frozen=True)
+class FusedConeOps(_Struct):
+    """Second-order-cone operands of the fused tier (built by
+    :func:`pad_cones`; see :mod:`..solver.cones` for the cone model and the
+    closed-form projection). Per cone the kernel needs the ball indices and
+    the axis index inside a knot, ``mu`` and ``shift``: input cones first,
+    then state cones. ``idx``/``par`` are the host arrays the C entry takes
+    (``[nc_u, nc_x, then per cone nball, axis, ball[MAX_BALL]]`` and
+    ``[mu, shift]`` per cone); ``mu``/``shift`` are the same values on the
+    device, the defaults of the per-instance rows."""
+
+    mu: torch.Tensor      # (nc_u + nc_x,)
+    shift: torch.Tensor   # (nc_u + nc_x,)
+    cones: Any = None     # the ConeSet
+    idx: tuple = ()
+    par: tuple = ()
+    nc_u: int = 0
+    nc_x: int = 0
+
+
+def pad_cones(pp: PaddedProblem, cones) -> FusedConeOps:
+    """Build :class:`FusedConeOps` for a :class:`..solver.cones.ConeSet` on
+    ``pp``'s problem. Raises if a cone indexes outside its knot, if ball and
+    axis overlap, or beyond the kernels' limits (``MAX_CONES`` cones in all,
+    ``MAX_BALL`` ball entries each)."""
+    nx, nu, _N = pp.dims
+    ucones, xcones = tuple(cones.input_cones), tuple(cones.state_cones)
+    if len(ucones) + len(xcones) > MAX_CONES:
+        raise ValueError(
+            f"the fused tier takes at most {MAX_CONES} cones in all, got "
+            f"{len(ucones)} input + {len(xcones)} state cones")
+    idx = [len(ucones), len(xcones)]
+    par = []
+    for kind, dim, group in (("input", nu, ucones), ("state", nx, xcones)):
+        for c, cone in enumerate(group):
+            ball = [int(b) for b in cone.ball]
+            axis = int(cone.axis)
+            if len(ball) > MAX_BALL:
+                raise ValueError(
+                    f"{kind} cone {c}: at most {MAX_BALL} ball entries")
+            if any(not 0 <= b < dim for b in ball + [axis]):
+                raise ValueError(
+                    f"{kind} cone {c}: indices must be in [0, {dim})")
+            if axis in ball:
+                raise ValueError(f"{kind} cone {c}: axis is in the ball")
+            idx += [len(ball), axis] + ball + [0] * (MAX_BALL - len(ball))
+            par += [float(cone.mu), float(cone.shift)]
+    dtype, device = pp.lo.dtype, pp.lo.device
+    vals = torch.tensor(par, dtype=torch.float64).reshape(-1, 2)
+    return FusedConeOps(
+        mu=vals[:, 0].to(device=device, dtype=dtype),
+        shift=vals[:, 1].to(device=device, dtype=dtype),
+        cones=cones, idx=tuple(idx), par=tuple(par),
+        nc_u=len(ucones), nc_x=len(xcones),
+    )
+
+
+def _cone_rows(cone_ops, cone_mu_u, cone_shift_u, cone_mu_x, cone_shift_x,
+               batch: int):
+    """Per-instance ``(mu, shift)`` rows ``(nc_u + nc_x, B)`` over all cones
+    in the table's order, or ``(None, None)`` when no override is given. A
+    defaulted entry takes the cone's static value, so the rows are complete
+    whenever one override is given."""
+    has_pu = cone_mu_u is not None or cone_shift_u is not None
+    has_px = cone_mu_x is not None or cone_shift_x is not None
+    nc_u = cone_ops.nc_u if cone_ops is not None else 0
+    nc_x = cone_ops.nc_x if cone_ops is not None else 0
+    if (has_pu and not nc_u) or (has_px and not nc_x):
+        raise ValueError("per-instance cone parameters without the "
+                         "matching cones in cone_ops")
+    if not (has_pu or has_px):
+        return None, None
+    dtype, device = cone_ops.mu.dtype, cone_ops.mu.device
+
+    def rows(given, static, nc):
+        if given is None:
+            return static[:, None].expand(nc, batch)
+        given = torch.as_tensor(given).to(device=device, dtype=dtype)
+        if tuple(given.shape) != (nc, batch):
+            raise ValueError(
+                f"per-instance cone parameters must be ({nc}, {batch}), "
+                f"got {tuple(given.shape)}")
+        return given
+
+    mu = torch.cat([rows(cone_mu_u, cone_ops.mu[:nc_u], nc_u),
+                    rows(cone_mu_x, cone_ops.mu[nc_u:], nc_x)])
+    shift = torch.cat([rows(cone_shift_u, cone_ops.shift[:nc_u], nc_u),
+                       rows(cone_shift_x, cone_ops.shift[nc_u:], nc_x)])
+    return mu.contiguous(), shift.contiguous()
+
+
+def _apply_cones(W, group, dim: int, mu_rows, shift_rows, first: int):
+    """Each cone of ``group`` in order on flat slacks ``W (B, K*dim)`` viewed
+    per knot; ``mu_rows``/``shift_rows`` (``(nc, B)`` or None) give
+    per-instance values, cone ``c`` of the group at row ``first + c``."""
+    from ..solver.cones import _project
+
+    if not group:
+        return W
+    Wk = W.reshape(W.shape[0], -1, dim).clone()
+    for c, cone in enumerate(group):
+        ball = list(cone.ball)
+        if mu_rows is None:
+            mu, shift = cone.mu, cone.shift
+        else:
+            mu = mu_rows[first + c][:, None]
+            shift = shift_rows[first + c][:, None]
+        v_new, s_new = _project(
+            Wk[..., ball], Wk[..., cone.axis] + shift, mu, shift)
+        Wk[..., cone.axis] = s_new
+        Wk[..., ball] = v_new
+    return Wk.reshape(W.shape[0], -1)
+
+
+def _cone_fns(cone_ops, mu_rows, shift_rows, pp: PaddedProblem):
+    """``(cone_u, cone_x)``: the slack-stage projections of the plain
+    version, or None where there are no cones of that kind."""
+    if cone_ops is None:
+        return None, None
+    nx, nu, _N = pp.dims
+    cs = cone_ops.cones
+    cone_u = cone_x = None
+    if cs.input_cones:
+        cone_u = lambda Z: _apply_cones(
+            Z, cs.input_cones, nu, mu_rows, shift_rows, 0)
+    if cs.state_cones:
+        cone_x = lambda V: _apply_cones(
+            V, cs.state_cones, nx, mu_rows, shift_rows, cone_ops.nc_u)
+    return cone_u, cone_x
+
+
 class FusedCarry(NamedTuple):
     """Warm-start carries persisting across MPC ticks, ``(B, .)`` unpadded.
     The reference keeps these in its global workspace between tiny_solve
@@ -237,10 +382,13 @@ class FusedResult(NamedTuple):
 
 # ------------------------------------------------------------ plain version --
 
-def _iteration(D, Y, G, Z, V, pp: PaddedProblem, Xb, Ub, const_d, alpha):
+def _iteration(D, Y, G, Z, V, pp: PaddedProblem, Xb, Ub, const_d, alpha,
+               cone_u=None, cone_x=None):
     """One folded condensed ADMM iteration on ``(B, .)`` tensors -- the
     arithmetic of the kernel's forward/clip/dual/backward stages. Stage order
-    is the reference's (src/tinympc/admm.cpp:117-150)."""
+    is the reference's (src/tinympc/admm.cpp:117-150). ``cone_u``/``cone_x``
+    project the clipped slacks onto the cones (composition after the box
+    clip, as :func:`..solver.cones.cone_slack_update`)."""
     X = Xb + torch.matmul(D, pp.W_fd)
     U = Ub + torch.matmul(D, pp.W_gd)
     if alpha != 1.0:
@@ -250,9 +398,13 @@ def _iteration(D, Y, G, Z, V, pp: PaddedProblem, Xb, Ub, const_d, alpha):
         Ur, Xr = U, X
     S = Ur + Y
     Znew = torch.minimum(torch.maximum(S, pp.u_min), pp.u_max)
+    if cone_u is not None:
+        Znew = cone_u(Znew)
     Yn = S - Znew
     T = Xr + G
     Vnew = torch.minimum(torch.maximum(T, pp.x_min), pp.x_max)
+    if cone_x is not None:
+        Vnew = cone_x(Vnew)
     Gn = T - Vnew
     Dn = (torch.matmul(Vnew - Gn, pp.W_q)
           + torch.matmul(Znew - Yn, pp.W_r) + const_d)
@@ -274,11 +426,20 @@ def fused_solve_plain(
     abs_pri_tol: float = 1e-3, abs_dua_tol: float = 1e-3,
     warmup_iters: int = 0, xref_q=None, pterm_c=None, alpha: float = 1.0,
     const_d: torch.Tensor | None = None,
+    cone_ops: FusedConeOps | None = None,
+    cone_mu_u=None, cone_shift_u=None, cone_mu_x=None, cone_shift_x=None,
 ) -> FusedResult:
     """Plain PyTorch version of the fused solve (fixed and adaptive): the
     kernel's arithmetic, stage by stage, on whole-batch tensors. Runs on any
     device and in float32 or float64. ``const_d`` (``(1, Du)``) gives the
-    folded reference constant directly, as the rollout streams it."""
+    folded reference constant directly, as the rollout streams it. The cone
+    arguments are those of :func:`fused_solve`."""
+    mu_rows, shift_rows = _cone_rows(
+        cone_ops, cone_mu_u, cone_shift_u, cone_mu_x, cone_shift_x,
+        x0.shape[0])
+    if mu_rows is not None:
+        mu_rows, shift_rows = mu_rows.to(x0.dtype), shift_rows.to(x0.dtype)
+    cone_u, cone_x = _cone_fns(cone_ops, mu_rows, shift_rows, pp)
     with torch.no_grad():
         if const_d is None:
             const_d = fold_const_d(pp, xref_q, pterm_c)
@@ -287,7 +448,7 @@ def fused_solve_plain(
         D, Y, G, Z, V = carry
         B = x0.shape[0]
         step = lambda D, Y, G, Z, V: _iteration(
-            D, Y, G, Z, V, pp, Xb, Ub, const_d, alpha)
+            D, Y, G, Z, V, pp, Xb, Ub, const_d, alpha, cone_u, cone_x)
         stats = torch.zeros((B, 6), dtype=x0.dtype, device=x0.device)
 
         if check_termination <= 0:
@@ -343,10 +504,13 @@ def fused_solve_plain(
 
 # ------------------------------------------------------------------ kernel --
 
-def kernel_smem_bytes(nx: int, nu: int, horizon: int, tile: int) -> int:
+def kernel_smem_bytes(nx: int, nu: int, horizon: int, tile: int,
+                      ncp: int = 0) -> int:
     """Dynamic shared memory one block needs: mirrors ``make_layout`` in
     ``csrc/admm_iteration.cuh`` (the C entry refuses a launch when the two
-    disagree)."""
+    disagree). ``ncp`` is the number of cones with per-instance mu/shift
+    rows (0 for static cone parameters and for box-only solves): the coned
+    kernels need nothing else beyond the box layout."""
     r4 = lambda n: (n + 3) & ~3
     Dx, Du = horizon * nx, (horizon - 1) * nu
     Dz = Dx + Du
@@ -357,25 +521,26 @@ def kernel_smem_bytes(nx: int, nu: int, horizon: int, tile: int) -> int:
         + r4(tile * DuP) + 3 * r4(tile * DzP) + r4(2 * tile * DzP)
         + r4(2 * tile * nx) + r4(tile * nu) + r4(tile * 6)
         + r4(tile * 4) + 3 * r4(tile)
+        + 2 * r4(ncp * tile)
     )
     return 4 * words
 
 
 def choose_tile(dims: tuple, batch: int, n_sm: int = 132,
-                limit: int = SMEM_LIMIT_BYTES) -> int:
+                limit: int = SMEM_LIMIT_BYTES, ncp: int = 0) -> int:
     """Instances per block: the largest multiple of the register tile that
     fits shared memory, not more than spreads the batch over all SMs. Raises
     if even one register tile does not fit beside the operators."""
     nx, nu, N = dims
-    if kernel_smem_bytes(nx, nu, N, REGISTER_TILE) > limit:
+    if kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp) > limit:
         raise ValueError(
             f"the condensed operators for nx={nx}, nu={nu}, horizon={N} need "
-            f"{kernel_smem_bytes(nx, nu, N, REGISTER_TILE)} bytes of shared "
+            f"{kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp)} bytes of shared "
             f"memory per block (limit {limit}): the fused tier holds them "
             "on the SM; long horizons belong to the stream tier")
     fit = REGISTER_TILE
     while (fit + REGISTER_TILE <= MAX_TILE and
-           kernel_smem_bytes(nx, nu, N, fit + REGISTER_TILE) <= limit):
+           kernel_smem_bytes(nx, nu, N, fit + REGISTER_TILE, ncp) <= limit):
         fit += REGISTER_TILE
     per_sm = -(-batch // n_sm)
     want = -(-per_sm // REGISTER_TILE) * REGISTER_TILE
@@ -392,13 +557,13 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("fused_admm")
     if not getattr(lib, "_atm_declared", False):
-        lib.atm_fused_smem_bytes.argtypes = [_I] * 4
+        lib.atm_fused_smem_bytes.argtypes = [_I] * 5
         lib.atm_fused_smem_bytes.restype = _I
         lib.atm_fused_solve.argtypes = (
-            [_P] * 20 + [_I] * 7 + [_F] * 4 + [_I] * 3 + [_P])
+            [_P] * 24 + [_I] * 7 + [_F] * 4 + [_I] * 3 + [_P])
         lib.atm_fused_solve.restype = _I
         lib.atm_fused_rollout.argtypes = (
-            [_P] * 23 + [_I] * 9 + [_F] * 4 + [_I] * 3 + [_P])
+            [_P] * 25 + [_I] * 9 + [_F] * 4 + [_I] * 3 + [_P])
         lib.atm_fused_rollout.restype = _I
         lib._atm_declared = True
     return lib
@@ -431,20 +596,33 @@ def _kernel_operands(pp: PaddedProblem, device) -> tuple:
     )
 
 
-def _geometry(pp: PaddedProblem, B: int, device, batch_tile, threads):
+def _geometry(pp: PaddedProblem, B: int, device, batch_tile, threads,
+              ncp: int = 0):
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
     nx, nu, N = pp.dims
     if batch_tile is None:
-        tile = choose_tile(pp.dims, B, props.multi_processor_count, limit)
+        tile = choose_tile(pp.dims, B, props.multi_processor_count, limit, ncp)
     else:
         tile = max(REGISTER_TILE,
                    -(-int(batch_tile) // REGISTER_TILE) * REGISTER_TILE)
-        tile = min(tile, choose_tile(pp.dims, 10 ** 9, 1, limit))
+        tile = min(tile, choose_tile(pp.dims, 10 ** 9, 1, limit, ncp))
     if threads is None:
         threads = min(MAX_THREADS, THREADS_PER_INSTANCE * tile)
     threads = max(int(threads), -(-tile // 32) * 32)
-    return tile, threads, kernel_smem_bytes(nx, nu, N, tile)
+    return tile, threads, kernel_smem_bytes(nx, nu, N, tile, ncp)
+
+
+def _cone_table(cone_ops: FusedConeOps | None):
+    """The host arrays of the C entries' cone table as ``(idx, par)``
+    pointers (``None, None`` without cones) plus the ctypes arrays that must
+    outlive the call."""
+    if cone_ops is None or not (cone_ops.nc_u or cone_ops.nc_x):
+        return None, None, ()
+    idx = (ctypes.c_int * len(cone_ops.idx))(*cone_ops.idx)
+    par = (ctypes.c_float * len(cone_ops.par))(*cone_ops.par)
+    return (ctypes.cast(idx, ctypes.c_void_p),
+            ctypes.cast(par, ctypes.c_void_p), (idx, par))
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -456,7 +634,7 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def _unsupported(algo, polish, cone_ops, cone_params) -> None:
+def _unsupported(algo, polish) -> None:
     if algo == "bf16x3":
         raise NotImplementedError(
             "algo='bf16x3' is the TPU's split-operand MXU mode; its Hopper "
@@ -464,10 +642,6 @@ def _unsupported(algo, polish, cone_ops, cone_params) -> None:
             "'Hopper arithmetic modes for K1-K3' item of ROADMAP.md")
     if algo != "f32":
         raise ValueError(f"unknown algo {algo!r}; use 'f32'")
-    if cone_ops is not None or any(p is not None for p in cone_params):
-        raise NotImplementedError(
-            "second-order cones in the fused tier come with ROADMAP.md "
-            "slice 6 (kernel K4)")
 
 
 def fused_solve(
@@ -485,7 +659,7 @@ def fused_solve(
     pterm_c: torch.Tensor | None = None,
     algo: str = "f32",
     polish: int = 8,
-    cone_ops=None,
+    cone_ops: FusedConeOps | None = None,
     cone_mu_u=None,
     cone_shift_u=None,
     cone_mu_x=None,
@@ -494,6 +668,16 @@ def fused_solve(
     threads: int | None = None,
 ) -> FusedResult:
     """Run the fused whole-solve over a batch.
+
+    ``cone_ops`` (from :func:`pad_cones`) appends exact second-order-cone
+    projections to the slack stage; composition after the box clip matches
+    the scan tier's ``cone_slack_update`` exactly.
+    ``cone_mu_u``/``cone_shift_u`` (``(n_input_cones, B)``; likewise ``*_x``
+    for state cones) override the cones' scalar parameters *per instance* --
+    constraint-parameter sweeps (e.g. per-lander tilt limits) over one shared
+    plant; per-instance *geometry* (ball/axis) needs the instance-ops tier.
+    Where they equal the static scalars the arithmetic is the same, so the
+    result is too. Requires ``cone_ops``.
 
     ``x0`` is ``(B, nx)``; carries are :class:`FusedCarry`. Any batch size is
     taken (the kernel masks the ragged edge of the last tile).
@@ -506,11 +690,11 @@ def fused_solve(
     kernel's launch geometry.
 
     Tensors on the CPU go through :func:`fused_solve_plain`; tensors on a
-    CUDA device launch the kernel (float32 only) or raise. ``algo='bf16x3'``,
-    ``polish`` and the cone arguments raise ``NotImplementedError`` for now.
+    CUDA device launch the kernel (float32 only) or raise. ``algo='bf16x3'``
+    raises ``NotImplementedError`` for now (``polish`` is that mode's knob
+    and is not read).
     """
-    _unsupported(algo, polish, cone_ops,
-                 (cone_mu_u, cone_shift_u, cone_mu_x, cone_shift_x))
+    _unsupported(algo, polish)
     if max_iter < 1:
         raise ValueError("the fused tier runs at least one iteration; "
                          "use the scan tier for max_iter=0")
@@ -520,13 +704,24 @@ def fused_solve(
             check_termination=check_termination,
             abs_pri_tol=abs_pri_tol, abs_dua_tol=abs_dua_tol,
             warmup_iters=warmup_iters, xref_q=xref_q, pterm_c=pterm_c,
-            alpha=alpha,
+            alpha=alpha, cone_ops=cone_ops,
+            cone_mu_u=cone_mu_u, cone_shift_u=cone_shift_u,
+            cone_mu_x=cone_mu_x, cone_shift_x=cone_shift_x,
         )
 
     nx, nu, N = pp.dims
     Dx, Du = pp.Dx, pp.Du
     B = x0.shape[0]
     dev = x0.device
+    mu_rows, shift_rows = _cone_rows(
+        cone_ops, cone_mu_u, cone_shift_u, cone_mu_x, cone_shift_x, B)
+    cone_idx, cone_par, _alive = _cone_table(cone_ops)
+    coned = cone_idx is not None
+    ncp = 0
+    if mu_rows is not None:
+        ncp = cone_ops.nc_u + cone_ops.nc_x
+        mu_rows = _check("cone mu rows", mu_rows, (ncp, B), dev)
+        shift_rows = _check("cone shift rows", shift_rows, (ncp, B), dev)
     x0 = _check("x0", x0, (B, nx), dev)
     D0 = _check("carry.D", carry.D, (B, Du), dev)
     Y0 = _check("carry.Y", carry.Y, (B, Du), dev)
@@ -537,7 +732,7 @@ def fused_solve(
     with torch.no_grad():
         const_d = _check("const_d", fold_const_d(pp, xref_q, pterm_c),
                          (1, Du), dev)
-    tile, threads, smem = _geometry(pp, B, dev, batch_tile, threads)
+    tile, threads, smem = _geometry(pp, B, dev, batch_tile, threads, ncp)
 
     new = lambda w: torch.empty((B, w), dtype=torch.float32, device=dev)
     U, X, D, Y, G, Z, V = (new(Du), new(Dx), new(Du), new(Du), new(Dx),
@@ -554,6 +749,9 @@ def fused_solve(
             const_d.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             U.data_ptr(), X.data_ptr(), D.data_ptr(), Y.data_ptr(),
             G.data_ptr(), Z.data_ptr(), V.data_ptr(), stats.data_ptr(),
+            cone_idx, cone_par,
+            mu_rows.data_ptr() if ncp else None,
+            shift_rows.data_ptr() if ncp else None,
             B, nx, nu, N, int(max_iter),
             int(check_termination) if adaptive else 0,
             min(int(warmup_iters), int(max_iter) - 1) if adaptive else 0,
@@ -563,7 +761,8 @@ def fused_solve(
         )
     _raise_on(err, "fused_solve")
     LAUNCH_COUNTS[
-        "fused_solve_adaptive" if adaptive else "fused_solve_fixed"] += 1
+        ("fused_solve_adaptive" if adaptive else "fused_solve_fixed")
+        + ("_cones" if coned else "")] += 1
     return FusedResult(
         U=U, X=X, carry=FusedCarry(D=D, Y=Y, G=G, Z=Z, V=V), stats=stats)
 

@@ -34,9 +34,11 @@ from ..types import DEFAULT_DEVICE, Problem
 from .fused_admm import (
     LAUNCH_COUNTS,
     FusedCarry,
+    FusedConeOps,
     FusedResult,
     PaddedProblem,
     _check,
+    _cone_table,
     _geometry,
     _kernel_operands,
     _library,
@@ -112,10 +114,11 @@ def fused_rollout_plain(
     max_iter: int = 100, check_termination: int = 0,
     abs_pri_tol: float = 1e-3, abs_dua_tol: float = 1e-3,
     warmup_iters: int = 0, const_seq: torch.Tensor | None = None,
-    alpha: float = 1.0,
+    alpha: float = 1.0, cone_ops: FusedConeOps | None = None,
 ) -> RolloutResult:
     """Plain PyTorch version of the in-kernel rollout: the kernel's tick loop
-    on whole-batch tensors, each tick through :func:`fused_solve_plain`."""
+    on whole-batch tensors, each tick through :func:`fused_solve_plain`
+    (with ``cone_ops``: coned solves)."""
     _validate(max_iter, n_ticks)
     with torch.no_grad():
         const_d = fold_const_d(pp) if const_seq is None else None
@@ -128,7 +131,7 @@ def fused_rollout_plain(
                 x, carry.reset_duals(), pp, const_d=cd, max_iter=max_iter,
                 check_termination=check_termination,
                 abs_pri_tol=abs_pri_tol, abs_dua_tol=abs_dua_tol,
-                warmup_iters=warmup_iters, alpha=alpha,
+                warmup_iters=warmup_iters, alpha=alpha, cone_ops=cone_ops,
             )
             carry = res.carry
             u0 = res.U[:, : pp.dims[1]]
@@ -156,7 +159,7 @@ def fused_rollout(
     const_seq: torch.Tensor | None = None,
     algo: str = "f32",
     polish: int = 8,
-    cone_ops=None,
+    cone_ops: FusedConeOps | None = None,
     alpha: float = 1.0,
     threads: int | None = None,
 ) -> RolloutResult:
@@ -168,13 +171,17 @@ def fused_rollout(
     tick's solve in the adaptive core at the given tolerances (the warm-tick
     fast path); 0 = fixed ``max_iter`` iterations per tick. The incoming
     ``carry.Y``/``carry.G`` are not read: every tick starts from zero duals.
+    ``cone_ops`` (:func:`.fused_admm.pad_cones`) appends exact
+    second-order-cone projections to every tick's slack stage -- identical
+    composition to :func:`.fused_admm.fused_solve` (coned powered-descent
+    missions in one launch).
     Semantics per tick match :func:`..api.mpc.fused_mpc_rollout` (the
     loop-of-kernels implementation of the same loop).
 
     Tensors on the CPU go through :func:`fused_rollout_plain`; tensors on a
     CUDA device launch the kernel (float32 only) or raise.
     """
-    _unsupported(algo, polish, cone_ops, ())
+    _unsupported(algo, polish)
     _validate(max_iter, n_ticks)
     T = int(n_ticks)
     Du = pp.Du
@@ -187,6 +194,7 @@ def fused_rollout(
             check_termination=check_termination,
             abs_pri_tol=abs_pri_tol, abs_dua_tol=abs_dua_tol,
             warmup_iters=warmup_iters, const_seq=const_seq, alpha=alpha,
+            cone_ops=cone_ops,
         )
 
     nx, nu, N = pp.dims
@@ -206,6 +214,7 @@ def fused_rollout(
     else:
         cd = _check("const_seq", const_seq, (T, Du), dev)
     tile, threads, smem = _geometry(pp, B, dev, batch_tile, threads)
+    cone_idx, cone_par, _alive = _cone_table(cone_ops)
 
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     us = new(T, B, nu)
@@ -225,6 +234,7 @@ def fused_rollout(
             us.data_ptr(), iters.data_ptr(), x_final.data_ptr(),
             U.data_ptr(), X.data_ptr(), D.data_ptr(), Y.data_ptr(),
             G.data_ptr(), Z.data_ptr(), V.data_ptr(), stats.data_ptr(),
+            cone_idx, cone_par,
             B, nx, nu, N, T, 0 if const_seq is None else 1,
             int(max_iter), int(check_termination) if adaptive else 0,
             min(int(warmup_iters), int(max_iter) - 1) if adaptive else 0,
@@ -233,7 +243,8 @@ def fused_rollout(
             tile, threads, smem, stream,
         )
     _raise_on(err, "fused_rollout")
-    LAUNCH_COUNTS["fused_rollout"] += 1
+    LAUNCH_COUNTS[
+        "fused_rollout" + ("_cones" if cone_idx is not None else "")] += 1
     final = FusedResult(
         U=U, X=X, carry=FusedCarry(D=D, Y=Y, G=G, Z=Z, V=V), stats=stats)
     return RolloutResult(x_final=x_final, us=us, iters=iters, final=final)

@@ -1,6 +1,8 @@
 """Solver tiers: scan (ground truth), batched (leading batch axis + masked
 early termination), condensed (dense horizon operators). The fused CUDA tier
-lives in :mod:`..ops.fused_admm`."""
+lives in :mod:`..ops.fused_admm`. Beside them: second-order cones, the
+compaction cascade over the fused adaptive kernel, adaptive rho (single
+instance and per instance) and the per-instance-operator tier."""
 
 from . import admm  # noqa: F401
 from .admm import admm_iteration, solve  # noqa: F401
@@ -14,4 +16,30 @@ from .condensed import (  # noqa: F401
     init_flat_state,
     solve_condensed,
     state_from_flat,
+)
+from .adaptive_rho import AdaptiveRhoResult, solve_adaptive_rho  # noqa: F401
+from .batched_ops import (  # noqa: F401
+    AdaptiveRhoBatchedResult,
+    InstanceOps,
+    OpsState,
+    build_instance_ops,
+    build_instance_ops_from_plants,
+    solve_adaptive_rho_batched,
+    solve_adaptive_rho_chunked,
+    solve_instance_ops,
+)
+from .cascade import (  # noqa: F401
+    cascade_solve,
+    hetero_cascade_solve,
+    hstream_cascade_solve,
+    stream_cascade_solve,
+)
+from .cones import (  # noqa: F401
+    Cone,
+    ConeSet,
+    cone_slack_update,
+    cone_violation,
+    make_cone_args,
+    project_cone,
+    project_cone_masked,
 )

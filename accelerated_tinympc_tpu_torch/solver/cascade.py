@@ -1,0 +1,201 @@
+"""Early-termination compaction cascade over the fused adaptive kernel.
+
+Counterpart of ``cascade_solve`` in the JAX package's ``solver/cascade.py``.
+The adaptive fused kernel freezes converged instances in place: a block of
+instances leaves its loop only when all of them are done, so one straggler
+keeps its whole block at ``max_iter`` cost (ops/csrc/admm_iteration.cuh; the
+reference has the same all-or-nothing structure per solve, just with a batch
+of one -- src/tinympc/admm.cpp:117-152).
+
+:func:`cascade_solve` reclaims that compute at the launch level: run the
+kernel ``segment_iters`` iterations at a time, pull converged instances out
+of the batch between segments, and launch again on the survivors only,
+compacted to the front of a smaller batch. Because the kernel's whole loop
+state is the :class:`..ops.fused_admm.FusedCarry` (the per-iteration map
+consumes only D/Y/G, with Z/V entering residuals alone) and checks fire at
+in-call iteration multiples of ``check_termination``, a segment boundary at
+a multiple of the check interval is invisible to the iterate sequence: the
+cascade is *iteration-exact* against one long adaptive call -- same
+iteration counts, same convergence flags, same check schedule
+(tests/test_torch_cascade.py). Iterate values are the same arithmetic on the
+same numbers, up to the grouping of sums: a smaller batch may run at another
+tile, which splits the backward product's depth over other lanes (on the
+CPU: the matrix products group their sums by batch size), a few float32 ulp
+on the iterates. That can only alter scheduling if a residual sits within
+an ulp of the tolerance at a check.
+
+Cost model: one long call costs ``sum over blocks of (block's slowest
+instance)`` iterations; the cascade costs ``sum_s survivors_s * segment_s``
+plus, per segment, one launch, one ``index_copy_`` of the segment's rows
+into the preallocated ``(B, .)`` outputs, one read of the solved column by
+the host, and one ``index_select`` of the survivors. On workloads where most
+instances converge early (warm-started MPC re-solves, mixed-difficulty
+sweeps) the reclaimed tail dominates; for tightly clustered convergence use
+one plain :func:`..ops.fused_admm.fused_solve` call.
+
+The hetero, stream and hstream cascades of the JAX package wait for their
+kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.fused_admm import (
+    FusedCarry,
+    FusedResult,
+    PaddedProblem,
+    fused_solve,
+)
+
+__all__ = ["cascade_solve"]
+
+
+def cascade_solve(
+    x0: torch.Tensor,
+    carry: FusedCarry,
+    pp: PaddedProblem,
+    *,
+    max_iter: int = 100,
+    check_termination: int = 1,
+    segment_iters: int | None = None,
+    segment_growth: float = 4.0,
+    abs_pri_tol: float = 1e-3,
+    abs_dua_tol: float = 1e-3,
+    batch_tile: int | None = None,
+    warmup_iters: int = 0,
+    xref_q: torch.Tensor | None = None,
+    pterm_c: torch.Tensor | None = None,
+    cone_ops=None,
+    cone_mu_u=None,
+    cone_shift_u=None,
+    cone_mu_x=None,
+    cone_shift_x=None,
+    algo: str = "f32",
+    alpha: float = 1.0,
+    trace: list | None = None,
+) -> FusedResult:
+    """Adaptive fused solve with between-segment batch compaction.
+
+    Drop-in equivalent of ``fused_solve(..., check_termination>0)`` -- same
+    arguments, same :class:`FusedResult` (full original batch order) -- but
+    converged instances stop occupying a block at the next segment boundary.
+
+    ``segment_iters`` (default: ~25, rounded to a multiple of
+    ``check_termination``) must be a multiple of ``check_termination`` so
+    the in-call check schedule composes to the single-call schedule.
+    Segments grow geometrically by ``segment_growth`` (rounded to check
+    multiples): the survivors of each compaction are the hard instances,
+    which converge rarely -- longer late segments trade (useless) compaction
+    opportunities for fewer launches and host reads.
+    ``warmup_iters`` applies to the first segment only. This is a host loop
+    with one device-to-host read per segment.
+
+    The JAX function's ``min_bucket`` is not carried over: there the
+    survivors are padded to a power-of-two bucket (by repeating the last
+    survivor, results sent to a discard row) only to bound recompiles of a
+    shape-specialised kernel. The CUDA kernel takes any batch size and masks
+    its own ragged edge, so the survivors are launched as they are: no
+    bucket ladder, no padding, no discard row.
+
+    ``trace``, if a list, receives one ``(iterations, batch)`` pair per
+    segment launched.
+    """
+    if check_termination <= 0:
+        raise ValueError(
+            "cascade_solve requires adaptive mode (check_termination > 0); "
+            "fixed-iteration solves cannot converge early"
+        )
+    if segment_iters is None:
+        segment_iters = check_termination * max(
+            1, round(25 / check_termination)
+        )
+    if segment_iters % check_termination != 0:
+        raise ValueError(
+            f"segment_iters ({segment_iters}) must be a multiple of "
+            f"check_termination ({check_termination}) so the check schedule "
+            "matches a single adaptive call"
+        )
+    if warmup_iters >= segment_iters:
+        raise ValueError("warmup_iters must be < segment_iters")
+    if segment_growth < 1.0:
+        raise ValueError("segment_growth must be >= 1.0")
+
+    common = dict(
+        check_termination=check_termination, abs_pri_tol=abs_pri_tol,
+        abs_dua_tol=abs_dua_tol, batch_tile=batch_tile, xref_q=xref_q,
+        pterm_c=pterm_c, cone_ops=cone_ops, algo=algo, alpha=alpha,
+    )
+    cols = {"cone_mu_u": cone_mu_u, "cone_shift_u": cone_shift_u,
+            "cone_mu_x": cone_mu_x, "cone_shift_x": cone_shift_x}
+    cols = {k: None if v is None else torch.as_tensor(v).to(x0.device)
+            for k, v in cols.items()}
+
+    if max_iter <= segment_iters:
+        if trace is not None:
+            trace.append((max_iter, x0.shape[0]))
+        return fused_solve(x0, carry, pp, max_iter=max_iter,
+                           warmup_iters=warmup_iters, **common, **cols)
+
+    with torch.no_grad():
+        # Active set: the first launch is the whole batch; afterwards `idx`
+        # maps the rows of the compacted batch to their original indices.
+        # Iteration counts compose as offset + in-segment value (unsolved
+        # instances report the segment's full length, so offsets telescope
+        # as later segments overwrite their rows).
+        idx = None
+        x0_b, carry_b = x0, carry
+        out = None
+        done_iters = 0
+        cur_seg = segment_iters
+        while True:
+            k = min(cur_seg, max_iter - done_iters)
+            if trace is not None:
+                trace.append((k, x0_b.shape[0]))
+            res = fused_solve(
+                x0_b, carry_b, pp, max_iter=k,
+                warmup_iters=warmup_iters if done_iters == 0 else 0,
+                **common, **cols)
+            stats = res.stats.clone()
+            stats[:, 0] += done_iters
+            rows = (res.U, res.X, stats) + tuple(res.carry)
+            if out is None:
+                out = tuple(r.clone() for r in rows)
+            else:
+                for buf, r in zip(out, rows):
+                    buf.index_copy_(0, idx, r)
+            done_iters += k
+            if done_iters >= max_iter:
+                break
+            keep = torch.nonzero(res.stats[:, 1].cpu() < 0.5)[:, 0]
+            if keep.numel() == 0:
+                break
+            # Geometric segment growth, kept on the check-interval grid (any
+            # multiple-of-check segmentation preserves the global schedule).
+            cur_seg = max(
+                check_termination,
+                int(cur_seg * segment_growth)
+                // check_termination * check_termination,
+            )
+            keep = keep.to(x0.device)
+            idx = keep if idx is None else idx.index_select(0, keep)
+            x0_b = x0_b.index_select(0, keep)
+            carry_b = FusedCarry(*(a.index_select(0, keep) for a in res.carry))
+            cols = {k_: None if v is None else v.index_select(1, keep)
+                    for k_, v in cols.items()}
+    return FusedResult(U=out[0], X=out[1], carry=FusedCarry(*out[3:]),
+                       stats=out[2])
+
+
+def _waits(name: str, slice_: str):
+    def fn(*_a, **_k):
+        raise NotImplementedError(
+            f"{name} is not ported yet: it waits for its kernel "
+            f"(ROADMAP.md slice {slice_})")
+    fn.__name__ = name
+    return fn
+
+
+hetero_cascade_solve = _waits("hetero_cascade_solve", "9")
+stream_cascade_solve = _waits("stream_cascade_solve", "10")
+hstream_cascade_solve = _waits("hstream_cascade_solve", "10")

@@ -135,11 +135,13 @@ def condensed_iteration(
 ) -> FlatState:
     """One ADMM iteration, condensed. Mirrors reference
     src/tinympc/admm.cpp:117-150 stage order exactly; see :mod:`.admm` for
-    the semantics being reproduced. ``cones`` (second-order-cone
-    projections after the box clip) are not ported yet."""
-    if cones is not None:
-        raise NotImplementedError(
-            "cones on the condensed tier come with ROADMAP.md slice 6")
+    the semantics being reproduced.
+
+    ``cones`` (a :class:`..solver.cones.ConeSet`) appends exact
+    second-order-cone projections to the slack stage, composed after the box
+    clip exactly as the scan tier's :func:`..solver.cones.cone_slack_update`
+    -- the flat slacks are viewed per knot for the projection. Requires
+    ``nu`` (the flat layout alone does not determine the knot width)."""
     s = s.replace(iter=s.iter + 1)
 
     # --- forward pass: X = x0 Fx0^T + D Fd^T; U = x0 Gx0^T + D Gd^T ----------
@@ -161,6 +163,14 @@ def condensed_iteration(
         Znew = torch.minimum(fp.u_max, torch.maximum(fp.u_min, Znew))
     if settings.en_state_bound:
         Vnew = torch.minimum(fp.x_max, torch.maximum(fp.x_min, Vnew))
+    if cones is not None and (cones.input_cones or cones.state_cones):
+        from .cones import project_flat
+
+        if cones.input_cones:
+            if nu is None:
+                raise ValueError("cones on the condensed tier require nu")
+            Znew = project_flat(Znew, cones.input_cones, nu)
+        Vnew = project_flat(Vnew, cones.state_cones, nx)
 
     # --- dual ascent (admm.cpp:67-71; relaxed iterates when alpha != 1) ------
     Y = s.Y + Ur - Znew
@@ -221,12 +231,11 @@ def solve_condensed(
     nu: int | None = None,
 ) -> FlatState:
     """Condensed batched ADMM loop; same freeze-on-converge semantics as
-    :func:`.batched.solve_batched`."""
-    if cones is not None:
-        raise NotImplementedError(
-            "cones on the condensed tier come with ROADMAP.md slice 6")
+    :func:`.batched.solve_batched`. ``cones``/``nu`` as in
+    :func:`condensed_iteration`."""
     with torch.no_grad():
-        step = lambda st: condensed_iteration(st, fp, ops, settings, nx)
+        step = lambda st: condensed_iteration(
+            st, fp, ops, settings, nx, cones=cones, nu=nu)
         s = s.replace(
             status=torch.full_like(s.status, UNSOLVED),
             iter=torch.zeros_like(s.iter),

@@ -141,22 +141,74 @@ def test_getters_before_first_solve():
     assert mt.get_x().shape == (2, 10, 12)
 
 
+def _bad_axis():
+    from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
+
+    return ConeSet(input_cones=(Cone((0, 1), 9, 1.0),))
+
+
+# What the port does not do yet raises NotImplementedError naming ROADMAP.md;
+# cones and compaction are taken now (see TAKEN below), so their cases hold
+# what still is an error in each: the misuse each mode refuses.
+NOT_YET = (NotImplementedError, "ROADMAP")
 RAISES = {
-    "tier_block": dict(tier="block"),
-    "cones": dict(cones=object()),
-    "cone_mu": dict(tier="fused", batch=2, cone_mu=np.zeros((1, 2))),
-    "cone_shift_x": dict(tier="fused", batch=2, cone_shift_x=np.zeros((1, 2))),
-    "compaction": dict(tier="fused", batch=2, compaction_segment=10),
-    "bf16x3": dict(tier="fused", algo="bf16x3"),
-    "polish": dict(tier="fused", polish=8),
+    "tier_block": (NOT_YET, dict(tier="block")),
+    "cones": ((ValueError, "indices must be in"),
+              dict(tier="fused", cones=_bad_axis)),
+    "cone_mu": ((ValueError, "pass cones= as well"),
+                dict(tier="fused", batch=2, cone_mu=np.zeros((1, 2)))),
+    "cone_shift_x": ((ValueError, "batched fused tier"),
+                     dict(tier="scan", batch=2, cones=_bad_axis,
+                          cone_shift_x=np.zeros((1, 2)))),
+    "compaction": ((ValueError, "multiple of"),
+                   dict(tier="fused", batch=2, compaction_segment=7)),
+    "bf16x3": (NOT_YET, dict(tier="fused", algo="bf16x3")),
+    "polish": (NOT_YET, dict(tier="fused", polish=8)),
 }
 
 
 @pytest.mark.parametrize("case", list(RAISES))
 def test_raises_for_now(case):
-    p, c, _ = atm_t.models.quadrotor_hovering_setup(device=DEV)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        atm_t.TinyMPC.from_parts(p, c, device=DEV, **RAISES[case])
+    p, c, x0 = atm_t.models.quadrotor_hovering_setup(device=DEV)
+    (exc, match), kw = RAISES[case]
+    kw = {k: v() if callable(v) else v for k, v in kw.items()}
+    with pytest.raises(exc, match=match):
+        mt = atm_t.TinyMPC.from_parts(
+            p, c, device=DEV, settings=atm_t.Settings(max_iter=12,
+                                                      check_termination=2),
+            **kw)
+        mt.set_x0(x0 if mt.batch is None else np.stack([x0, 0.5 * x0]))
+        mt.solve()
+
+
+def _tilt():
+    from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
+
+    return ConeSet(input_cones=(Cone((0, 1), 2, 1.0, 0.5),))
+
+
+# What raised "not ported yet" before and is taken now.
+TAKEN = {
+    "cones": lambda: dict(cones=_tilt()),
+    "cone_mu": lambda: dict(tier="fused", batch=2, cones=_tilt(),
+                            cone_mu=np.ones((1, 2))),
+    "cone_shift_x": lambda: dict(
+        tier="fused", batch=2, cone_shift_x=np.zeros((1, 2)),
+        cones=_tilt()._replace(state_cones=_tilt().input_cones)),
+    "compaction": lambda: dict(tier="fused", batch=2, compaction_segment=10),
+}
+
+
+@pytest.mark.parametrize("case", list(TAKEN))
+def test_taken_now(case):
+    p, c, x0 = atm_t.models.quadrotor_hovering_setup(device=DEV)
+    mt = atm_t.TinyMPC.from_parts(
+        p, c, device=DEV, settings=atm_t.Settings(max_iter=12,
+                                                  check_termination=2),
+        **TAKEN[case]())
+    mt.set_x0(x0 if mt.batch is None else np.stack([x0, 0.5 * x0]))
+    mt.solve()
+    assert np.isfinite(mt.get_u()).all()
 
 
 def test_other_raises():
@@ -165,12 +217,14 @@ def test_other_raises():
         atm_t.TinyMPC.from_parts(p, c, tier="warp", device=DEV)
     with pytest.raises(ValueError, match="unknown algo"):
         atm_t.TinyMPC.from_parts(p, c, algo="fp8", device=DEV)
-    mt = atm_t.TinyMPC.from_parts(p, c, device=DEV)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        mt.solve_adaptive_rho()
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        atm_t.TinyMPC.setup(np.eye(2), np.ones((2, 1)), np.ones(2), np.ones(1),
-                            1.0, 4, cones=object(), device=DEV)
+    with pytest.raises(ValueError, match="pass cones= as well"):
+        atm_t.TinyMPC.from_parts(p, c, tier="fused", batch=2, device=DEV,
+                                 cone_mu=np.ones((1, 2)))
+    with pytest.raises(ValueError, match="batched fused tier"):
+        atm_t.TinyMPC.from_parts(p, c, tier="scan", batch=2, device=DEV,
+                                 cones=_tilt(), cone_mu=np.ones((1, 2)))
+    with pytest.raises(ValueError, match="supported on tier='fused'"):
+        atm_t.TinyMPC.from_parts(p, c, device=DEV, cones=_tilt()).rollout(2)
 
 
 def test_public_names_match_jax_package():

@@ -121,8 +121,12 @@ def test_condensed_cones_raise():
     ops = atm_t.condensed_operators(c, p.A, p.B, 10, device=DEV)
     s = cond_t.init_flat_state(2, 12, 4, 10, device=DEV)
     fp = cond_t.flatten_problem(p, c)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        cond_t.solve_condensed(s, fp, ops, atm_t.Settings(), 12, cones=object())
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    # Cones are taken now; input cones without nu (the flat slack cannot be
+    # cut into knots) are what still raises.
+    from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
+    tilt = ConeSet(input_cones=(Cone((1, 2), 0, 0.5),))
+    with pytest.raises(ValueError, match="require nu"):
+        cond_t.solve_condensed(s, fp, ops, atm_t.Settings(), 12, cones=tilt)
+    with pytest.raises(ValueError, match="require nu"):
         cond_t.condensed_iteration(s, fp, ops, atm_t.Settings(), 12,
-                                   cones=object())
+                                   cones=tilt)

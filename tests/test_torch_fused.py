@@ -243,10 +243,17 @@ def test_kernel_geometry():
 def test_what_raises_for_now(quad):
     _pj, _cj, _ppj, ppt, _pt, _ct, x0s = quad
     x, cy = torch.as_tensor(x0s), ft.FusedCarry.zeros(B, ppt, device=DEV)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ft.fused_solve(x, cy, ppt, cone_ops=object())
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    # Cones are taken now; what their arguments still refuse is misuse.
+    from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
+    tilt = ft.pad_cones(ppt, ConeSet(input_cones=(Cone((1, 2), 0, 0.5),)))
+    with pytest.raises(ValueError, match="without the matching cones"):
         ft.fused_solve(x, cy, ppt, cone_mu_u=np.zeros((1, B)))
+    with pytest.raises(ValueError, match="without the matching cones"):
+        ft.fused_solve(x, cy, ppt, cone_ops=tilt, cone_shift_x=np.zeros((1, B)))
+    with pytest.raises(ValueError, match="must be \\(1, 8\\)"):
+        ft.fused_solve(x, cy, ppt, cone_ops=tilt, cone_mu_u=np.zeros((2, B)))
+    with pytest.raises(ValueError, match="indices must be in"):
+        ft.pad_cones(ppt, ConeSet(input_cones=(Cone((0, 1), 4, 1.0),)))
     with pytest.raises(NotImplementedError, match="Hopper arithmetic"):
         ft.fused_solve(x, cy, ppt, algo="bf16x3")
     with pytest.raises(ValueError, match="unknown algo"):

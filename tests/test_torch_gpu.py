@@ -66,3 +66,211 @@ def test_float64_on_the_card_raises(card):
     _problem, pp, x0s, cold = card
     with pytest.raises(TypeError, match="float32"):
         fused_solve(x0s.double(), cold, pp, max_iter=5)
+
+
+# ------------------------------------------- cones in the fused kernels ----
+
+def _lander(horizon=15, batch=133):
+    """The powered-descent lander of examples/soc_landing.py (nx=6, nu=3:
+    neither Dx nor a knot is a multiple of the kernels' float4 grid)."""
+    from accelerated_tinympc_tpu_torch.ops import pad_cones
+    from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
+
+    I3 = np.eye(3)
+    A = np.block([[I3, 0.1 * I3], [0 * I3, I3]])
+    Bm = np.vstack([0.005 * I3, 0.1 * I3])
+    Q = np.concatenate([np.full(3, 10.0), np.full(3, 1.0)])
+    R = np.full(3, 1.0)
+    mpc = atm.TinyMPC.setup(A, Bm, Q, R, 1.0, horizon, u_min=-10.0,
+                            u_max=10.0, x_min=-100.0, x_max=100.0)
+    ops = atm.condensed_operators(mpc.cache, mpc.problem.A, mpc.problem.B,
+                                  horizon)
+    pp = pad_problem(mpc.problem, mpc.cache, ops)
+    cones = ConeSet(input_cones=(Cone((0, 1), 2, 1.0, 3.0),),
+                    state_cones=(Cone((0, 1), 2, 2.0, 0.1),))
+    rng = np.random.default_rng(0)
+    base = np.asarray([3.0, -2.0, 6.0, 1.0, 0.5, -1.0])
+    x0s = torch.as_tensor(base[None] + 0.3 * rng.standard_normal((batch, 6)),
+                          dtype=torch.float32, device="cuda")
+    return mpc.problem, pp, pad_cones(pp, cones), cones, x0s
+
+
+@pytest.fixture(scope="module")
+def lander(card):
+    return _lander()
+
+
+def _assert_solve_close(got, want, min_agree=0.99):
+    same = got.stats[:, 0] == want.stats[:, 0]
+    assert float(same.float().mean()) >= min_agree
+    assert float((got.U - want.U)[same].abs().max()) <= ATOL
+    for k in ("D", "Z"):
+        err = (getattr(got.carry, k) - getattr(want.carry, k))[same]
+        assert float(err.abs().max()) <= ATOL, k
+    for k in ("Y", "G", "V"):
+        err = (getattr(got.carry, k) - getattr(want.carry, k))[same]
+        assert float(err.abs().max()) <= 2 * ATOL, k
+
+
+def test_lander_shape_box_only_matches_plain(lander):
+    _problem, pp, _cops, _cones, x0s = lander
+    cold = FusedCarry.zeros(x0s.shape[0], pp)
+    for kw in (dict(max_iter=60), dict(max_iter=100, check_termination=2,
+                                       abs_pri_tol=3e-2, abs_dua_tol=3e-2)):
+        _assert_solve_close(fused_solve(x0s, cold, pp, **kw),
+                            fused_solve_plain(x0s, cold, pp, **kw))
+
+
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+@pytest.mark.parametrize("per_instance", [False, True])
+def test_coned_kernel_matches_plain(lander, mode, per_instance):
+    from accelerated_tinympc_tpu_torch.solver.cones import cone_violation
+
+    _problem, pp, cops, cones, x0s = lander
+    B = x0s.shape[0]
+    cold = FusedCarry.zeros(B, pp)
+    kw = dict(max_iter=60, cone_ops=cops)
+    if mode == "adaptive":
+        kw.update(max_iter=150, check_termination=2, abs_pri_tol=3e-2,
+                  abs_dua_tol=3e-2)
+    if per_instance:
+        lin = lambda a, b: torch.linspace(a, b, B, device="cuda")[None]
+        kw.update(cone_mu_u=lin(0.6, 1.4), cone_shift_x=lin(0.05, 0.2))
+    name = "fused_solve_%s_cones" % mode
+    before = fused_admm.LAUNCH_COUNTS[name]
+    got = fused_solve(x0s, cold, pp, **kw)
+    assert fused_admm.LAUNCH_COUNTS[name] == before + 1
+    _assert_solve_close(got, fused_solve_plain(x0s, cold, pp, **kw))
+    if not per_instance:
+        Z = got.carry.Z.reshape(B, -1, 3)
+        V = got.carry.V.reshape(B, -1, 6)
+        assert float(cone_violation(Z, cones.input_cones[0])) <= 1e-5
+        assert float(cone_violation(V, cones.state_cones[0])) <= 1e-5
+
+
+def test_per_instance_rows_equal_to_static_change_nothing(lander):
+    _problem, pp, cops, _cones, x0s = lander
+    B = x0s.shape[0]
+    cold = FusedCarry.zeros(B, pp)
+    kw = dict(max_iter=40, check_termination=2, cone_ops=cops)
+    a = fused_solve(x0s, cold, pp, **kw)
+    b = fused_solve(x0s, cold, pp, cone_mu_u=torch.full((1, B), 1.0),
+                    **kw)
+    assert torch.equal(a.carry.Z, b.carry.Z) and torch.equal(a.stats, b.stats)
+
+
+def test_coned_rollout_kernel_matches_plain(lander):
+    problem, pp, cops, _cones, x0s = lander
+    cold = FusedCarry.zeros(x0s.shape[0], pp)
+    rops = rollout_ops(problem, pp)
+    kw = dict(max_iter=40, cone_ops=cops)
+    got = fused_rollout(x0s, cold, pp, rops, 8, **kw)
+    want = fused_rollout_plain(x0s, cold, pp, rops, 8, **kw)
+    assert float((got.us - want.us).abs().max()) <= ATOL
+    assert float((got.x_final - want.x_final).abs().max()) <= ATOL
+
+
+# ------------------------------------------------------ Riccati kernels ----
+
+def _plants(batch, nx, nu, seed=0):
+    """Random plants scaled to spectral radius 0.95 (open-loop stable, so
+    K0 = 0 stabilises them), random positive cost diagonals and rho."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((batch, nx, nx))
+    A *= (0.95 / np.abs(np.linalg.eigvals(A)).max(axis=1))[:, None, None]
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    return (t(A), t(rng.standard_normal((batch, nx, nu))),
+            t(rng.uniform(0.5, 5.0, (batch, nx))),
+            t(rng.uniform(0.5, 5.0, (batch, nu))),
+            t(rng.uniform(0.5, 5.0, batch)))
+
+
+def _ric_tol(cache, field, rows=slice(None)):
+    """1e-4 relative to the field's largest entry; coeff_d2p = K'R1 - AmBKt P B
+    vanishes at the fixed point, so its rounding is that of its two terms,
+    which are of the size of Pinf's entries."""
+    ref = cache.Pinf if field == "coeff_d2p" else getattr(cache, field)
+    return 1e-4 * max(1.0, float(ref[rows].abs().max()))
+
+
+@pytest.mark.parametrize("dims", [(12, 4), (6, 8), (16, 8), (1, 1)])
+def test_riccati_fixed_point_kernel_matches_plain(card, dims):
+    from accelerated_tinympc_tpu_torch.ops import riccati_kernel as rk
+
+    plants = _plants(67, *dims)
+    from accelerated_tinympc_tpu_torch.precompute import riccati_fixed_point
+
+    before = rk.LAUNCH_COUNTS["riccati_fixed_point"]
+    got, it_g = rk.riccati_fixed_point_kernel(*plants)
+    assert rk.LAUNCH_COUNTS["riccati_fixed_point"] == before + 1
+    want, it_w = riccati_fixed_point(*plants, max_iters=1000, tol=1e-5)
+    assert float((it_g - it_w).abs().float().max()) <= 1
+    for k, v in want.tensors().items():
+        assert float((getattr(got, k) - v).abs().max()) <= _ric_tol(want, k), k
+    warm, it_warm = rk.riccati_fixed_point_kernel(*plants, P0=got.Pinf,
+                                                  K0=got.Kinf)
+    assert int(it_warm.max()) <= 2
+    assert float((warm.Kinf - got.Kinf).abs().max()) <= 1e-4
+
+
+def test_riccati_newton_kernel_matches_plain_and_flags_bad_gain(card):
+    from accelerated_tinympc_tpu_torch.ops import riccati_kernel as rk
+
+    A, B, Q, R, rho = _plants(67, 12, 4, seed=1)
+    K0 = rk.riccati_cache_kernel(A, B, Q, R, rho).Kinf.clone()
+    rho2 = rho * 7.0
+    K0[5] = -50.0 * K0[5] + 3.0          # does not stabilise plant 5
+    got = rk.riccati_cache_newton(A, B, Q, R, rho2, K0)
+    want = rk.riccati_cache_newton_plain(A, B, Q, R, rho2, K0)
+    truth = rk.riccati_cache_kernel_plain(A, B, Q, R, rho2, tol=1e-7)
+    ok = torch.ones(67, dtype=torch.bool, device="cuda")
+    ok[5] = False
+    assert not bool(torch.isfinite(got.Kinf[5]).all())
+    for k, v in want.tensors().items():
+        g = getattr(got, k)
+        assert bool(torch.isfinite(g[ok]).all()), k
+        assert float((g - v)[ok].abs().max()) <= _ric_tol(want, k, ok), k
+    assert float((got.Kinf - truth.Kinf)[ok].abs().max()) <= 1e-3
+
+
+def test_riccati_kernel_refuses_large_sizes(card):
+    from accelerated_tinympc_tpu_torch.ops import riccati_kernel as rk
+
+    A, B, Q, R, rho = _plants(3, 4, 2)
+    big = torch.zeros((3, 17, 17), device="cuda")
+    with pytest.raises(ValueError, match="nx <= 16"):
+        rk.riccati_cache_kernel(big, torch.zeros((3, 17, 2), device="cuda"),
+                                torch.ones((3, 17), device="cuda"), R, rho)
+
+
+def test_auto_riccati_on_the_card_is_the_kernel_and_refuses_large_sizes(card):
+    """``riccati="auto"`` on CUDA tensors launches the kernel; above the
+    kernels' sizes it raises and does not take the batched tensor code."""
+    from accelerated_tinympc_tpu_torch.ops import riccati_kernel as rk
+    from accelerated_tinympc_tpu_torch.solver.batched_ops import (
+        build_instance_ops_from_plants,
+    )
+
+    def bounds(A, B, Q, R, N=4):
+        batch, nx, nu = B.shape
+        full = lambda v, *s: torch.full((batch,) + s, v, device="cuda")
+        return atm.Problem(
+            A=A, B=B, Q=Q, R=R,
+            u_min=full(-1.0, N - 1, nu), u_max=full(1.0, N - 1, nu),
+            x_min=full(-9.0, N, nx), x_max=full(9.0, N, nx),
+            Xref=full(0.0, N, nx), Uref=full(0.0, N - 1, nu))
+
+    A, B, Q, R, rho = _plants(5, 4, 2)
+    before = rk.LAUNCH_COUNTS["riccati_fixed_point"]
+    ops, caches = build_instance_ops_from_plants(
+        A, B, Q, R, rho, bounds(A, B, Q, R))
+    assert rk.LAUNCH_COUNTS["riccati_fixed_point"] == before + 1
+    want = rk.riccati_cache_kernel_plain(A, B, Q, R, rho)
+    assert float((caches.Kinf - want.Kinf).abs().max()) <= ATOL
+    assert bool(torch.isfinite(ops.W_q).all())
+    A, B, Q, R, rho = _plants(3, 17, 2)
+    with pytest.raises(ValueError, match="riccati='vmap'"):
+        build_instance_ops_from_plants(A, B, Q, R, rho, bounds(A, B, Q, R))
+    ops, _ = build_instance_ops_from_plants(
+        A, B, Q, R, rho, bounds(A, B, Q, R), riccati="vmap")
+    assert bool(torch.isfinite(ops.W_q).all())

@@ -200,7 +200,13 @@ def test_rollout_argument_checks(quad):
     with pytest.raises(ValueError, match="const_seq must be"):
         rt.fused_rollout(x0s, zero, ppt, ropst, 3,
                          const_seq=torch.zeros((2, 36)))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        rt.fused_rollout(x0s, zero, ppt, ropst, 2, cone_ops=object())
+    # Cones are taken now (cone_ops from pad_cones); a cone that indexes
+    # outside its knot is refused where the operands are built.
+    from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
+    with pytest.raises(ValueError, match="axis is in the ball"):
+        ft.pad_cones(ppt, ConeSet(state_cones=(Cone((0, 2), 2, 1.0),)))
+    tilt = ft.pad_cones(ppt, ConeSet(input_cones=(Cone((1, 2), 0, 0.5),)))
+    with pytest.raises(ValueError, match="at least one tick"):
+        rt.fused_rollout(x0s, zero, ppt, ropst, 0, cone_ops=tilt)
     with pytest.raises(NotImplementedError, match="Hopper arithmetic"):
         rt.fused_rollout(x0s, zero, ppt, ropst, 2, algo="bf16x3")

@@ -124,3 +124,58 @@ def assert_fused_close(got, jres, dims, *, atol, label=""):
         atol=atol, label=label)
     assert_fields_close(got.carry, want.carry, atol=atol, label=label + "carry.")
     return want
+
+
+# --- the powered-descent lander of examples/soc_landing.py -------------------
+
+def landing_parts(horizon: int, dt: float = 0.1, u_box: float = 10.0,
+                  x_box: float = 100.0):
+    """numpy problem data of the 3D point-mass lander (nx=6, nu=3) and the
+    two cones of the example as ``(ball, axis, mu, shift)`` tuples:
+    thrust-tilt on the input, glideslope on the state."""
+    I3 = np.eye(3)
+    A = np.block([[I3, dt * I3], [0 * I3, I3]])
+    B = np.vstack([0.5 * dt * dt * I3, dt * I3])
+    Q = np.concatenate([np.full(3, 10.0), np.full(3, 1.0)])
+    R = np.full(3, 1.0)
+    fields = dict(
+        A=A, B=B, Q=Q, R=R,
+        u_min=np.full((horizon - 1, 3), -u_box),
+        u_max=np.full((horizon - 1, 3), u_box),
+        x_min=np.full((horizon, 6), -x_box),
+        x_max=np.full((horizon, 6), x_box),
+        Xref=np.zeros((horizon, 6)), Uref=np.zeros((horizon - 1, 3)),
+    )
+    tilt = ((0, 1), 2, 1.0, 3.0)
+    glide = ((0, 1), 2, 2.0, 0.1)
+    return fields, tilt, glide
+
+
+LANDER_X0 = np.asarray([3.0, -2.0, 6.0, 1.0, 0.5, -1.0])
+
+
+def lander_pair(horizon: int, rho: float = 1.0, dtype=np.float32):
+    """The lander as (JAX problem, JAX cache, JAX ConeSet, torch problem,
+    torch cache, torch ConeSet), caches from each package's own float64 host
+    Riccati."""
+    import jax.numpy as jnp
+
+    import accelerated_tinympc_tpu as atm_j
+    from accelerated_tinympc_tpu.precompute import riccati_cache as rc_j
+    from accelerated_tinympc_tpu.solver import cones as cj
+    from accelerated_tinympc_tpu_torch.solver import cones as ct
+
+    fields, tilt, glide = landing_parts(horizon)
+    pj = atm_j.Problem(**{k: jnp.asarray(v, dtype) for k, v in fields.items()})
+    cache_j = rc_j(fields["A"], fields["B"], fields["Q"], fields["R"], rho,
+                   dtype=dtype)
+    tdt = torch_dtype(dtype)
+    pt = convert.problem_from_numpy(fields, dtype=tdt, device=DEV)
+    cache_t = atm_t.riccati_cache(
+        fields["A"], fields["B"], fields["Q"], fields["R"], rho, dtype=tdt,
+        device=DEV)
+    cones_j = cj.ConeSet(input_cones=(cj.Cone(*tilt),),
+                         state_cones=(cj.Cone(*glide),))
+    cones_t = ct.ConeSet(input_cones=(ct.Cone(*tilt),),
+                         state_cones=(ct.Cone(*glide),))
+    return pj, cache_j, cones_j, pt, cache_t, cones_t
