@@ -6,7 +6,8 @@ duals, calls ``tiny_solve``, applies ``u.col(0)`` and steps the plant
 93-117). :func:`mpc_rollout` runs that loop on the plain tiers;
 :func:`fused_mpc_rollout` runs it on the fused CUDA tier, either as a Python
 tick loop over one kernel launch per tick or (``in_kernel=True``) as one
-launch for the whole mission.
+launch for the whole mission. :func:`fleet_mpc_rollout` runs it for a fleet
+of distinct plants on the hetero kernels.
 
 Works single-instance or batched (scenario MPC: one plant, thousands of
 perturbed instances) -- state/x0 just carry a leading batch axis.
@@ -214,4 +215,53 @@ def fused_mpc_rollout(
             u0 = unpad_controls(res, pp)
             us.append(u0)
             x = torch.matmul(x, A_T) + torch.matmul(u0, B_T)
+    return x, torch.stack(us), carry
+
+
+def fleet_mpc_rollout(
+    hp,
+    problem_b: Problem,
+    x0s: torch.Tensor,
+    n_ticks: int,
+    *,
+    max_iter: int = 100,
+    carry=None,
+    cones=None,
+    cone_params=None,
+    cone_masks=None,
+    check_termination: int = 0,
+    abs_pri_tol: float = 1e-3,
+    abs_dua_tol: float = 1e-3,
+):
+    """Receding-horizon rollout for a heterogeneous fleet: ``n_ticks`` of
+    (dual reset -> hetero solve -> apply the pre-projection u0 -> plant step
+    per instance), a host loop with one K7 launch per tick (K8 with
+    ``check_termination > 0``, per-instance early exit) -- the scenario-MPC
+    loop for one-distinct-plant-per-instance batches (reference tick
+    protocol: examples/quadrotor_hovering.cpp:99-104).
+
+    ``hp`` is a :class:`..ops.hetero_admm.HeteroProblem`; ``problem_b`` the
+    batch-leading Problem whose ``A``/``B`` step each instance's plant;
+    ``x0s (B, nx)``. Returns ``(x_final, u0_trace (n_ticks, B, nu), carry)``.
+    """
+    from ..ops.hetero_admm import HeteroCarry, hetero_solve
+
+    if carry is None:
+        carry = HeteroCarry.zeros(hp)
+    A, Bm = problem_b.A.to(x0s.dtype), problem_b.B.to(x0s.dtype)
+    mv = lambda M, v: torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
+    with torch.no_grad():
+        x = x0s
+        us = []
+        for _ in range(int(n_ticks)):
+            res = hetero_solve(
+                x, carry.reset_duals(), hp, max_iter=max_iter,
+                check_termination=check_termination,
+                abs_pri_tol=abs_pri_tol, abs_dua_tol=abs_dua_tol,
+                cones=cones, cone_params=cone_params, cone_masks=cone_masks,
+            )
+            carry = res.carry
+            u0 = res.U[:, 0, :]
+            us.append(u0)
+            x = mv(A, x) + mv(Bm, u0)
     return x, torch.stack(us), carry

@@ -3,7 +3,8 @@ dataclasses out (and back).
 
 Every function takes a dict of numpy arrays keyed by the field names of the
 JAX package's dataclass of the same name (``Problem``, ``Cache``, ``State``,
-``FusedCarry``, ``FusedResult``, ``InstanceOps``), plus
+``FusedCarry``, ``FusedResult``, ``InstanceOps``, ``HeteroCarry``,
+``HeteroResult``), plus
 ``device=``/``dtype=``. A batch-leading ``Cache`` goes through
 :func:`cache_from_numpy` unchanged (every field keeps its leading axis). A caller that
 holds JAX objects builds the dicts itself (``np.asarray`` of each field);
@@ -19,6 +20,12 @@ The JAX fused tier keeps its carries and results padded to 128 lanes
 (``Du -> 128``, ``Dx -> 128``-multiples, stats ``(B, 128)`` with 6 lanes
 used). The port's layout is unpadded, so the converters strip the padding
 (asserting it is zero) on the way in and restore it on the way out.
+
+The JAX hetero tier packs its carry with instances on the 128 lanes of a
+tile and each knot's rows padded to a multiple of 8
+(``(NT * knots * S, 128)``); :func:`hetero_carry_from_numpy` unpacks it into
+the port's batch-leading :class:`..ops.hetero_admm.HeteroCarry` (padding
+checked to be zero), so a JAX warm carry can be carried across.
 """
 
 from __future__ import annotations
@@ -141,6 +148,70 @@ def fused_result_to_numpy(res: FusedResult) -> dict[str, Any]:
                   for k in ("D", "Y", "G", "Z", "V")},
         "stats": _pad(res.stats),
     }
+
+
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _unpack_lanes(p, knots: int, width: int, batch, name: str) -> np.ndarray:
+    """``(NT * knots * S, 128)`` lane-packed rows (S = width padded to a
+    multiple of 8) -> ``(batch, knots, width)``; padding rows and padding
+    instances must be zero."""
+    p = np.asarray(p)
+    S = _pad8(width)
+    rows = knots * S
+    if p.ndim != 2 or p.shape[1] != LANES or p.shape[0] % rows:
+        raise ValueError(f"{name}: expected (NT*{rows}, {LANES}), got "
+                         f"{p.shape}")
+    nt = p.shape[0] // rows
+    a = p.reshape(nt, rows, LANES).transpose(0, 2, 1).reshape(
+        nt * LANES, knots, S)
+    a = _strip(a, width, name)
+    if batch is not None:
+        if batch > a.shape[0]:
+            raise ValueError(f"{name}: {a.shape[0]} lanes, batch {batch}")
+        if np.any(a[batch:] != 0):
+            raise ValueError(f"{name}: lanes beyond batch {batch} are not "
+                             "zero")
+        a = a[:batch]
+    return a
+
+
+def hetero_carry_from_numpy(fields: Mapping[str, Any], dims: tuple, *,
+                            batch: int | None = None,
+                            dtype: Any = torch.float32,
+                            device: Any = DEFAULT_DEVICE):
+    """The port's ``HeteroCarry`` from the JAX one's lane-packed fields
+    ``d, y, z ((NT*(N-1)*SU, 128))`` and ``g, v ((NT*N*SX, 128))`` for
+    ``dims = (nx, nu, horizon)``. ``batch`` drops the padding instances of
+    the last tile (checked to be zero); without it every lane is kept."""
+    from .ops.hetero_admm import HeteroCarry
+
+    nx, nu, N = dims
+    shape = {"d": (N - 1, nu), "y": (N - 1, nu), "z": (N - 1, nu),
+             "g": (N, nx), "v": (N, nx)}
+    return HeteroCarry(**{
+        k: _t(_unpack_lanes(fields[k], *shape[k], batch, f"carry.{k}"),
+              dtype, device)
+        for k in ("d", "y", "g", "z", "v")})
+
+
+def hetero_result_from_numpy(fields: Mapping[str, Any], dims: tuple, *,
+                             dtype: Any = torch.float32,
+                             device: Any = DEFAULT_DEVICE):
+    """The port's ``HeteroResult`` from the JAX one's ``U (B, N-1, nu)``,
+    ``X (B, N, nx)``, ``stats (B, 8)`` (already batch-leading there) and
+    lane-packed ``carry`` (a mapping of its fields)."""
+    from .ops.hetero_admm import HeteroResult
+
+    U = np.asarray(fields["U"])
+    return HeteroResult(
+        carry=hetero_carry_from_numpy(fields["carry"], dims,
+                                      batch=U.shape[0], dtype=dtype,
+                                      device=device),
+        U=_t(U, dtype, device), X=_t(fields["X"], dtype, device),
+        stats=_t(fields["stats"], dtype, device))
 
 
 def cone_set_from(cones):

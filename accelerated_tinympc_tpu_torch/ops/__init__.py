@@ -23,6 +23,19 @@ from .fused_rollout import (  # noqa: F401
     rollout_const_seq,
     rollout_ops,
 )
+from .hetero_admm import (  # noqa: F401
+    HeteroCarry,
+    HeteroProblem,
+    HeteroResult,
+    gather_hetero,
+    hetero_solve,
+    hetero_solve_plain,
+    pad_hetero_cone_masks,
+    pad_hetero_cone_params,
+    pad_hetero_from_plants,
+    pad_hetero_problem,
+    repack_hetero_caches,
+)
 from .riccati_kernel import (  # noqa: F401
     riccati_cache_kernel,
     riccati_cache_kernel_plain,

@@ -1,8 +1,9 @@
 """Solver tiers: scan (ground truth), batched (leading batch axis + masked
 early termination), condensed (dense horizon operators). The fused CUDA tier
 lives in :mod:`..ops.fused_admm`. Beside them: second-order cones, the
-compaction cascade over the fused adaptive kernel, adaptive rho (single
-instance and per instance) and the per-instance-operator tier."""
+compaction cascades over the fused and hetero adaptive kernels, adaptive
+rho (single instance, and per instance on the einsum, hetero and scan
+tiers) and the per-instance-operator tier."""
 
 from . import admm  # noqa: F401
 from .admm import admm_iteration, solve  # noqa: F401
@@ -18,6 +19,11 @@ from .condensed import (  # noqa: F401
     state_from_flat,
 )
 from .adaptive_rho import AdaptiveRhoResult, solve_adaptive_rho  # noqa: F401
+from .adaptive_hetero import (  # noqa: F401
+    AdaptiveHeteroResult,
+    solve_adaptive_rho_hetero,
+)
+from .adaptive_scan import AdaptiveScanResult, solve_adaptive_rho_scan  # noqa: F401
 from .batched_ops import (  # noqa: F401
     AdaptiveRhoBatchedResult,
     InstanceOps,

@@ -46,8 +46,20 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``M @ v`` over any leading batch axes of ``v``."""
+    """``M @ v`` over any leading batch axes of ``v``. A matrix with a
+    leading batch axis of its own (``(B, r, c)``, per-instance problem data)
+    multiplies the matching row of ``v`` (``(B, c)``)."""
+    if M.dim() > 2:
+        return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
     return torch.matmul(v, M.transpose(-1, -2))
+
+
+def _per_instance(a: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A scalar as it is; a per-instance ``(B,)`` value reshaped to
+    broadcast against ``like (B, ...)``."""
+    if a.dim() == 0:
+        return a
+    return a.reshape(a.shape + (1,) * (like.dim() - a.dim()))
 
 
 def forward_pass(state: State, problem: Problem, cache: Cache) -> State:
@@ -86,11 +98,13 @@ def update_dual(state: State) -> State:
 def update_linear_cost(state: State, problem: Problem, cache: Cache) -> State:
     """Refresh linear cost terms from references, slacks and duals
     (reference: src/tinympc/admm.cpp:77-85)."""
-    r = -cache.rho * (state.znew - state.y)
-    q = -(problem.Xref * problem.Q) - cache.rho * (state.vnew - state.g)
-    p_terminal = -torch.matmul(problem.Xref[-1], cache.Pinf) - cache.rho * (
-        state.vnew[..., -1, :] - state.g[..., -1, :]
-    )
+    rho = _per_instance(cache.rho, state.znew)
+    r = -rho * (state.znew - state.y)
+    q = -(problem.Xref * problem.Q.unsqueeze(-2)) - rho * (
+        state.vnew - state.g)
+    v_n, g_n = state.vnew[..., -1, :], state.g[..., -1, :]
+    p_terminal = (-_mv(cache.Pinf.transpose(-1, -2), problem.Xref[..., -1, :])
+                  - _per_instance(cache.rho, v_n) * (v_n - g_n))
     p = state.p.clone()
     p[..., -1, :] = p_terminal
     return state.replace(r=r, q=q, p=p)

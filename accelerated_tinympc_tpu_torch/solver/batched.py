@@ -1,6 +1,7 @@
 """Batched ADMM solves with per-instance early termination.
 
-A leading batch axis over problem instances sharing one plant. Early
+A leading batch axis over problem instances, sharing one plant or each
+with its own (``problem_axes``/``cache_axes``). Early
 termination under a batch is the subtle part: per-instance convergence
 diverges, and an instance's result must be identical to its single solve
 (reference: src/tinympc/admm.cpp:135-144 exits without the trailing
@@ -53,15 +54,23 @@ def solve_batched(
     """Solve a batch of instances; each instance's trajectory through the
     ADMM loop is identical to its standalone :func:`..solver.admm.solve`.
 
-    Problem and cache are shared by the batch ("thousands of perturbed
-    scenarios, one plant"); per-instance plants (``problem_axes=BATCHED``)
-    arrive with the fleet tiers. With ``check_termination == 0`` this is a
-    fixed-iteration loop over the whole batch.
+    ``problem_axes``/``cache_axes`` select shared (``SHARED``: "thousands of
+    perturbed scenarios, one plant") or per-instance (``BATCHED``: every
+    field has a leading batch axis -- the random-plant sweep, the fleet's
+    ``tier="scan"``) problem data; the stages of :mod:`.admm` broadcast over
+    either. With ``check_termination == 0`` this is a fixed-iteration loop
+    over the whole batch.
     """
-    if problem_axes is not SHARED or cache_axes is not SHARED:
-        raise NotImplementedError(
-            "per-instance problem/cache data (problem_axes=BATCHED) comes "
-            "with the per-instance-plant slices of ROADMAP.md (8-9)")
+    for axes in (problem_axes, cache_axes):
+        if axes not in (SHARED, BATCHED):
+            raise ValueError(f"axes must be SHARED (None) or BATCHED (0), "
+                             f"got {axes!r}")
+    if problem_axes == BATCHED and problem.A.dim() != 3:
+        raise ValueError("problem_axes=BATCHED needs batch-leading problem "
+                         "fields (A of shape (B, nx, nx))")
+    if cache_axes == BATCHED and cache.Kinf.dim() != 3:
+        raise ValueError("cache_axes=BATCHED needs batch-leading cache "
+                         "fields (Kinf of shape (B, nu, nx))")
     with torch.no_grad():
         iterate = lambda s: admm_iteration(
             s, problem, cache, settings,

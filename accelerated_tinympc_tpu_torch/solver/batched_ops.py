@@ -305,6 +305,55 @@ def solve_instance_ops(
         return st
 
 
+def adaptive_rounds(rho, max_rounds, chunk_step, rescale_duals, refresh, *,
+                    adapt_factor, stall_factor, rho_min, rho_max):
+    """The per-instance round loop shared by the three batched engines
+    (:func:`solve_adaptive_rho_batched`,
+    :func:`.adaptive_hetero.solve_adaptive_rho_hetero`,
+    :func:`.adaptive_scan.solve_adaptive_rho_scan`), which differ only in
+    how they run a chunk and refresh their caches.
+
+    Each round: ``chunk_step(solved) -> (solved, pri, dua)`` runs one chunk
+    of iterations, keeps the instances solved in an earlier round frozen
+    verbatim and returns the new solved flags and per-instance residuals.
+    An unsolved instance whose max residual failed to fall by
+    ``stall_factor`` since the last round *and* whose imbalance
+    ``sqrt(pri/dua)`` exceeds ``adapt_factor`` either way rescales its rho by
+    that ratio (clipped to ``[rho_min, rho_max]``);
+    ``rescale_duals(rho_old / rho_new)`` (ones where unchanged) keeps the
+    underlying multipliers and ``refresh(new_rho, changed)`` brings the
+    caches to the new rho. A host loop: one read of the solved flags per
+    round. Returns ``(rho, solved, rounds)``."""
+    solved = torch.zeros(rho.shape, dtype=torch.bool, device=rho.device)
+    prev_max = torch.full_like(rho, float("inf"))
+    rounds = 0
+    while rounds < max_rounds and bool((~solved).any()):
+        solved, pri, dua = chunk_step(solved)
+        max_res = torch.maximum(pri, dua)
+        stalled = max_res * stall_factor > prev_max
+        ratio = torch.sqrt(pri.clamp_min(1e-12) / dua.clamp_min(1e-12))
+        imbalanced = (ratio > adapt_factor) | (ratio < 1.0 / adapt_factor)
+        new_rho = torch.where(stalled & imbalanced & ~solved,
+                              (rho * ratio).clamp(rho_min, rho_max), rho)
+        changed = new_rho != rho
+        prev_max = torch.where(
+            changed, torch.full_like(max_res, float("inf")), max_res)
+        rescale_duals(torch.where(changed, rho / new_rho, torch.ones_like(rho)))
+        refresh(new_rho, changed)
+        rho = new_rho
+        rounds += 1
+    return rho, solved, rounds
+
+
+def refresh_changed(caches: Cache, new_caches: Cache, changed) -> Cache:
+    """``new_caches`` where ``changed`` (B,), ``caches`` elsewhere: an
+    instance whose rho did not change keeps its cache bits."""
+    return Cache(**{
+        k: torch.where(changed.reshape((-1,) + (1,) * (v.dim() - 1)),
+                       getattr(new_caches, k), v)
+        for k, v in caches.tensors().items()})
+
+
 class AdaptiveRhoBatchedResult(NamedTuple):
     state: OpsState
     rho: torch.Tensor         # (B,) final per-instance rho
@@ -453,11 +502,55 @@ def solve_adaptive_rho_batched(
     def axpy(ops0, dops, delta):
         return _tmap(lambda o, d: o + d * _bcast(delta, o), ops0, dops)
 
+    def chunk_step(solved_in):
+        nonlocal st
+        nxt = solve_instance_ops(
+            x0, st, ops, chunk_settings, cones=cones, dims=(nx, nu),
+            cone_args=cone_args,
+        )
+        nxt = nxt._replace(
+            iter=st.iter + nxt.iter,           # accumulate across rounds
+            solved=nxt.solved | solved_in,
+        )
+        # Instances already solved in an earlier round stay frozen verbatim
+        # (solve_instance_ops resets status at entry).
+        st = _sel(solved_in, st, nxt)
+        return (st.solved, torch.maximum(st.pri_s, st.pri_u),
+                torch.maximum(st.dua_s, st.dua_u))
+
+    def rescale_duals(scale):
+        nonlocal st
+        st = st._replace(Y=st.Y * scale[:, None], G=st.G * scale[:, None])
+
+    def refresh_ops(new_rho, changed):
+        nonlocal ops, ops0, dops, caches, center
+        if first_order:
+            outside = (new_rho > center * trust) | (new_rho * trust < center)
+            if bool(outside.any()):
+                ops_new, caches_new = build(new_rho, warm=caches)
+                denom = new_rho - center
+                inv = torch.where(denom.abs() > 1e-12, 1.0 / denom,
+                                  torch.zeros_like(denom))
+                dsec = _tmap(lambda n, o: torch.nan_to_num(
+                    (n - o) * _bcast(inv, n), nan=0.0), ops_new, ops0)
+                center = torch.where(outside, new_rho, center)
+                ops0 = _sel(outside, ops_new, ops0)
+                dops = _sel(outside, dsec, dops)
+                caches = _sel(outside, caches_new, caches)
+            ops = axpy(ops0, dops, new_rho - center)
+        elif refresh == "cold":
+            # Unconditional cold rebuild every round (the benchmark
+            # reference point).
+            ops, _ = build(new_rho)
+        elif bool(changed.any()):
+            ops_new, caches_new = build(new_rho, warm=caches)
+            ops = _sel(changed, ops_new, ops)
+            caches = _sel(changed, caches_new, caches)
+
     with torch.no_grad():
         st = OpsState.zeros(batch, Dx, Du, x0.dtype, x0.device)
-        rho = rho0.to(x0.dtype)
-        prev_max = torch.full((batch,), float("inf"), dtype=x0.dtype,
-                              device=x0.device)
+        rho = rho0.to(x0.dtype).reshape(-1).expand(batch).contiguous()
+        ops0 = dops = caches = center = None
         if first_order:
             ops, dops, caches = build_sens(rho)
             center, ops0 = rho, ops
@@ -465,61 +558,10 @@ def solve_adaptive_rho_batched(
             ops, _ = build(rho)
         else:
             ops, caches = build(rho)
-
-        rounds = 0
-        while rounds < max_rounds and bool((~st.solved).any()):
-            solved_in, iter_in = st.solved, st.iter
-            nxt = solve_instance_ops(
-                x0, st, ops, chunk_settings, cones=cones, dims=(nx, nu),
-                cone_args=cone_args,
-            )
-            nxt = nxt._replace(
-                iter=iter_in + nxt.iter,           # accumulate across rounds
-                solved=nxt.solved | solved_in,
-            )
-            # Instances already solved in an earlier round stay frozen
-            # verbatim (solve_instance_ops resets status at entry).
-            st = _sel(solved_in, st, nxt)
-            pri = torch.maximum(st.pri_s, st.pri_u)
-            dua = torch.maximum(st.dua_s, st.dua_u)
-            max_res = torch.maximum(pri, dua)
-            stalled = max_res * stall_factor > prev_max
-            ratio = torch.sqrt(pri.clamp_min(1e-12) / dua.clamp_min(1e-12))
-            imbalanced = (ratio > adapt_factor) | (ratio < 1.0 / adapt_factor)
-            do_adapt = stalled & imbalanced & (~st.solved)
-            new_rho = torch.where(
-                do_adapt, (rho * ratio).clamp(rho_min, rho_max), rho)
-            changed = new_rho != rho
-            scale = torch.where(changed, rho / new_rho,
-                                torch.ones_like(rho))[:, None]
-            st = st._replace(Y=st.Y * scale, G=st.G * scale)
-            prev_max = torch.where(
-                changed, torch.full_like(max_res, float("inf")), max_res)
-
-            if first_order:
-                outside = (new_rho > center * trust) | (new_rho * trust < center)
-                if bool(outside.any()):
-                    ops_new, caches_new = build(new_rho, warm=caches)
-                    denom = new_rho - center
-                    inv = torch.where(denom.abs() > 1e-12, 1.0 / denom,
-                                      torch.zeros_like(denom))
-                    dsec = _tmap(lambda n, o: torch.nan_to_num(
-                        (n - o) * _bcast(inv, n), nan=0.0), ops_new, ops0)
-                    center = torch.where(outside, new_rho, center)
-                    ops0 = _sel(outside, ops_new, ops0)
-                    dops = _sel(outside, dsec, dops)
-                    caches = _sel(outside, caches_new, caches)
-                ops = axpy(ops0, dops, new_rho - center)
-            elif refresh == "cold":
-                # Unconditional cold rebuild every round (the benchmark
-                # reference point).
-                ops, _ = build(new_rho)
-            elif bool(changed.any()):
-                ops_new, caches_new = build(new_rho, warm=caches)
-                ops = _sel(changed, ops_new, ops)
-                caches = _sel(changed, caches_new, caches)
-            rho = new_rho
-            rounds += 1
+        rho, _solved, rounds = adaptive_rounds(
+            rho, max_rounds, chunk_step, rescale_duals, refresh_ops,
+            adapt_factor=adapt_factor, stall_factor=stall_factor,
+            rho_min=rho_min, rho_max=rho_max)
         _ops, caches = build(rho)
     return AdaptiveRhoBatchedResult(
         state=st, rho=rho, cache=caches, rounds=rounds, total_iter=st.iter

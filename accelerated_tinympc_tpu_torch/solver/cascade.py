@@ -33,8 +33,12 @@ instances converge early (warm-started MPC re-solves, mixed-difficulty
 sweeps) the reclaimed tail dominates; for tightly clustered convergence use
 one plain :func:`..ops.fused_admm.fused_solve` call.
 
-The hetero, stream and hstream cascades of the JAX package wait for their
-kernels.
+:func:`hetero_cascade_solve` does the same over the heterogeneous-plant
+adaptive kernel (K8), gathering the survivors' plants, carries and
+per-instance cone operands between segments. There an instance's arithmetic
+does not depend on where it sits in the batch, so that cascade is bit-exact
+against one long adaptive call. The stream and hstream cascades of the JAX
+package wait for their kernels.
 """
 
 from __future__ import annotations
@@ -47,8 +51,81 @@ from ..ops.fused_admm import (
     PaddedProblem,
     fused_solve,
 )
+from ..ops.hetero_admm import HeteroCarry, gather_hetero, hetero_solve
 
-__all__ = ["cascade_solve"]
+__all__ = ["cascade_solve", "hetero_cascade_solve"]
+
+
+def _segment_schedule(check_termination: int, segment_iters, segment_growth):
+    """Validated ``segment_iters`` (default ~25, a multiple of the check
+    interval so the in-call check schedule composes to one call's)."""
+    if check_termination <= 0:
+        raise ValueError(
+            "the cascade requires adaptive mode (check_termination > 0); "
+            "fixed-iteration solves cannot converge early"
+        )
+    if segment_iters is None:
+        segment_iters = check_termination * max(
+            1, round(25 / check_termination)
+        )
+    if segment_iters % check_termination != 0:
+        raise ValueError(
+            f"segment_iters ({segment_iters}) must be a multiple of "
+            f"check_termination ({check_termination}) so the check schedule "
+            "matches a single adaptive call"
+        )
+    if segment_growth < 1.0:
+        raise ValueError("segment_growth must be >= 1.0")
+    return segment_iters
+
+
+def _grow(cur_seg: int, segment_growth: float, check_termination: int) -> int:
+    """Geometric segment growth, kept on the check-interval grid (any
+    multiple-of-check segmentation preserves the global schedule)."""
+    return max(check_termination,
+               int(cur_seg * segment_growth)
+               // check_termination * check_termination)
+
+
+def _segments(max_iter, segment_iters, segment_growth, check_termination,
+              launch, compact, trace):
+    """The segment loop of both cascades. ``launch(k, done_iters)`` runs
+    ``k`` iterations on the current survivors and returns a result with
+    ``U``, ``X``, ``stats`` and ``carry``; ``compact(carry, keep)`` narrows
+    the launch operands to the survivors ``keep`` (rows of the last launch)
+    with the last launch's carry. Returns ``(U, X, stats, *carry)`` in the
+    original batch order.
+
+    The first launch is the whole batch; afterwards ``idx`` maps the rows
+    of the compacted batch to their original indices. Iteration counts
+    compose as offset + in-segment value (unsolved instances report the
+    segment's full length, so offsets telescope as later segments overwrite
+    their rows)."""
+    with torch.no_grad():
+        idx, out, done_iters, cur_seg = None, None, 0, segment_iters
+        while True:
+            k = min(cur_seg, max_iter - done_iters)
+            res = launch(k, done_iters)
+            if trace is not None:
+                trace.append((k, res.U.shape[0]))
+            stats = res.stats.clone()
+            stats[:, 0] += done_iters
+            rows = (res.U, res.X, stats) + tuple(res.carry)
+            if out is None:
+                out = tuple(r.clone() for r in rows)
+            else:
+                for buf, r in zip(out, rows):
+                    buf.index_copy_(0, idx, r)
+            done_iters += k
+            if done_iters >= max_iter:
+                return out
+            keep = torch.nonzero(res.stats[:, 1].cpu() < 0.5)[:, 0]
+            if keep.numel() == 0:
+                return out
+            cur_seg = _grow(cur_seg, segment_growth, check_termination)
+            keep = keep.to(res.U.device)
+            idx = keep if idx is None else idx.index_select(0, keep)
+            compact(res.carry, keep)
 
 
 def cascade_solve(
@@ -101,25 +178,10 @@ def cascade_solve(
     ``trace``, if a list, receives one ``(iterations, batch)`` pair per
     segment launched.
     """
-    if check_termination <= 0:
-        raise ValueError(
-            "cascade_solve requires adaptive mode (check_termination > 0); "
-            "fixed-iteration solves cannot converge early"
-        )
-    if segment_iters is None:
-        segment_iters = check_termination * max(
-            1, round(25 / check_termination)
-        )
-    if segment_iters % check_termination != 0:
-        raise ValueError(
-            f"segment_iters ({segment_iters}) must be a multiple of "
-            f"check_termination ({check_termination}) so the check schedule "
-            "matches a single adaptive call"
-        )
+    segment_iters = _segment_schedule(check_termination, segment_iters,
+                                      segment_growth)
     if warmup_iters >= segment_iters:
         raise ValueError("warmup_iters must be < segment_iters")
-    if segment_growth < 1.0:
-        raise ValueError("segment_growth must be >= 1.0")
 
     common = dict(
         check_termination=check_termination, abs_pri_tol=abs_pri_tol,
@@ -130,61 +192,81 @@ def cascade_solve(
             "cone_mu_x": cone_mu_x, "cone_shift_x": cone_shift_x}
     cols = {k: None if v is None else torch.as_tensor(v).to(x0.device)
             for k, v in cols.items()}
+    x0_b, carry_b = x0, carry
 
-    if max_iter <= segment_iters:
-        if trace is not None:
-            trace.append((max_iter, x0.shape[0]))
-        return fused_solve(x0, carry, pp, max_iter=max_iter,
-                           warmup_iters=warmup_iters, **common, **cols)
+    def launch(k, done_iters):
+        return fused_solve(
+            x0_b, carry_b, pp, max_iter=k,
+            warmup_iters=warmup_iters if done_iters == 0 else 0,
+            **common, **cols)
 
-    with torch.no_grad():
-        # Active set: the first launch is the whole batch; afterwards `idx`
-        # maps the rows of the compacted batch to their original indices.
-        # Iteration counts compose as offset + in-segment value (unsolved
-        # instances report the segment's full length, so offsets telescope
-        # as later segments overwrite their rows).
-        idx = None
-        x0_b, carry_b = x0, carry
-        out = None
-        done_iters = 0
-        cur_seg = segment_iters
-        while True:
-            k = min(cur_seg, max_iter - done_iters)
-            if trace is not None:
-                trace.append((k, x0_b.shape[0]))
-            res = fused_solve(
-                x0_b, carry_b, pp, max_iter=k,
-                warmup_iters=warmup_iters if done_iters == 0 else 0,
-                **common, **cols)
-            stats = res.stats.clone()
-            stats[:, 0] += done_iters
-            rows = (res.U, res.X, stats) + tuple(res.carry)
-            if out is None:
-                out = tuple(r.clone() for r in rows)
-            else:
-                for buf, r in zip(out, rows):
-                    buf.index_copy_(0, idx, r)
-            done_iters += k
-            if done_iters >= max_iter:
-                break
-            keep = torch.nonzero(res.stats[:, 1].cpu() < 0.5)[:, 0]
-            if keep.numel() == 0:
-                break
-            # Geometric segment growth, kept on the check-interval grid (any
-            # multiple-of-check segmentation preserves the global schedule).
-            cur_seg = max(
-                check_termination,
-                int(cur_seg * segment_growth)
-                // check_termination * check_termination,
-            )
-            keep = keep.to(x0.device)
-            idx = keep if idx is None else idx.index_select(0, keep)
-            x0_b = x0_b.index_select(0, keep)
-            carry_b = FusedCarry(*(a.index_select(0, keep) for a in res.carry))
-            cols = {k_: None if v is None else v.index_select(1, keep)
-                    for k_, v in cols.items()}
+    def compact(res_carry, keep):
+        nonlocal x0_b, carry_b, cols
+        x0_b = x0_b.index_select(0, keep)
+        carry_b = FusedCarry(*(a.index_select(0, keep) for a in res_carry))
+        cols = {k: None if v is None else v.index_select(1, keep)
+                for k, v in cols.items()}
+
+    out = _segments(max_iter, segment_iters, segment_growth,
+                    check_termination, launch, compact, trace)
     return FusedResult(U=out[0], X=out[1], carry=FusedCarry(*out[3:]),
                        stats=out[2])
+
+
+def hetero_cascade_solve(
+    x0: torch.Tensor,
+    carry: HeteroCarry,
+    hp,
+    *,
+    max_iter: int = 100,
+    check_termination: int = 1,
+    segment_iters: int | None = None,
+    segment_growth: float = 4.0,
+    abs_pri_tol: float = 1e-3,
+    abs_dua_tol: float = 1e-3,
+    cones=None,
+    cone_params=None,
+    cone_masks=None,
+    en_input_bound: bool = True,
+    en_state_bound: bool = True,
+    trace: list | None = None,
+):
+    """Compaction cascade over the heterogeneous-plant adaptive kernel.
+
+    The same launch-level early-termination reclaim as :func:`cascade_solve`
+    (which see for the cost model) for batches where every instance carries
+    its own plant: between segments the surviving instances -- plants,
+    carries, x0 and the per-instance cone operands -- are gathered
+    (:func:`..ops.hetero_admm.gather_hetero`) and launched as they are (no
+    power-of-two bucket ladder: the kernel takes any batch size). Per
+    instance the arithmetic does not depend on its place in the batch, so
+    the cascade is bit-exact against one long adaptive
+    :func:`..ops.hetero_admm.hetero_solve` call: schedules and iterates.
+
+    Returns ``(U, X, stats, carry)`` in the original batch order; ``carry``
+    is warm-start ready for the whole batch. ``trace``, if a list, receives
+    one ``(iterations, batch)`` pair per launch.
+    """
+    segment_iters = _segment_schedule(check_termination, segment_iters,
+                                      segment_growth)
+    common = dict(
+        check_termination=check_termination, abs_pri_tol=abs_pri_tol,
+        abs_dua_tol=abs_dua_tol, en_input_bound=en_input_bound,
+        en_state_bound=en_state_bound, cones=cones)
+    hp_b, carry_b, x0_b, cp_b, cm_b = hp, carry, x0, cone_params, cone_masks
+
+    def launch(k, _done_iters):
+        return hetero_solve(x0_b, carry_b, hp_b, max_iter=k,
+                            cone_params=cp_b, cone_masks=cm_b, **common)
+
+    def compact(res_carry, keep):
+        nonlocal hp_b, carry_b, x0_b, cp_b, cm_b
+        hp_b, carry_b, x0_b, cp_b, cm_b = gather_hetero(
+            hp_b, res_carry, x0_b, keep, cp_b, cm_b)
+
+    out = _segments(max_iter, segment_iters, segment_growth,
+                    check_termination, launch, compact, trace)
+    return out[0], out[1], out[2], HeteroCarry(*out[3:])
 
 
 def _waits(name: str, slice_: str):
@@ -196,6 +278,5 @@ def _waits(name: str, slice_: str):
     return fn
 
 
-hetero_cascade_solve = _waits("hetero_cascade_solve", "9")
 stream_cascade_solve = _waits("stream_cascade_solve", "10")
 hstream_cascade_solve = _waits("hstream_cascade_solve", "10")

@@ -3,16 +3,22 @@
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
 
-Builds the CUDA kernels from the sources in this checkout (two sources, one
+Builds the CUDA kernels from the sources in this checkout (three sources, one
 ``nvcc`` each, started together), holds each kernel against its plain PyTorch
-version on the card, drives the port's main path (batched fused MPC on the
-quadrotor, nx=12, nu=4, N=10) through ``TinyMPC`` at batch 65,536, and checks
-two batch-1 missions against the golden trajectories of the compiled C++
-reference. Then the second path, again through ``TinyMPC`` at batch 65,536:
-second-order cones inside the fused kernels (the powered-descent lander,
-nx=6, nu=3, N=15), the compaction cascade, and per-instance adaptive rho with
-the Riccati kernels (fixed-point refreshes at that batch, Newton refreshes at
-4,099). Every phase prints one JSON line with the seconds since the start;
+version on the card at batch 4,099 (the heterogeneous-plant kernels also
+against a float64 plain version and the plain version on the CPU, and
+against the fused kernels on a fleet of identical plants), times each at
+batch 65,536, drives the port's main path
+(batched fused MPC on the quadrotor, nx=12, nu=4, N=10) through ``TinyMPC``
+at batch 65,536, and checks two batch-1 missions against the golden
+trajectories of the compiled C++ reference. Then the second path, again
+through ``TinyMPC`` at batch 65,536: second-order cones inside the fused
+kernels (the powered-descent lander, nx=6, nu=3, N=15), the compaction
+cascade, and per-instance adaptive rho with the Riccati kernels. Then the
+third: ``TinyMPCFleet`` on 65,536 perturbed quadrotors (setup, fixed and
+adaptive solves, the hetero cascade, a 20-tick fleet mission, an online
+plant refresh, adaptive rho with the hetero and einsum engines at 16,384).
+Every phase prints one JSON line with the seconds since the start;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the exit code is non-zero and no result line is printed. Without a CUDA
 device the script exits non-zero at once.
@@ -22,6 +28,7 @@ Imports the port only (``accelerated_tinympc_tpu_torch``), never JAX.
 
 from __future__ import annotations
 
+import copy
 import json
 import pathlib
 import subprocess
@@ -79,6 +86,18 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def timed(fn):
+    """``(fn(), milliseconds)`` of one call by CUDA events."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor, rows=None) -> float:
     if rows is not None:
         a, b = a[rows], b[rows]
@@ -104,22 +123,34 @@ def _bars(name, errs, agree, worst, block, extra=(), min_agree=AGREE_SOLVE):
     return fails
 
 
-def compare_solve(name, got, want, check_every, rho, ref64=None):
+def compare_solve(name, got, want, check_every, rho, ref64=None,
+                  max_iter=None):
     """Kernel result vs plain result of one solve. Values are compared on
     the instances whose iteration counts agree: FMA contraction and
     summation order differ between nvcc and the plain products, so an
     instance whose residual sits on the tolerance can freeze one check
-    later, and then returns a different (equally valid) iterate."""
+    later, and then returns a different (equally valid) iterate.
+
+    Where the counts agree the solved flags must agree too, with one
+    exception when ``max_iter`` is given: an instance that converges at the
+    check on the last iteration in one version and runs to the cap in the
+    other reports ``max_iter`` in both, with another result (the snapshot
+    against the live iterate); such instances count as a schedule
+    disagreement and their values are not compared."""
     it_g, it_w = got.stats[:, 0], want.stats[:, 0]
-    same = it_g == it_w
+    flags_differ = (it_g == it_w) & (got.stats[:, 1] != want.stats[:, 1])
+    at_cap = (it_g == max_iter) if max_iter is not None else \
+        torch.zeros_like(flags_differ)
+    same = (it_g == it_w) & ~flags_differ
     agree = float(same.float().mean())
     worst = float((it_g - it_w).abs().max())
     errs = {"U": max_err(got.U, want.U, same), "X": max_err(got.X, want.X, same)}
     for k in ("D", "Y", "G", "Z", "V"):
         errs[k] = max_err(getattr(got.carry, k), getattr(want.carry, k), same)
-    extra = []
-    if not bool((got.stats[:, 1] == want.stats[:, 1])[same].all()):
-        extra.append(f"{name}: solved flags disagree")
+    flags_below_cap = int((flags_differ & ~at_cap).sum())
+    hard = [f"{name}: solved flags disagree below the iteration cap on "
+            f"{flags_below_cap} instances"] if flags_below_cap else []
+    extra = list(hard)
     # Residual columns: rtol 1e-3 + atol 1e-6 of their own, plus what the
     # iterates' measured disagreement e allows: a residual is max|a - b| of
     # two iterates (times rho for the dual ones), so it may move by
@@ -134,7 +165,8 @@ def compare_solve(name, got, want, check_every, rho, ref64=None):
                      f"(excess over rtol {res_excess} > {res_bar})")
     vs64 = {}
     if ref64 is not None:
-        ok = same & (ref64.stats[:, 0] == it_g)
+        ok = (same & (ref64.stats[:, 0] == it_g)
+              & (ref64.stats[:, 1] == got.stats[:, 1]))
         for label, r in (("kernel", got), ("plain_f32", want)):
             vs64[label] = max(
                 [max_err(r.U, ref64.U, ok), max_err(r.X, ref64.X, ok)]
@@ -148,6 +180,7 @@ def compare_solve(name, got, want, check_every, rho, ref64=None):
             "res_abs_err": res_abs, "res_excess": res_excess,
             "iters_agree": agree, "iters_worst": worst,
             "iters_mean": float(it_g.mean()),
+            "hard_failures": hard,
             "failures": _bars(name, errs, agree, worst,
                               max(check_every, 1), extra)}
 
@@ -251,6 +284,24 @@ def cone_excess(W, cone, mu=None, shift=None):
 CONE_TOL = 1e-5   # every final slack satisfies every cone to this
 
 
+def hetero_bound(dims, iters_total: float, batch: int):
+    """Least time for the hetero kernels: 2 m (2 nx nu + nx^2 + nu nx + nu^2
+    + nx^2 + nx nu) FLOP per instance-iteration (forward: Kinf, A, B;
+    backward: B', Quu_inv, AmBKt, Kinf'), ``iters_total`` summed over the
+    instances as this run's data needed; bytes: the per-instance operands,
+    bounds, x0 and carry read once, outputs and carry written once."""
+    nx, nu, N = dims
+    m = N - 1
+    flops = iters_total * 2 * m * (2 * nx * nu + nx * nx + nu * nx + nu * nu
+                                   + nx * nx + nx * nu)
+    words_in = (2 * nx * nx + 2 * nx * nu + nu * nu + 2 * m * nu
+                + 3 * N * nx + 2 * nx + 1 + 3 * m * nu + 2 * N * nx)
+    words_out = m * nu + N * nx + 3 * m * nu + 2 * N * nx + 8
+    nbytes = 4 * batch * (words_in + words_out)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device: "
@@ -269,6 +320,93 @@ def main() -> None:
     )
     from accelerated_tinympc_tpu_torch.solver.cascade import cascade_solve
     from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
+    from accelerated_tinympc_tpu_torch.api.mpc import fleet_mpc_rollout
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+    from accelerated_tinympc_tpu_torch.ops import FusedResult
+
+    def as_flat(res):
+        """A hetero result in the fused tier's flat layout (stats' first six
+        columns) on the card, so the fused comparisons and bars apply
+        unchanged."""
+        Bn = res.U.shape[0]
+        f = lambda a: a.reshape(Bn, -1).to(dev)
+        c = res.carry
+        return FusedResult(U=f(res.U), X=f(res.X), carry=FusedCarry(
+            D=f(c.d), Y=f(c.y), G=f(c.g), Z=f(c.z), V=f(c.v)),
+            stats=res.stats[:, :6].to(dev))
+
+    def plain_on_cpu(xs, cy, hp, **kw):
+        """The float32 plain version on the CPU: the same arithmetic as on
+        the card, with the CPU's BLAS grouping the products' sums."""
+        cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v
+        return as_flat(ha.hetero_solve_plain(
+            xs.cpu(), ha.HeteroCarry(*(a.cpu() for a in cy)),
+            hp.to(device="cpu"), **{k: cpu(v) for k, v in kw.items()}))
+
+    def arbitrated(name, got, want, ref64, check, rho, plain_cpu):
+        """``got`` (a kernel) against ``want`` (another float32 version on
+        the card) with the float64 plain version ``ref64`` as arbiter. The
+        case passes on the bars of ``compare_solve`` between the two float32
+        versions. Where the data is conditioned so that float32 versions
+        themselves stray further than those bars from float64, it passes
+        when the kernel lies inside the spread of float32 versions: on the
+        instances whose schedules (count and solved flag) equal float64's
+        in all three, each field no further from float64 than the bar or
+        the further of ``want`` and the plain version on the CPU
+        (``plain_cpu()``, run only here); schedule agreement with float64
+        no lower than ``want``'s minus 1 point; counts never off float64 by
+        more than ``want``'s worst plus one check block. Solved flags that
+        disagree below the cap fail in either case."""
+        case = compare_solve(name, got, want, check, rho, max_iter=100)
+        if not case["failures"]:
+            case["held_by"] = "kernel_vs_f32"
+            return case
+        cpu = plain_cpu()
+        sched = lambda r: (r.stats[:, 0].to(got.stats.dtype),
+                           r.stats[:, 1].to(got.stats.dtype))
+        (it_k, s_k), (it_w, s_w), (it_c, s_c), (it_64, s_64) = (
+            sched(got), sched(want), sched(cpu), sched(ref64))
+        ok_k = (it_k == it_64) & (s_k == s_64)
+        ok_w = (it_w == it_64) & (s_w == s_64)
+        every = ok_k & ok_w & (it_c == it_64) & (s_c == s_64)
+        arb = {"agree_f64": {"kernel": float(ok_k.float().mean()),
+                             "other_f32": float(ok_w.float().mean())},
+               "worst_vs_f64": {"kernel": float((it_k - it_64).abs().max()),
+                                "other_f32": float((it_w - it_64).abs().max())},
+               "compared_share": float(every.float().mean()),
+               "err_vs_f64": {}}
+        fails = list(case["hard_failures"])
+        fields = lambda r: dict(U=r.U, X=r.X, **{
+            k: getattr(r.carry, k) for k in ("D", "Y", "G", "Z", "V")})
+        fk, fw, fc, f64 = fields(got), fields(want), fields(cpu), fields(ref64)
+        for k in fk:
+            ek, ew, ec = (max_err(fk[k], f64[k], every),
+                          max_err(fw[k], f64[k], every),
+                          max_err(fc[k], f64[k], every))
+            arb["err_vs_f64"][k] = {"kernel": ek, "other_f32": ew,
+                                    "plain_f32_cpu": ec}
+            bar = max(STATE_TOL if k in STATE_FIELDS else VAL_TOL, ew, ec)
+            if not ek <= bar:
+                fails.append(f"{name}: {k} {ek} from float64 > {bar}")
+        if arb["agree_f64"]["kernel"] < arb["agree_f64"]["other_f32"] - 0.01:
+            fails.append(f"{name}: schedule agrees with float64 on "
+                         f"{arb['agree_f64']}")
+        if arb["worst_vs_f64"]["kernel"] > (arb["worst_vs_f64"]["other_f32"]
+                                            + max(check, 1)):
+            fails.append(f"{name}: counts off float64 by {arb['worst_vs_f64']}")
+        case["arbiter_float64"] = arb
+        case["bars_kernel_vs_f32"] = case["failures"]
+        case["held_by"] = "float64_arbiter"
+        case["failures"] = fails
+        return case
+
+    def hetero_carry_of(fc, dims_):
+        nx_, nu_, N_ = dims_
+        Bn = fc.D.shape[0]
+        u = lambda a: a.reshape(Bn, N_ - 1, nu_)
+        x = lambda a: a.reshape(Bn, N_, nx_)
+        return ha.HeteroCarry(d=u(fc.D), y=u(fc.Y), g=x(fc.G), z=u(fc.Z),
+                              v=x(fc.V))
 
     dev = "cuda"
     kind = torch.cuda.get_device_name(0)
@@ -283,7 +421,7 @@ def main() -> None:
     ptxas = {
         name: [ln.strip() for ln in _build.build_log(name).splitlines()
                if "registers" in ln or "spill" in ln]
-        for name in ("fused_admm", "riccati")}
+        for name in ("fused_admm", "riccati", "hetero_admm")}
     emit("build", seconds=round(_build.last_build_seconds, 2), ptxas=ptxas)
 
     # -------------------------------------------------------------- kernels
@@ -344,10 +482,12 @@ def main() -> None:
             ("fixed-50", dict(max_iter=50, check_termination=0)),
             ("adaptive", dict(max_iter=100, check_termination=1))):
         got = fused_rollout(x0s, cold, pp, rops, 70, **kw)
-        want = fused_rollout_plain(x0s, cold, pp, rops, 70, **kw)
+        want, plain_ms = timed(
+            lambda: fused_rollout_plain(x0s, cold, pp, rops, 70, **kw))
         cases.append(compare_rollout(
             f"K3 70 ticks hovering {label}", got, want,
             kw["check_termination"]))
+    k3_pre = (got, want, plain_ms)   # the adaptive mission: K3's row
     # The float64 plain mission as arbiter of the adaptive schedule: the
     # kernel may not stray from it further than the float32 plain version.
     ref64 = fused_rollout_plain(
@@ -522,8 +662,9 @@ def main() -> None:
     mission_kw = dict(max_iter=100, check_termination=2, **LANDER_TOL)
     got = fused_rollout(lx0, lcold, lpp, lrops, 30, cone_ops=lcops,
                         **mission_kw)
-    want = fused_rollout_plain(lx0, lcold, lpp, lrops, 30, cone_ops=lcops,
-                               **mission_kw)
+    want, plain_ms = timed(lambda: fused_rollout_plain(
+        lx0, lcold, lpp, lrops, 30, cone_ops=lcops, **mission_kw))
+    k4c_pre = (got, want, plain_ms)   # K4's mission row
     cone_cases.append(compare_rollout(
         "K4 lander coned mission 30 ticks", got, want, 2, tol=1e-2))
     xf_loop, us_loop, carry_loop = fused_mpc_rollout(
@@ -685,49 +826,238 @@ def main() -> None:
     emit("kernels_riccati", batch=B, cases=ric_cases)
     raise_failures(ric_cases)
 
-    # Each kernel at the main path's shapes: error, time, plain time, bound.
+    # ------------------------------------- heterogeneous plants: K7 and K8
+    # Three families at the comparison batch, each kernel against its plain
+    # version under the bars above: (a) the robust sweep's (the quadrotor's
+    # plant perturbed elementwise by 3 %, examples/robust_plant_sweep.py),
+    # (b) examples/fleet_sweep.py's (64 random plants nx=8, nu=3, inputs in
+    # [-2, 2], a thrust cone with per-instance mu and, for half the fleet,
+    # the axis on another input), (c) a ragged shape (nx=5, nu=2, N=7).
+    def robust_family(batch, seed=0, spread=0.03):
+        prob, cch, x0 = atm.models.quadrotor_hovering_setup(device=dev)
+        rng = np.random.default_rng(seed)
+        A0 = prob.A.double().cpu().numpy()
+        B0 = prob.B.double().cpu().numpy()
+        mulA = 1.0 + spread * rng.standard_normal((batch, 12, 12))
+        mulB = 1.0 + spread * rng.standard_normal((batch, 12, 4))
+        mulA[0] = 1.0
+        mulB[0] = 1.0
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        wide = lambda a: a.expand((batch,) + tuple(a.shape)).contiguous()
+        prob_b = atm.Problem(**{k: wide(v) for k, v in prob.tensors().items()})
+        prob_b = prob_b.replace(A=t(A0[None] * mulA), B=t(B0[None] * mulB))
+        rho = torch.full((batch,), float(cch.rho), device=dev)
+        # around the hover reference: the cold solves from the nominal x0
+        # need more than 100 iterations, these exit at different ones
+        x0s_ = t(prob.Xref[0].cpu().numpy()[None]
+                 + 0.2 * rng.standard_normal((batch, 12)))
+        return prob_b, rho, x0s_
+
+    def fleet_family(batch, seed=0):
+        from accelerated_tinympc_tpu_torch.models import random_lti_problem
+
+        ps = [random_lti_problem(s, 8, 3, 10, device=dev)[0]
+              for s in range(64)]
+        reps = -(-batch // 64)
+        tile = lambda f: torch.cat([torch.stack([f(p) for p in ps])] * reps)[
+            :batch].contiguous()
+        inf = float("inf")
+        full = lambda v, *s: torch.full((batch,) + s, v, device=dev)
+        prob_b = atm.Problem(
+            A=tile(lambda p: p.A), B=tile(lambda p: p.B),
+            Q=tile(lambda p: p.Q), R=tile(lambda p: p.R),
+            u_min=full(-2.0, 9, 3), u_max=full(2.0, 9, 3),
+            x_min=full(-inf, 10, 8), x_max=full(inf, 10, 8),
+            Xref=full(0.0, 10, 8), Uref=full(0.0, 9, 3))
+        rng = np.random.default_rng(seed)
+        x0s_ = torch.as_tensor(0.5 * rng.standard_normal((batch, 8)),
+                               dtype=torch.float32, device=dev)
+        mu = torch.as_tensor(0.6 + 0.8 * np.random.default_rng(42).random(
+            batch), dtype=torch.float32, device=dev)
+        h = batch // 2
+        ball = np.zeros((batch, 3), np.float32)
+        ball[:h, [0, 1]] = 1.0
+        ball[h:, [1, 2]] = 1.0
+        axis = np.full(batch, 2, np.int64)
+        axis[h:] = 0
+        cones = ConeSet(input_cones=(Cone((0, 1), 2, 1.0, 2.0),))
+        cone_kw = dict(
+            cones=cones,
+            cone_params=ha.pad_hetero_cone_params(cones, batch, mu_u=mu[None],
+                                                  device=dev),
+            cone_masks=ha.pad_hetero_cone_masks(
+                cones, batch, 8, 3, ball_u=[ball], axis_u=[axis],
+                device=dev),
+            en_state_bound=False)
+        geometry = (torch.as_tensor(ball, device=dev),
+                    torch.as_tensor(axis, device=dev), mu, 2.0)
+        return prob_b, torch.ones(batch, device=dev), x0s_, cone_kw, geometry
+
+    def ragged_family(batch, seed=3):
+        A_, B_, Q_, R_, rho_ = plants(batch, 5, 2, seed=seed)
+        rng = np.random.default_rng(seed)
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        lim = t(0.5 + rng.random((batch, 6, 2)))
+        prob_b = atm.Problem(
+            A=A_, B=B_, Q=Q_, R=R_, u_min=-lim, u_max=lim,
+            x_min=t(np.full((batch, 7, 5), -5.0)),
+            x_max=t(np.full((batch, 7, 5), 5.0)),
+            Xref=t(0.1 * rng.standard_normal((batch, 7, 5))),
+            Uref=t(np.zeros((batch, 6, 2))))
+        return prob_b, rho_, t(rng.standard_normal((batch, 5)))
+
+    def hetero_of(prob_b, rho):
+        return ha.pad_hetero_from_plants(prob_b.A, prob_b.B, prob_b.Q,
+                                         prob_b.R, rho, prob_b)[0]
+
+    def geometry_excess(Z, geometry):
+        """Worst violation of per-instance cones on slacks ``Z (B, K, nu)``:
+        ball mask ``(B, nu)``, axis index ``(B,)``, mu ``(B,)``, shift."""
+        bm, ax, mu, shift = geometry
+        a = torch.sqrt(((Z * bm[:, None, :]) ** 2).sum(-1))
+        s = Z.gather(2, ax[:, None, None].expand(-1, Z.shape[1], 1))[..., 0]
+        return float((a - mu[:, None] * (s + shift)).max())
+
+    def plain_mission(hp, prob_b, xs, ticks, **kw):
+        """fleet_mpc_rollout with the plain version in place of the kernel."""
+        cy = ha.HeteroCarry.zeros(hp)
+        mv = lambda M, v: torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
+        us = []
+        for _ in range(ticks):
+            res = ha.hetero_solve_plain(xs, cy.reset_duals(), hp, **kw)
+            cy = res.carry
+            us.append(res.U[:, 0])
+            xs = mv(prob_b.A, xs) + mv(prob_b.B, res.U[:, 0])
+        return xs, torch.stack(us), cy
+
+    het_cases = []
+    fam_a = robust_family(B)
+    hp_a = hetero_of(fam_a[0], fam_a[1])
+    fam_b = fleet_family(B)
+    hp_b = hetero_of(fam_b[0], fam_b[1])
+    fam_c = ragged_family(B)
+    hp_c = hetero_of(fam_c[0], fam_c[1])
+    # warm start of family (a): twelve adaptive ticks of the plain mission
+    xa_w, _us, ca_w = plain_mission(hp_a, fam_a[0], fam_a[2], 12,
+                                    max_iter=100, check_termination=1)
+    hcases = [("a robust 12/4/10", hp_a, fam_a[2], {}, None, None),
+              ("a robust 12/4/10 warm", hp_a, xa_w, {}, ca_w.reset_duals(),
+               None),
+              ("b fleet_sweep 8/3/10 cones", hp_b, fam_b[2], fam_b[3], None,
+               fam_b[4]),
+              ("c ragged 5/2/7", hp_c, fam_c[2], {}, None, None)]
+    for label, hp, xs, extra, cy, geometry in hcases:
+        cy = ha.HeteroCarry.zeros(hp) if cy is None else cy
+        rho_max = float(hp.rho.max())
+        modes = [("K7 fixed-100", dict(max_iter=100), 0),
+                 ("K8 check=1", dict(max_iter=100, check_termination=1,
+                                     abs_pri_tol=1e-3, abs_dua_tol=1e-3), 1),
+                 ("K8 check=5", dict(max_iter=100, check_termination=5,
+                                     abs_pri_tol=1e-3, abs_dua_tol=1e-3), 5)]
+        if label.endswith("warm"):
+            modes = modes[1:2]
+        hp64 = hp.to(dtype=torch.float64)
+        cy64 = ha.HeteroCarry(*(a.double() for a in cy))
+        for mode, kw, check in modes:
+            got = ha.hetero_solve(xs, cy, hp, **kw, **extra)
+            want = ha.hetero_solve_plain(xs, cy, hp, **kw, **extra)
+            extra64 = {k: (v.double() if isinstance(v, torch.Tensor) else v)
+                       for k, v in extra.items()}
+            ref64 = ha.hetero_solve_plain(xs.double(), cy64, hp64, **kw,
+                                          **extra64)
+            case = arbitrated(
+                f"{mode} {label}", as_flat(got), as_flat(want),
+                as_flat(ref64), check, rho_max,
+                lambda: plain_on_cpu(xs, cy, hp, **kw, **extra))
+            case["solved_share"] = float(got.stats[:, 1].mean())
+            if geometry is not None:
+                case["cone_excess"] = geometry_excess(got.carry.z, geometry)
+                if not case["cone_excess"] <= CONE_TOL:
+                    case["failures"].append(
+                        f"{mode} {label}: final slack violates its cone by "
+                        f"{case['cone_excess']}")
+            het_cases.append(case)
+    torch.cuda.synchronize()
+    emit("kernels_hetero", batch=B, cases=het_cases)
+    raise_failures(het_cases)
+
+    # K7/K8 against K1/K2: every instance with the quadrotor's plant and
+    # cache, the same x0s, the same carries (the cheapest proof that K7 is
+    # the reference's ADMM, not only equal to its own plain version).
+    wide = lambda a: a.expand((B,) + tuple(a.shape)).contiguous()
+    hp_q = ha.pad_hetero_problem(
+        atm.Problem(**{k: wide(v) for k, v in problem.tensors().items()}),
+        atm.Cache(**{k: wide(v) for k, v in cache.tensors().items()}))
+    xs_f = x0s
+    lead_f = fused_rollout(xs_f, cold, pp, rops, 12, max_iter=100,
+                           check_termination=1)
+    x1_f, warm_f = lead_f.x_final, lead_f.final.carry.reset_duals()
+    vs_fused = []
+    for label, xs, fcarry, kw, check in (
+            ("K7 vs K1 fixed-100 cold", xs_f, cold,
+             dict(max_iter=100, check_termination=0), 0),
+            ("K8 vs K2 check=1 cold", xs_f, cold,
+             dict(max_iter=100, check_termination=1), 1),
+            ("K8 vs K2 check=1 warm", x1_f, warm_f,
+             dict(max_iter=100, check_termination=1), 1)):
+        hcarry = hetero_carry_of(fcarry, (12, 4, 10))
+        got = ha.hetero_solve(xs, hcarry, hp_q, **kw)
+        vs_fused.append(arbitrated(
+            label, as_flat(got), fused_solve(xs, fcarry, pp, **kw),
+            plain64(xs, fcarry, **kw), check, pp.rho_f,
+            lambda: plain_on_cpu(xs, hcarry, hp_q, **kw)))
+    torch.cuda.synchronize()
+    emit("hetero_vs_fused", batch=B, cases=vs_fused)
+    raise_failures(vs_fused)
+
+    # Each kernel at the main path's shapes: time and bound at batch 65,536;
+    # the comparison with the plain version, and the plain version's time,
+    # at the comparison batch (the plain versions are thousands of small
+    # launches, seconds at 65,536).
+    small_problem, small_cache, small_pp, xs_s = flagship(KERNEL_BATCH)
+    cold_s = FusedCarry.zeros(KERNEL_BATCH, pp, device=dev)
     problem, cache, pp, x0s = flagship(MAIN_BATCH)
     rops = rollout_ops(problem, pp, device=dev)
     cold = FusedCarry.zeros(MAIN_BATCH, pp, device=dev)
     dims = pp.dims
     kernels = []
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        out = fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return out, t0.elapsed_time(t1)
-
-    def kernel_row(name, replaces, run_kernel, run_plain, compare, iters_of,
+    def kernel_row(name, replaces, run_main, small, compare, iters_of,
                    n_solves, ticks=0, dims=dims, bound=None,
                    source="fused_admm.cu", long_plain=False):
-        """``long_plain``: a plain version of seconds (thousands of small
-        launches) is run once, and that run is the one timed; the others
-        are timed on a second run, after the compared one warmed them up."""
-        got = run_kernel()
-        want, plain_ms = timed(run_plain)
+        """``small = (kernel, plain)`` at the comparison batch: compared, and
+        the plain version timed there (or ``(got, want, plain_ms)`` of an
+        earlier phase's comparison on the same inputs); ``run_main`` is the
+        kernel at the main batch, timed, and its iteration counts give the
+        bound. ``long_plain``: a plain version of seconds is timed on the
+        compared run instead of a second one."""
+        if callable(small[0]):
+            got = small[0]()
+            want, plain_ms = timed(small[1])
+        else:
+            got, want, plain_ms = small
+            long_plain = True
         cmp_ = compare(got, want)
         emit("kernel_at_main_shape", **cmp_)
         raise_failures([cmp_])
-        ms = cuda_ms(run_kernel)
         if not long_plain:
-            plain_ms = timed(run_plain)[1]
+            plain_ms = timed(small[1])[1]
+        ms = cuda_ms(run_main)
+        main_out = run_main()
         if bound is None:
             bound_ms, bound_by = solve_bound(
-                dims, float(iters_of(got)), n_solves, MAIN_BATCH, ticks)
+                dims, float(iters_of(main_out)), n_solves, MAIN_BATCH, ticks)
         else:
-            bound_ms, bound_by = bound(got)
+            bound_ms, bound_by = bound(main_out)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "accelerated_tinympc_tpu_torch/ops/csrc/" + source,
             "replaces": replaces, "launches": 0,
             "max_abs_err": cmp_["max_abs_err"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "iters_mean": cmp_["iters_mean"],
+            "plain_ms": plain_ms, "plain_batch": KERNEL_BATCH,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+            "iters_mean": float(iters_of(main_out)) / n_solves,
         })
 
     kw1 = dict(max_iter=100, check_termination=0)
@@ -735,17 +1065,21 @@ def main() -> None:
         "fused_solve_fixed",
         "accelerated_tinympc_tpu/ops/fused_admm.py:672",
         lambda: fused_solve(x0s, cold, pp, **kw1),
-        lambda: fused_solve_plain(x0s, cold, pp, **kw1),
+        (lambda: fused_solve(xs_s, cold_s, pp, **kw1),
+         lambda: fused_solve_plain(xs_s, cold_s, pp, **kw1)),
         lambda g, w: compare_solve("K1 main shape", g, w, 0, pp.rho_f),
         lambda g: g.stats[:, 0].sum(), MAIN_BATCH)
     kw2 = dict(max_iter=100, check_termination=1)
     lead = fused_rollout(x0s, cold, pp, rops, 12, **kw2)
     x1, warm = lead.x_final, lead.final.carry.reset_duals()
+    lead_s = fused_rollout(xs_s, cold_s, pp, rops, 12, **kw2)
+    x1_s, warm_s = lead_s.x_final, lead_s.final.carry.reset_duals()
     kernel_row(
         "fused_solve_adaptive",
         "accelerated_tinympc_tpu/ops/fused_admm.py:740",
         lambda: fused_solve(x1, warm, pp, **kw2),
-        lambda: fused_solve_plain(x1, warm, pp, **kw2),
+        (lambda: fused_solve(x1_s, warm_s, pp, **kw2),
+         lambda: fused_solve_plain(x1_s, warm_s, pp, **kw2)),
         lambda g, w: compare_solve("K2 main shape", g, w, 1, pp.rho_f),
         lambda g: g.stats[:, 0].sum(), MAIN_BATCH)
     # The compaction cascade on K2's workload, taken apart: the first
@@ -757,8 +1091,8 @@ def main() -> None:
     seg = 25
     first = fused_solve(x1, warm, pp, max_iter=seg, check_termination=1)
     keep = torch.nonzero(first.stats[:, 1] < 0.5)[:, 0]
-    xs_s = x1.index_select(0, keep)
-    cy_s = FusedCarry(*(a.index_select(0, keep) for a in first.carry))
+    xs_sv = x1.index_select(0, keep)
+    cy_sv = FusedCarry(*(a.index_select(0, keep) for a in first.carry))
     cascade_kw = dict(max_iter=100, check_termination=1, segment_iters=seg)
     segments = []
     casc = cascade_solve(x1, warm, pp, trace=segments, **cascade_kw)
@@ -774,7 +1108,7 @@ def main() -> None:
         "first_segment_ms": cuda_ms(lambda: fused_solve(
             x1, warm, pp, max_iter=seg, check_termination=1)),
         "rest_on_survivors_ms": cuda_ms(lambda: fused_solve(
-            xs_s, cy_s, pp, max_iter=100 - seg, check_termination=1)),
+            xs_sv, cy_sv, pp, max_iter=100 - seg, check_termination=1)),
         "rest_on_whole_batch_ms": cuda_ms(lambda: fused_solve(
             x1, first.carry, pp, max_iter=100 - seg, check_termination=1)),
         "cascade_ms": cuda_ms(
@@ -790,18 +1124,18 @@ def main() -> None:
     assert split["solved_agree"] >= AGREE_SOLVE, split
     assert split["u_err_same_schedule"] <= VAL_TOL, split
     assert len(segments) > 1 and segments[-1][1] < MAIN_BATCH, segments
-    del first, casc, mono, xs_s, cy_s
+    del first, casc, mono, xs_sv, cy_sv
 
     kernel_row(
         "fused_rollout",
         "accelerated_tinympc_tpu/ops/fused_rollout.py:125",
-        lambda: fused_rollout(x0s, cold, pp, rops, 70, **kw2),
-        lambda: fused_rollout_plain(x0s, cold, pp, rops, 70, **kw2),
+        lambda: fused_rollout(x0s, cold, pp, rops, 70, **kw2), k3_pre,
         lambda g, w: compare_rollout("K3 main shape", g, w, 1),
         lambda g: g.iters.sum(), 70 * MAIN_BATCH, ticks=70, long_plain=True)
 
     # K4 (the coned instantiations) at the lander fleet's shapes, and the
     # box-only kernels at the same shapes beside them, for the cones' cost.
+    lx0_s, lcold_s = lx0, lcold
     lproblem, lcache, lpp, lx0 = lander(MAIN_BATCH)
     lcold = FusedCarry.zeros(MAIN_BATCH, lpp, device=dev)
     lcops = pad_cones(lpp, lcones)
@@ -814,7 +1148,9 @@ def main() -> None:
         kernel_row(
             f"fused_solve_{label}_cones", cone_ref,
             lambda: fused_solve(lx0, lcold, lpp, cone_ops=lcops, **kw),
-            lambda: fused_solve_plain(lx0, lcold, lpp, cone_ops=lcops, **kw),
+            (lambda: fused_solve(lx0_s, lcold_s, lpp, cone_ops=lcops, **kw),
+             lambda: fused_solve_plain(lx0_s, lcold_s, lpp, cone_ops=lcops,
+                                       **kw)),
             lambda g, w: coned_case(
                 f"K4 {label} main shape", g, w, kw["check_termination"],
                 lpp.rho_f, lcones, 6, 3),
@@ -825,8 +1161,7 @@ def main() -> None:
         "fused_rollout_cones", cone_ref,
         lambda: fused_rollout(lx0, lcold, lpp, lrops, 30, cone_ops=lcops,
                               **mission_kw),
-        lambda: fused_rollout_plain(lx0, lcold, lpp, lrops, 30,
-                                    cone_ops=lcops, **mission_kw),
+        k4c_pre,
         lambda g, w: compare_rollout("K4 mission main shape", g, w, 2,
                                      tol=1e-2),
         lambda g: g.iters.sum(), 30 * MAIN_BATCH, ticks=30, dims=ldims,
@@ -838,7 +1173,8 @@ def main() -> None:
     # plant once per instance, rho mis-scaled over six decades (cold build),
     # then the refresh at rho five times larger from the converged cache.
     qA, qB, qQ, qR, qrho = quad_plants(MAIN_BATCH)
-    q64 = tuple(a.double() for a in (qA, qB, qQ, qR))
+    sA, sB, sQ, sR, srho = quad_plants(KERNEL_BATCH)
+    q64 = tuple(a.double() for a in (sA, sB, sQ, sR))
 
     def stop_residual(cache, newton):
         """max|dK| per instance of one more step, taken in float64, from the
@@ -895,18 +1231,25 @@ def main() -> None:
     kernel_row(
         "riccati_fixed_point", "accelerated_tinympc_tpu/ops/riccati_kernel.py:191",
         lambda: rk.riccati_fixed_point_kernel(qA, qB, qQ, qR, qrho),
-        lambda: fixed_point_plain(qA, qB, qQ, qR, qrho),
-        cache_row("K5 main shape", False, 1000), None, MAIN_BATCH,
+        (lambda: rk.riccati_fixed_point_kernel(sA, sB, sQ, sR, srho),
+         lambda: fixed_point_plain(sA, sB, sQ, sR, srho)),
+        cache_row("K5 main shape", False, 1000),
+        lambda g: g[1].float().sum(), MAIN_BATCH,
         source="riccati.cu", long_plain=True,
         bound=lambda g: riccati_bound(12, 4, float(g[1].sum()), MAIN_BATCH))
     base_cache = rk.riccati_cache_kernel(qA, qB, qQ, qR, qrho)
-    qrho2 = qrho * 5.0
+    base_s = rk.riccati_cache_kernel(sA, sB, sQ, sR, srho)
+    qrho2, srho2 = qrho * 5.0, srho * 5.0
     kernel_row(
         "riccati_newton", "accelerated_tinympc_tpu/ops/riccati_kernel.py:295",
         lambda: rk.riccati_newton_kernel(
             qA, qB, qQ, qR, qrho2, base_cache.Kinf),
-        lambda: newton_plain(qA, qB, qQ, qR, qrho2, base_cache.Kinf),
-        cache_row("K6 main shape", True, 12), None, MAIN_BATCH, source="riccati.cu",
+        (lambda: rk.riccati_newton_kernel(sA, sB, sQ, sR, srho2,
+                                          base_s.Kinf),
+         lambda: newton_plain(sA, sB, sQ, sR, srho2, base_s.Kinf)),
+        cache_row("K6 main shape", True, 12),
+        lambda g: g[1].float().sum(), MAIN_BATCH,
+        source="riccati.cu",
         bound=lambda g: riccati_bound(12, 4, float(g[1].sum()), MAIN_BATCH,
                                       inner=13))
     warm_fp = lambda: rk.riccati_fixed_point_kernel(
@@ -914,7 +1257,52 @@ def main() -> None:
     emit("riccati_refresh_at_main_shape", newton_ms=kernels[-1]["ms"],
          warm_fixed_point_ms=cuda_ms(warm_fp),
          warm_fixed_point_steps_mean=float(warm_fp()[1].float().mean()))
-    del qA, qB, qQ, qR, q64, base_cache
+    del qA, qB, qQ, qR, q64, base_cache, base_s
+
+    # K7, K8 on the robust sweep's family: fixed-100 cold, and adaptive
+    # (check 1, tol 1e-3) warm after a 12-tick adaptive fleet mission.
+    fam_m = robust_family(MAIN_BATCH)
+    hp_m = hetero_of(fam_m[0], fam_m[1])
+    hdims = (12, 4, 10)
+    hcold_m = ha.HeteroCarry.zeros(hp_m)
+    hcold_s = ha.HeteroCarry.zeros(hp_a)
+    hp_a64 = hp_a.to(dtype=torch.float64)
+    hcold_s64 = ha.HeteroCarry.zeros(hp_a64)
+    kh7 = dict(max_iter=100)
+    kernel_row(
+        "hetero_solve_fixed", "accelerated_tinympc_tpu/ops/hetero_admm.py:700",
+        lambda: ha.hetero_solve(fam_m[2], hcold_m, hp_m, **kh7),
+        (lambda: ha.hetero_solve(fam_a[2], hcold_s, hp_a, **kh7),
+         lambda: ha.hetero_solve_plain(fam_a[2], hcold_s, hp_a, **kh7)),
+        lambda g, w: arbitrated(
+            "K7 main shape", as_flat(g), as_flat(w), as_flat(
+                ha.hetero_solve_plain(fam_a[2].double(), hcold_s64, hp_a64,
+                                      **kh7)), 0, float(hp_a.rho.max()),
+            lambda: plain_on_cpu(fam_a[2], hcold_s, hp_a, **kh7)),
+        lambda g: g.stats[:, 0].sum(), MAIN_BATCH, source="hetero_admm.cu",
+        bound=lambda g: hetero_bound(hdims, float(g.stats[:, 0].sum()),
+                                     MAIN_BATCH))
+    kh8 = dict(max_iter=100, check_termination=1, abs_pri_tol=1e-3,
+               abs_dua_tol=1e-3)
+    xm_w, _us, cm_w = fleet_mpc_rollout(hp_m, fam_m[0], fam_m[2], 12, **kh8)
+    xs_w, _us, cs_w = fleet_mpc_rollout(hp_a, fam_a[0], fam_a[2], 12, **kh8)
+    cm_w, cs_w = cm_w.reset_duals(), cs_w.reset_duals()
+    kernel_row(
+        "hetero_solve_adaptive",
+        "accelerated_tinympc_tpu/ops/hetero_admm.py:766",
+        lambda: ha.hetero_solve(xm_w, cm_w, hp_m, **kh8),
+        (lambda: ha.hetero_solve(xs_w, cs_w, hp_a, **kh8),
+         lambda: ha.hetero_solve_plain(xs_w, cs_w, hp_a, **kh8)),
+        lambda g, w: arbitrated(
+            "K8 main shape", as_flat(g), as_flat(w), as_flat(
+                ha.hetero_solve_plain(
+                    xs_w.double(), ha.HeteroCarry(*(a.double() for a in cs_w)),
+                    hp_a64, **kh8)), 1, float(hp_a.rho.max()),
+            lambda: plain_on_cpu(xs_w, cs_w, hp_a, **kh8)),
+        lambda g: g.stats[:, 0].sum(), MAIN_BATCH, source="hetero_admm.cu",
+        bound=lambda g: hetero_bound(hdims, float(g.stats[:, 0].sum()),
+                                     MAIN_BATCH))
+    del fam_m, hp_m, hcold_m, xm_w, cm_w
 
     # ------------------------------------------------------------ main path
     def solver():
@@ -1149,6 +1537,157 @@ def main() -> None:
          cone_excess={"solve": fleet_excess, "mission": mission_excess2},
          mission_mean_distance={"start": d0, "end": d1},
          cascade=cascade, adaptive_rho=adaptive)
+
+
+    # ----------------------------------------------------------- third path
+    # The path's 20-tick fleet mission at the comparison batch against its
+    # plain version, before the path's counts start (the fused missions'
+    # bar: all instances' controls within twice the exit tolerance).
+    mission_hkw = dict(max_iter=100, check_termination=1, abs_pri_tol=1e-3,
+                       abs_dua_tol=1e-3)
+    xf_k, us_k, _ = fleet_mpc_rollout(hp_a, fam_a[0], fam_a[2], 20,
+                                      **mission_hkw)
+    xf_p, us_p, _ = plain_mission(hp_a, fam_a[0], fam_a[2], 20,
+                                  **mission_hkw)
+    mission3 = {"us_err_all_instances": max_err(us_k, us_p),
+                "x_final_err": max_err(xf_k, xf_p)}
+    assert mission3["us_err_all_instances"] <= 2e-3, mission3
+
+    # Heterogeneous-plant fleets through TinyMPCFleet at batch 65,536: the
+    # robust sweep's family with box bounds, then adaptive rho at 16,384.
+    # Counts set to 0 just before, read just after.
+    ha.reset_launch_counts()
+    rk.reset_launch_counts()
+    fused_admm.reset_launch_counts()
+    steps3 = {}
+
+    def step3(name, fn, n_solves, **info):
+        out, ms = timed(fn)
+        steps3[name] = {"ms": ms, "solves_per_s": n_solves / ms * 1e3,
+                        **info}
+        return out
+
+    prob_m, rho_m, x0_m = robust_family(MAIN_BATCH, seed=5)
+    bounds = dict(u_min=prob_m.u_min[:, 0], u_max=prob_m.u_max[:, 0],
+                  x_min=prob_m.x_min[:, 0], x_max=prob_m.x_max[:, 0])
+    fixed_settings = atm.Settings(max_iter=100, check_termination=0)
+    fleet = step3("setup_riccati_k5", lambda: atm.TinyMPCFleet.setup(
+        prob_m.A, prob_m.B, prob_m.Q, prob_m.R, rho_m, 10, polish=False,
+        settings=fixed_settings, **bounds), MAIN_BATCH)
+    from accelerated_tinympc_tpu_torch.precompute import riccati_polish_f64
+
+    polished = step3("setup_polish_float64", lambda: riccati_polish_f64(
+        fleet.cache, prob_m.A, prob_m.B, prob_m.Q, prob_m.R, rho_m),
+        MAIN_BATCH)
+    polish_moved = max_err(polished.Kinf, fleet.cache.Kinf)
+    fleet.cache = polished          # set_xref rebuilds the operands from it
+    fleet.set_xref(prob_m.Xref)     # hover at the quadrotor's reference
+    fleet.set_x0(x0_m)
+    launches_at = lambda: {**ha.LAUNCH_COUNTS, **rk.LAUNCH_COUNTS}
+    step3("solve_fixed100", fleet.solve, MAIN_BATCH)
+    u_fixed3 = fleet.get_u()
+    fleet.settings = fleet.settings.replace(
+        check_termination=1, abs_pri_tol=1e-3, abs_dua_tol=1e-3)
+    fleet.reset_duals()
+    # a solve replaces the fleet's carry and never writes into it, so a
+    # shallow copy starts the cascade from the same warm carry
+    twin = copy.copy(fleet)
+    twin.compaction_segment = 25
+    st_plain = step3("solve_adaptive_warm", fleet.solve, MAIN_BATCH)
+    u_plain = fleet.get_u()
+    st_casc = step3("solve_adaptive_warm_cascade25", twin.solve, MAIN_BATCH)
+    u_casc = twin.get_u()
+    for name, st in (("solve_adaptive_warm", st_plain),
+                     ("solve_adaptive_warm_cascade25", st_casc)):
+        steps3[name].update(converged_fraction=st["converged_fraction"],
+                            iterations_mean=st["iterations_mean"])
+    cascade3 = {
+        "iters_equal": bool((st_plain["iterations"]
+                             == st_casc["iterations"]).all()),
+        "u_bitwise_equal": bool(torch.equal(u_plain, u_casc)),
+    }
+    assert cascade3["iters_equal"] and cascade3["u_bitwise_equal"], cascade3
+    del twin
+
+    # 20-tick adaptive mission (check 1, tol 1e-3), one K8 launch per tick.
+    hp_fleet = ha.pad_hetero_problem(fleet.problem, fleet.cache)
+    xf3, us3, _cy = step3("fleet_mpc_rollout20", lambda: fleet_mpc_rollout(
+        hp_fleet, fleet.problem, x0_m, 20, **mission_hkw), 20 * MAIN_BATCH)
+    steps3["fleet_mpc_rollout20"]["ms_per_tick"] = (
+        steps3["fleet_mpc_rollout20"]["ms"] / 20)
+
+    # Online model drift: every plant moves by 0.003 (elementwise, normal),
+    # Newton refresh from the current gains (K6), fixed-point fallback (K5)
+    # where the old gain no longer stabilises.
+    rng = np.random.default_rng(9)
+    drift = lambda a: a + torch.as_tensor(
+        0.003 * rng.standard_normal(tuple(a.shape)), dtype=torch.float32,
+        device=dev)
+    A_d, B_d = drift(fleet.problem.A), drift(fleet.problem.B)
+    step3("set_plants_newton", lambda: fleet.set_plants(A=A_d, B=B_d),
+          MAIN_BATCH)
+    steps3["set_plants_newton"]["fallback_count"] = fleet.fallback_count
+    assert bool(torch.isfinite(fleet.cache.Kinf).all())
+    fleet.set_x0(x0_m)
+    st_drift = step3("solve_adaptive_after_drift", fleet.solve, MAIN_BATCH)
+    steps3["solve_adaptive_after_drift"].update(
+        converged_fraction=st_drift["converged_fraction"])
+    counts3 = launches_at()
+
+    # Adaptive rho at 16,384: the hetero engine (K8 chunks, K6 refreshes)
+    # against the einsum engine (batched tensor chunks, K5 refreshes), a
+    # third each at rho, rho / 1000 and 200 rho.
+    RHO_BATCH = 16384
+    prob_r, rho_r, _x0r = robust_family(RHO_BATCH, seed=6)
+    hov = atm.models.quadrotor_hovering_setup(device=dev)[0].Xref[0]
+    x0_r = hov[None] + 0.2 * torch.as_tensor(
+        np.random.default_rng(0).standard_normal((RHO_BATCH, 12)),
+        dtype=torch.float32, device=dev)
+    rho0 = rho_r * torch.as_tensor(np.tile(
+        [1.0, 1e-3, 200.0], RHO_BATCH // 3 + 1)[:RHO_BATCH],
+        dtype=torch.float32, device=dev)
+    rbounds = dict(u_min=prob_r.u_min[:, 0], u_max=prob_r.u_max[:, 0],
+                   x_min=prob_r.x_min[:, 0], x_max=prob_r.x_max[:, 0])
+    adaptive3 = {}
+    for engine in ("hetero", "einsum"):
+        f = atm.TinyMPCFleet.setup(
+            prob_r.A, prob_r.B, prob_r.Q, prob_r.R, rho0, 10, polish=False,
+            settings=atm.Settings(abs_pri_tol=1e-2, abs_dua_tol=1e-2,
+                                  check_termination=1), **rbounds)
+        f.set_xref(prob_r.Xref)
+        f.set_x0(x0_r)
+        res, ms = timed(lambda: f.solve_adaptive_rho(engine=engine,
+                                                     max_rounds=12))
+        adaptive3[engine] = {
+            "batch": RHO_BATCH, "ms": ms, "rounds": res["rounds"],
+            "converged_fraction": float(res["solved"].mean()),
+            "iterations_mean": float(res["iterations"].mean()),
+            "rho_changed_fraction": float(
+                (res["rho"] != rho0.cpu().numpy()).mean())}
+        assert bool(torch.isfinite(f.get_u()).all())
+        assert adaptive3[engine]["converged_fraction"] > 0.5, adaptive3
+        del f
+    # the two engines take the same decisions up to float32 knife edges
+    assert abs(adaptive3["hetero"]["converged_fraction"]
+               - adaptive3["einsum"]["converged_fraction"]) <= 0.02, adaptive3
+    counts3_rho = launches_at()
+
+    for name, arr in (("u_fixed", u_fixed3), ("u_adapt", u_plain),
+                      ("us_mission", us3), ("x_mission", xf3)):
+        assert bool(torch.isfinite(arr).all()), f"third path: {name}"
+    assert u_fixed3.shape == (MAIN_BATCH, 9, 4)
+    assert us3.shape == (20, MAIN_BATCH, 4)
+    assert st_plain["converged_fraction"] > 0, "no instance converged"
+    for k in ("hetero_solve_fixed", "hetero_solve_adaptive",
+              "riccati_fixed_point", "riccati_newton"):
+        assert counts3_rho[k] > 0, f"third path never launched {k}"
+    for row in kernels:
+        if row["name"].startswith("hetero"):
+            row["launches"] = counts3_rho[row["name"]]
+    emit("third_path", batch=MAIN_BATCH, steps=steps3,
+         launches_fleet=counts3, launches_with_adaptive_rho=counts3_rho,
+         polish_moved_kinf=polish_moved, cascade=cascade3, mission=mission3,
+         adaptive_rho=adaptive3)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -127,11 +127,39 @@ def test_batched_instance_equals_single_solve():
         np.testing.assert_allclose(to_np(one.d), to_np(got.d[i]), atol=1e-12)
 
 
-def test_batched_per_instance_problem_raises():
-    _, _, pt, ct, _, _, tdt = _pair(False)
-    st = init_state_batched(2, 12, 4, 10, tdt, DEV)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_batched(st, pt, ct, atm_t.Settings(), problem_axes=0)
+def test_batched_per_instance_problem_equals_single_solves():
+    """``problem_axes=0``/``cache_axes=0``: each instance, with a plant and
+    cache of its own, follows its standalone ``solve`` (float64, exact
+    schedule)."""
+    from accelerated_tinympc_tpu_torch.models import random_lti_problem
+    from accelerated_tinympc_tpu_torch.precompute import riccati_cache
+
+    B, nx, nu, N = 3, 4, 2, 6
+    f64 = torch.float64
+    probs, caches = [], []
+    for seed in range(B):
+        p, rho = random_lti_problem(seed, nx, nu, N, dtype=f64, device=DEV)
+        probs.append(p.replace(u_min=torch.full_like(p.u_min, -0.5),
+                               u_max=torch.full_like(p.u_max, 0.5)))
+        caches.append(riccati_cache(p.A, p.B, p.Q, p.R, rho, dtype=f64,
+                                    device=DEV))
+    stack = lambda objs: type(objs[0])(**{
+        k: torch.stack([getattr(o, k) for o in objs])
+        for k in objs[0].tensors()})
+    pb, cb = stack(probs), stack(caches)
+    settings = atm_t.Settings(max_iter=60, check_termination=2)
+    x0s = perturbed_x0(np.zeros(nx), B, seed=5, spread=0.5)
+    st = atm_t.set_x0(init_state_batched(B, nx, nu, N, f64, DEV), x0s)
+    got = solve_batched(st, pb, cb, settings, problem_axes=0, cache_axes=0)
+    for i in range(B):
+        one = atm_t.solve(
+            atm_t.set_x0(atm_t.init_state(nx, nu, N, f64, DEV), x0s[i]),
+            probs[i], caches[i], settings)
+        assert int(one.iter) == int(got.iter[i])
+        np.testing.assert_allclose(to_np(one.u), to_np(got.u[i]), atol=1e-10)
+        np.testing.assert_allclose(to_np(one.d), to_np(got.d[i]), atol=1e-10)
+    with pytest.raises(ValueError, match="batch-leading"):
+        solve_batched(st, probs[0], cb, settings, problem_axes=0)
 
 
 def _mpc_loop(problem, cache, settings, x0, steps, Xref_total=None):

@@ -274,3 +274,107 @@ def test_auto_riccati_on_the_card_is_the_kernel_and_refuses_large_sizes(card):
     ops, _ = build_instance_ops_from_plants(
         A, B, Q, R, rho, bounds(A, B, Q, R), riccati="vmap")
     assert bool(torch.isfinite(ops.W_q).all())
+
+
+# ------------------------------------------------ heterogeneous plants ----
+
+def _fleet(batch, nx, nu, horizon, seed=0):
+    """Random per-instance plants (spectral radius 0.95), caches by the
+    fixed-point kernel, per-knot bounds, a small reference."""
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+
+    A, Bm, Q, R, rho = _plants(batch, nx, nu, seed)
+    rng = np.random.default_rng(seed + 1)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    lim = t(0.5 + rng.random((batch, horizon - 1, nu)))
+    prob = atm.Problem(
+        A=A, B=Bm, Q=Q, R=R, u_min=-lim, u_max=lim,
+        x_min=t(np.full((batch, horizon, nx), -5.0)),
+        x_max=t(np.full((batch, horizon, nx), 5.0)),
+        Xref=t(0.1 * rng.standard_normal((batch, horizon, nx))),
+        Uref=t(np.zeros((batch, horizon - 1, nu))))
+    hp, _ = ha.pad_hetero_from_plants(A, Bm, Q, R, rho, prob)
+    x0 = t(rng.standard_normal((batch, nx)))
+    return hp, x0
+
+
+def _assert_hetero_close(got, want, min_agree=0.99):
+    same = got.stats[:, 0] == want.stats[:, 0]
+    assert float(same.float().mean()) >= min_agree
+    assert torch.equal(got.stats[same, 1], want.stats[same, 1])
+    assert float((got.U - want.U)[same].abs().max()) <= ATOL
+    for k in ("d", "z"):
+        err = (getattr(got.carry, k) - getattr(want.carry, k))[same]
+        assert float(err.abs().max()) <= ATOL, k
+    for k in ("y", "g", "v"):
+        err = (getattr(got.carry, k) - getattr(want.carry, k))[same]
+        assert float(err.abs().max()) <= 2 * ATOL, k
+    assert float((got.X - want.X)[same].abs().max()) <= 2 * ATOL
+
+
+@pytest.mark.parametrize("dims", [(12, 4, 10), (8, 3, 10), (5, 2, 7),
+                                  (20, 6, 5), (1, 1, 3)])
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+def test_hetero_kernels_match_plain(card, dims, mode):
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+
+    hp, x0 = _fleet(133, *dims)
+    kw = dict(max_iter=60)
+    if mode == "adaptive":
+        kw.update(check_termination=2, abs_pri_tol=1e-3, abs_dua_tol=1e-3)
+    name = "hetero_solve_" + mode
+    before = ha.LAUNCH_COUNTS[name]
+    cold = ha.HeteroCarry.zeros(hp)
+    got = ha.hetero_solve(x0, cold, hp, **kw)
+    assert ha.LAUNCH_COUNTS[name] == before + 1
+    _assert_hetero_close(got, ha.hetero_solve_plain(x0, cold, hp, **kw))
+
+
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+def test_hetero_kernels_with_per_instance_cones(card, mode):
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+    from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
+
+    B = 133
+    hp, x0 = _fleet(B, 8, 3, 10, seed=4)
+    cones = ConeSet(input_cones=(Cone((0, 1), 2, 1.0, 2.0),),
+                    state_cones=(Cone((0, 1), 2, 2.0, 1.0),))
+    ball = np.zeros((B, 3), np.float32)
+    ball[: B // 2, [0, 1]] = 1.0
+    ball[B // 2:, [1, 2]] = 1.0
+    axis = np.where(np.arange(B) < B // 2, 2, 0)
+    cp = ha.pad_hetero_cone_params(
+        cones, B, mu_u=np.linspace(0.6, 1.4, B)[None], device="cuda")
+    cm = ha.pad_hetero_cone_masks(cones, B, 8, 3, ball_u=[ball],
+                                  axis_u=[axis], device="cuda")
+    kw = dict(max_iter=80, cones=cones, cone_params=cp, cone_masks=cm)
+    if mode == "adaptive":
+        kw.update(check_termination=1, abs_pri_tol=1e-2, abs_dua_tol=1e-2)
+    cold = ha.HeteroCarry.zeros(hp)
+    _assert_hetero_close(ha.hetero_solve(x0, cold, hp, **kw),
+                         ha.hetero_solve_plain(x0, cold, hp, **kw))
+
+
+def test_hetero_cascade_is_bit_exact_on_the_card(card):
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+    from accelerated_tinympc_tpu_torch.solver.cascade import (
+        hetero_cascade_solve,
+    )
+
+    hp, x0 = _fleet(1000, 12, 4, 10, seed=2)
+    cold = ha.HeteroCarry.zeros(hp)
+    kw = dict(check_termination=1, abs_pri_tol=1e-3, abs_dua_tol=1e-3)
+    one = ha.hetero_solve(x0, cold, hp, max_iter=100, **kw)
+    U, X, stats, carry = hetero_cascade_solve(
+        x0, cold, hp, max_iter=100, segment_iters=10, **kw)
+    assert torch.equal(U, one.U) and torch.equal(stats, one.stats)
+    assert all(torch.equal(a, b) for a, b in zip(carry, one.carry))
+
+
+def test_hetero_kernel_refuses_large_sizes(card):
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+
+    hp, x0 = _fleet(4, 3, 2, 5)
+    big = hp.replace(dims=(33, 2, 5))
+    with pytest.raises(ValueError, match="instance_ops"):
+        ha.hetero_solve(x0, ha.HeteroCarry.zeros(hp), big)
