@@ -14,10 +14,17 @@ of :class:`.solver.TinyMPC`:
   (:mod:`..solver.batched_ops`), the same semantics in batched tensor code;
 * tier ``"scan"``: the scan-tier sweeps with per-instance plants
   (:func:`..solver.batched.solve_batched` with ``problem_axes=BATCHED``),
-  any horizon and any nx.
+  any horizon and any nx;
+* tier ``"hstream"``: the long-horizon kernels with per-instance plants
+  (:mod:`..ops.hstream_admm`, K11 fixed / K12 adaptive), cones with
+  per-instance parameters and geometry, and its compaction cascade
+  (:func:`..solver.cascade.hstream_cascade_solve`);
+* tier ``"block"``: per-instance block-condensed sweeps
+  (:func:`..solver.block_condensed.solve_block_batched`; every instance's
+  dense block operators are read each iteration, so it pays only where the
+  plant is shared: ``TinyMPC(tier="block")``).
 
-``tier="hstream"`` and ``"block"`` raise until their kernels are ported
-(ROADMAP.md slice 10), ``mesh=`` until the multi-GPU slice (11).
+``mesh=`` raises until the multi-GPU slice (ROADMAP.md slice 11).
 
 Caches are built on the device. The routing by plant size is the JAX
 package's own design: the Riccati kernels (:mod:`..ops.riccati_kernel`, K5
@@ -88,9 +95,12 @@ class TinyMPCFleet:
     # The same overrides for the instance-ops tier and the einsum adaptive
     # loop (solver.cones.make_cone_args), built from the same user inputs.
     cone_args: Any = None
-    # Hetero tier, adaptive mode: > 0 runs the compaction cascade with this
-    # segment length (a multiple of check_termination).
+    # Hetero and hstream tiers, adaptive mode: > 0 runs the compaction
+    # cascade with this segment length (hetero: a multiple of
+    # check_termination; hstream: rounded up to one).
     compaction_segment: int = 0
+    # tier="block": knots per dense block (solver/block_condensed.py).
+    block: int = 16
     # Instances whose Newton refresh in the last set_plants fell back to the
     # warm fixed point.
     fallback_count: int = 0
@@ -120,6 +130,7 @@ class TinyMPCFleet:
         polish: bool = True,
         device: Any = DEFAULT_DEVICE,
         mesh: Any = None,
+        block: int = 16,
     ) -> "TinyMPCFleet":
         """Construct from per-instance plants: ``A (B, nx, nx)``,
         ``B (B, nx, nu)``, ``Q (B, nx)`` / ``R (B, nu)`` raw cost diagonals
@@ -135,13 +146,11 @@ class TinyMPCFleet:
         ``cones`` adds static SOC constraints; ``cone_mu``/``cone_shift``
         (``(n_input_cones, B)``) override their parameters per instance and
         ``cone_ball``/``cone_axis`` (lists of ``(B, nu)`` 0/1 membership /
-        ``(B,)`` axis indices per input cone) their geometry, on the hetero
-        and instance-ops tiers."""
+        ``(B,)`` axis indices per input cone) their geometry, on the
+        hetero, hstream and instance-ops tiers. ``block`` is the knots per
+        dense block of ``tier="block"``."""
         if tier not in FLEET_TIERS:
             raise ValueError(f"tier must be one of {FLEET_TIERS}")
-        if tier in ("hstream", "block"):
-            raise _later(f"tier={tier!r} (long-horizon fleet tiers)",
-                         "slice 10")
         if mesh is not None:
             raise _later("mesh= (batch sharding over several GPUs)",
                          "slice 11")
@@ -204,7 +213,7 @@ class TinyMPCFleet:
             cone_args = make_cone_args(
                 cones, Bn, nx, nu, mu_u=cone_mu, shift_u=cone_shift,
                 ball_u=cone_ball, axis_u=cone_axis, device=device)
-        if has_ci and tier == "hetero":
+        if has_ci and tier in ("hetero", "hstream"):
             from ..ops.hetero_admm import (
                 pad_hetero_cone_masks, pad_hetero_cone_params,
             )
@@ -221,7 +230,7 @@ class TinyMPCFleet:
             problem=problem, cache=cache, settings=settings, tier=tier,
             device=device, cones=cones, cone_params=cone_params,
             cone_masks=cone_masks, cone_args=cone_args,
-            compaction_segment=compaction_segment,
+            compaction_segment=compaction_segment, block=block,
         )
         self._build()
         return self
@@ -233,6 +242,21 @@ class TinyMPCFleet:
 
             self._hp = pad_hetero_problem(self.problem, self.cache)
             self._carry = HeteroCarry.zeros(self._hp)
+        elif self.tier == "hstream":
+            from ..ops.hstream_admm import (
+                hstream_carry_zeros, pad_hstream_problem,
+            )
+
+            self._hp = pad_hstream_problem(self.problem, self.cache)
+            self._carry = hstream_carry_zeros(self.batch, self._hp)
+        elif self.tier == "block":
+            from ..solver.batched import init_state_batched
+            from ..solver.block_condensed import block_ops_batched
+
+            self._ops = block_ops_batched(
+                self.cache, self.problem.A, self.problem.B, N, self.block)
+            self._carry = init_state_batched(
+                self.batch, nx, nu, N, device=self.device)
         elif self.tier == "scan":
             from ..solver.batched import init_state_batched
 
@@ -271,7 +295,7 @@ class TinyMPCFleet:
     def reset_duals(self) -> None:
         """Re-solve protocol: duals zeroed, slacks kept (reference:
         examples/quadrotor_hovering.cpp:99-104)."""
-        if self.tier == "scan":
+        if self.tier in ("scan", "block"):
             from ..types import reset_duals
 
             self._carry = reset_duals(self._carry)
@@ -394,18 +418,16 @@ class TinyMPCFleet:
             raise RuntimeError("call set_x0 first")
         s = self.settings
         if getattr(s, "alpha", 1.0) != 1.0 and self.tier in (
-                "hetero", "instance_ops"):
+                "hetero", "instance_ops", "hstream"):
             raise ValueError(
                 "Settings.alpha (over-relaxation) is implemented on the "
-                "scan/fused/condensed tiers; the hetero and instance-ops "
-                "tiers run the reference (alpha=1) schedule -- use "
-                "tier='scan' or drop alpha")
+                "scan/block/fused/condensed tiers; the hetero-family and "
+                "instance-ops tiers run the reference (alpha=1) schedule -- "
+                "use tier='scan' or drop alpha")
         nx, nu, N = self.dims
-        if self.tier == "scan":
+        if self.tier in ("scan", "block"):
             return self._solve_scan()
-        if self.tier == "hetero":
-            from ..ops.hetero_admm import hetero_solve
-
+        if self.tier in ("hetero", "hstream"):
             ce = s.check_termination
             kw = dict(
                 max_iter=s.max_iter, check_termination=ce,
@@ -414,13 +436,30 @@ class TinyMPCFleet:
                 en_input_bound=s.en_input_bound,
                 en_state_bound=s.en_state_bound, cones=self.cones,
                 cone_params=self.cone_params, cone_masks=self.cone_masks)
-            if self.compaction_segment and ce > 0:
+            cascade = self.compaction_segment and ce > 0
+            if self.tier == "hstream" and cascade:
+                # adaptive segments (in-kernel freeze) + compaction, equal to
+                # one long adaptive call; the segment rounded up to a check
+                # multiple (the cadence-composition requirement)
+                from ..solver.cascade import hstream_cascade_solve
+
+                seg = -(-self.compaction_segment // ce) * ce
+                U, X, stats, carry = hstream_cascade_solve(
+                    self._x0, self._carry, self._hp, segment_iters=seg, **kw)
+            elif self.tier == "hstream":
+                from ..ops.hstream_admm import hstream_solve
+
+                res = hstream_solve(self._x0, self._carry, self._hp, **kw)
+                U, X, stats, carry = res.U, res.X, res.stats, res.carry
+            elif cascade:
                 from ..solver.cascade import hetero_cascade_solve
 
                 U, X, stats, carry = hetero_cascade_solve(
                     self._x0, self._carry, self._hp,
                     segment_iters=self.compaction_segment, **kw)
             else:
+                from ..ops.hetero_admm import hetero_solve
+
                 res = hetero_solve(self._x0, self._carry, self._hp, **kw)
                 U, X, stats, carry = res.U, res.X, res.stats, res.carry
             self._carry = carry
@@ -453,21 +492,31 @@ class TinyMPCFleet:
         }
 
     def _solve_scan(self) -> dict[str, Any]:
+        """The scan and block tiers: batched ``State`` sweeps with
+        per-instance plants."""
         from ..solver.batched import BATCHED, solve_batched
+        from ..solver.block_condensed import solve_block_batched
         from ..solver.cones import cone_slack_update
 
         if self.cone_params is not None or self.cone_masks is not None \
                 or self.cone_args is not None:
             raise ValueError(
-                "per-instance cone parameters/geometry are hetero and "
-                "instance-ops operands; tier='scan' takes a shared ConeSet")
+                "per-instance cone parameters/geometry are hetero, hstream "
+                f"and instance-ops operands; tier={self.tier!r} takes a "
+                "shared ConeSet")
         x = self._carry.x.clone()
         x[:, 0, :] = self._x0
         project = (cone_slack_update(self.cones)
                    if self.cones is not None else None)
-        st = solve_batched(self._carry.replace(x=x), self.problem, self.cache,
-                           self.settings, problem_axes=BATCHED,
-                           cache_axes=BATCHED, project=project)
+        st = self._carry.replace(x=x)
+        if self.tier == "block":
+            st = solve_block_batched(st, self.problem, self.cache,
+                                     self.settings, block=self.block,
+                                     project=project, ops=self._ops)
+        else:
+            st = solve_batched(st, self.problem, self.cache, self.settings,
+                               problem_axes=BATCHED, cache_axes=BATCHED,
+                               project=project)
         self._carry = st
         self._last = (st.u, st.x)
         iters = st.iter.cpu().numpy()
@@ -503,10 +552,12 @@ class TinyMPCFleet:
         solve_adaptive_rho_hetero`); ``"scan"``: scan-tier chunks, any
         horizon and nx (:func:`..solver.adaptive_scan.
         solve_adaptive_rho_scan`). ``"auto"`` picks ``"scan"`` for the scan
-        tier, ``"hetero"`` for the hetero tier when the tensors are on a
-        CUDA device and no instance-ops cone overrides are set (the JAX
-        package picks it on the TPU), ``"einsum"`` otherwise. ``mesh=``
-        raises until the multi-GPU slice."""
+        and block tiers, ``"hetero"`` for the hetero tier when the tensors
+        are on a CUDA device and no instance-ops cone overrides are set (the
+        JAX package picks it on the TPU), ``"einsum"`` otherwise. The
+        adapted caches rebuild the tier's operands; the scan and block tiers
+        adopt the scan engine's state as their carry, the kernel tiers start
+        cold. ``mesh=`` raises until the multi-GPU slice."""
         if mesh is not None:
             raise _later("mesh= (sharded adaptive rho over several GPUs)",
                          "slice 11")
@@ -518,14 +569,15 @@ class TinyMPCFleet:
         p = self.problem
         rho = self.cache.rho.to(torch.float32).reshape(-1).expand(
             self.batch).contiguous()
-        if engine == "scan" or (engine == "auto" and self.tier == "scan"):
+        if engine == "scan" or (engine == "auto"
+                                and self.tier in ("scan", "block")):
             from ..solver.adaptive_scan import solve_adaptive_rho_scan
 
             res = solve_adaptive_rho_scan(self._x0, p, p.A, p.B, p.Q, p.R,
                                           rho, self.settings, **kw)
             self.cache = res.cache
             self._build()
-            if self.tier == "scan":
+            if self.tier in ("scan", "block"):
                 self._carry = res.state
             self._last = (res.state.u, res.state.x)
             solved, rounds = res.solved, res.rounds

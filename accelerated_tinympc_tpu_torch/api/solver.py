@@ -8,7 +8,7 @@ flat setter/getter C API over a global solver (``set_x0``/``set_xref``/...
 src/tinympc/tiny_wrapper.hpp:14-23). :class:`TinyMPC` covers both roles:
 construction runs the Riccati precompute, setters update the held problem,
 and ``solve`` dispatches to the execution tier (``scan`` | ``condensed`` |
-``fused``).
+``fused`` | ``block``).
 
 Every constructor takes ``device=`` (default ``"cuda"``); nothing looks for
 a GPU and carries on without one.
@@ -75,10 +75,14 @@ class TinyMPC:
     # cascade (solver/cascade.py) with this segment length (must be a
     # multiple of check_termination). 0 = one monolithic adaptive call.
     compaction_segment: int = 0
+    # Block-condensed tier (tier="block"): knots per dense block, the
+    # shared-plant long-horizon tier (solver/block_condensed.py).
+    block: int = 32
     # tier-internal precompute
     _ops: CondensedOperators | None = None
     _pp: PaddedProblem | None = None
     _cone_ops: Any = None
+    _block_sweeps: Any = None
     # mutable solve state
     state: State | None = None
     _fused_carry: FusedCarry | None = None
@@ -173,12 +177,10 @@ class TinyMPC:
         cones on every tier; ``cone_mu``/``cone_shift``/``cone_mu_x``/
         ``cone_shift_x`` (``(n_cones, batch)``) override their parameters
         per instance on the batched fused tier; ``compaction_segment > 0``
-        runs adaptive fused solves through the compaction cascade."""
+        runs adaptive fused solves through the compaction cascade.
+        ``block`` is the knots per dense block of ``tier="block"``."""
         if tier not in TIERS:
             raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
-        if tier == "block":
-            raise _later("tier='block' (block-condensed long horizons)",
-                         "slice 10")
         has_cp = any(a is not None for a in
                      (cone_mu, cone_shift, cone_mu_x, cone_shift_x))
         if has_cp:
@@ -205,6 +207,7 @@ class TinyMPC:
             algo=algo,
             cones=cones,
             compaction_segment=compaction_segment,
+            block=block,
         )
         rows = lambda a: None if a is None else torch.as_tensor(a).to(
             device=device, dtype=self._dtype)
@@ -347,6 +350,8 @@ class TinyMPC:
             return self._solve_fused()
         if self.tier == "condensed":
             return self._solve_condensed()
+        if self.tier == "block":
+            return self._solve_block()
         fn = admm.solve if self.batch is None else solve_batched
         self.state = fn(self.state, self.problem, self.cache, self.settings,
                         project=self._project())
@@ -405,13 +410,43 @@ class TinyMPC:
                 "rollout with cones is supported on tier='fused' "
                 "(in-kernel cone projection); scan-tier coned rollouts: "
                 "drive the tick loop with solve()/reset_duals()")
+        solver = None
+        if self.tier == "block":
+            # Long-horizon missions: block-condensed sweeps per tick
+            # (scan-tier semantics; solver/block_condensed.py).
+            fwd, bwd = self._ensure_block_sweeps()
+            fn = admm.solve if single else solve_batched
+            solver = lambda s, p: fn(s, p, self.cache, self.settings,
+                                     forward=fwd, backward=bwd)
         st, xf, trace = mpc_rollout(
             self.problem, self.cache, self.settings, x0, n_ticks,
             Xref_total=Xref_total, state=self.state, batched=not single,
+            solver=solver,
         )
         self.state = st
         self.set_x0(xf)
         return xf, trace.u
+
+    def _ensure_block_sweeps(self):
+        """The block tier's sweep overrides, built once from the cache (the
+        dense block operators bake Kinf, AmBKt and Quu_inv)."""
+        if self._block_sweeps is None:
+            from ..solver.block_condensed import block_sweeps
+
+            self._block_sweeps = block_sweeps(
+                self.cache, self.problem.A, self.problem.B,
+                self.problem.horizon, self.block)
+        return self._block_sweeps
+
+    def _solve_block(self) -> dict[str, Any]:
+        """Block-condensed long-horizon sweeps (solver/block_condensed.py):
+        scan-tier semantics, per-block dense products -- the shared-plant
+        long-horizon tier."""
+        fwd, bwd = self._ensure_block_sweeps()
+        fn = admm.solve if self.batch is None else solve_batched
+        self.state = fn(self.state, self.problem, self.cache, self.settings,
+                        project=self._project(), forward=fwd, backward=bwd)
+        return self._state_stats()
 
     def _solve_condensed(self) -> dict[str, Any]:
         from ..solver.condensed import (
@@ -502,6 +537,7 @@ class TinyMPC:
             self.state = res.state
             self.cache = res.cache
             self._ops = None  # the condensed operators bake the cache
+            self._block_sweeps = None  # so do the block operators
             if self.tier == "fused":
                 self._build_fused()
             return {

@@ -4,7 +4,8 @@ dataclasses out (and back).
 Every function takes a dict of numpy arrays keyed by the field names of the
 JAX package's dataclass of the same name (``Problem``, ``Cache``, ``State``,
 ``FusedCarry``, ``FusedResult``, ``InstanceOps``, ``HeteroCarry``,
-``HeteroResult``), plus
+``HeteroResult``, ``StreamCarry``, ``StreamProblem``, ``HStreamProblem``),
+plus
 ``device=``/``dtype=``. A batch-leading ``Cache`` goes through
 :func:`cache_from_numpy` unchanged (every field keeps its leading axis). A caller that
 holds JAX objects builds the dicts itself (``np.asarray`` of each field);
@@ -26,6 +27,15 @@ tile and each knot's rows padded to a multiple of 8
 (``(NT * knots * S, 128)``); :func:`hetero_carry_from_numpy` unpacks it into
 the port's batch-leading :class:`..ops.hetero_admm.HeteroCarry` (padding
 checked to be zero), so a JAX warm carry can be carried across.
+
+The JAX stream and hstream tiers keep their carry as ``(NT, N, S, 128)``
+(instances on the lanes of a tile, rows padded to a multiple of 8, the
+input-width arrays with a zero terminal knot); :func:`stream_carry_from_numpy`
+and :func:`stream_carry_to_numpy` convert it to and from the port's
+batch-leading :class:`..ops.stream_admm.StreamCarry`.
+:func:`stream_problem_from_numpy` and :func:`hstream_problem_from_numpy`
+unpack the two tiers' padded and lane-packed operands, so a warm JAX carry
+and the same operands give the same solve in both packages.
 """
 
 from __future__ import annotations
@@ -235,3 +245,137 @@ def instance_ops_from_numpy(fields: Mapping[str, Any], *,
 
     return InstanceOps(**{k: _t(fields[k], dtype, device)
                           for k in InstanceOps._fields})
+
+
+# ------------------------------------------------------- stream and hstream --
+
+def _unpack_tiles(p, knots: int, width: int, batch, name: str) -> np.ndarray:
+    """``(NT, N, S, 128)`` -> ``(batch, knots, width)``; padding rows, knots
+    past ``knots`` and instances past ``batch`` must be zero."""
+    p = np.asarray(p)
+    if p.ndim != 4 or p.shape[3] != LANES or p.shape[2] != _pad8(width):
+        raise ValueError(f"{name}: expected (NT, N, {_pad8(width)}, {LANES}),"
+                         f" got {p.shape}")
+    nt, N = p.shape[:2]
+    a = _strip(p.transpose(0, 3, 1, 2).reshape(nt * LANES, N, p.shape[2]),
+               width, name)
+    if np.any(a[:, knots:] != 0):
+        raise ValueError(f"{name}: knots past {knots} are not zero")
+    a = a[:, :knots]
+    if batch is not None:
+        if np.any(a[batch:] != 0):
+            raise ValueError(f"{name}: lanes beyond batch {batch} are not "
+                             "zero")
+        a = a[:batch]
+    return a
+
+
+def _pack_tiles(a: np.ndarray, N: int) -> np.ndarray:
+    """``(B, knots, width)`` -> ``(NT, N, S, 128)``, zero-padded."""
+    Bn, knots, width = a.shape
+    nt = -(-Bn // LANES)
+    out = np.zeros((nt * LANES, N, _pad8(width)), a.dtype)
+    out[:Bn, :knots, :width] = a
+    return out.reshape(nt, LANES, N, _pad8(width)).transpose(0, 2, 3, 1)
+
+
+def stream_carry_from_numpy(fields: Mapping[str, Any], dims: tuple, *,
+                            batch: int | None = None,
+                            dtype: Any = torch.float32,
+                            device: Any = DEFAULT_DEVICE):
+    """The port's ``StreamCarry`` from the JAX one's packed fields ``d, y, z
+    (NT, N, SU, 128)`` and ``g, v (NT, N, SX, 128)`` for ``dims = (nx, nu,
+    horizon)``; ``batch`` drops the padding instances (checked zero)."""
+    from .ops.stream_admm import StreamCarry
+
+    nx, nu, N = dims
+    shape = {"d": (N - 1, nu), "y": (N - 1, nu), "z": (N - 1, nu),
+             "g": (N, nx), "v": (N, nx)}
+    return StreamCarry(**{
+        k: _t(_unpack_tiles(fields[k], *shape[k], batch, f"carry.{k}"),
+              dtype, device) for k in StreamCarry._fields})
+
+
+def stream_carry_to_numpy(carry) -> dict[str, np.ndarray]:
+    """The JAX ``StreamCarry`` fields (packed ``(NT, N, S, 128)``) of a port
+    ``StreamCarry``."""
+    N = carry.g.shape[1]
+    return {k: _pack_tiles(getattr(carry, k).detach().cpu().numpy(), N)
+            for k in carry._fields}
+
+
+def _lane_col(p, width: int, name: str) -> np.ndarray:
+    """The per-lane-uniform rows of a JAX ``(S, 128)`` (or ``(N, S, 128)``)
+    operand: lane 0, padding rows stripped."""
+    p = np.asarray(p)
+    if np.any(p != p[..., :1]):
+        raise ValueError(f"{name}: lanes differ, expected a shared operand")
+    return _strip(p[..., 0], width, name)
+
+
+def stream_problem_from_numpy(fields: Mapping[str, Any], dims: tuple, *,
+                              dtype: Any = torch.float32,
+                              device: Any = DEFAULT_DEVICE):
+    """The port's ``StreamProblem`` from the JAX one's fields (sublane-padded
+    matrices, bounds and ``qc``/``pterm`` broadcast over 128 lanes, optional
+    per-knot schedules ``u_min_k ... (N, S, 128)``)."""
+    from .ops.stream_admm import StreamProblem
+
+    nx, nu, N = dims
+    mat = lambda k, r, c: _t(np.asarray(fields[k])[:r, :c], dtype, device)
+    knot = fields.get("u_min_k") is not None
+    bounds = {}
+    for name, width, knots in (("u_min", nu, N - 1), ("u_max", nu, N - 1),
+                               ("x_min", nx, N), ("x_max", nx, N)):
+        rows = (_lane_col(fields[name + "_k"], width, name)[:knots] if knot
+                else _lane_col(fields[name], width, name)[None])
+        bounds[name] = _t(rows, dtype, device)
+    return StreamProblem(
+        A=mat("A", nx, nx), B=mat("B", nx, nu), Kinf=mat("Kinf", nu, nx),
+        Quu_inv=mat("Quu_inv", nu, nu), AmBKt=mat("AmBKt", nx, nx),
+        qc=_t(_lane_col(fields["qc"], nx, "qc"), dtype, device),
+        pterm=_t(_lane_col(fields["pterm"], nx, "pterm"), dtype, device),
+        rho=_t(np.asarray(fields["rho"]).reshape(()), dtype, device),
+        dims=(nx, nu, N), **bounds)
+
+
+def hstream_problem_from_numpy(fields: Mapping[str, Any], dims: tuple,
+                               batch: int, *, dtype: Any = torch.float32,
+                               device: Any = DEFAULT_DEVICE):
+    """The port's ``HStreamProblem`` from the JAX one's lane-packed fields:
+    matrices in the transposed-3D ``(NT*R_in, R_out, 128)`` packing, rows
+    ``(NT*S, 128)``, ``qc`` and per-knot bounds ``(NT, N, S, 128)``."""
+    from .ops.hstream_admm import HStreamProblem
+
+    nx, nu, N = dims
+
+    def mat(k, r_out, r_in):  # -> (B, r_out, r_in)
+        p = np.asarray(fields[k])
+        R_in, R_out = _pad8(r_in), p.shape[1]
+        nt = p.shape[0] // R_in
+        a = p.reshape(nt, R_in, R_out, LANES).transpose(0, 3, 1, 2).reshape(
+            nt * LANES, R_in, R_out)[:batch, :r_in, :r_out]
+        return _t(a.transpose(0, 2, 1), dtype, device)
+
+    def rows(k, width):  # (NT*S, 128) -> (B, width)
+        p = np.asarray(fields[k])
+        S = _pad8(width)
+        nt = p.shape[0] // S
+        a = p.reshape(nt, S, LANES).transpose(0, 2, 1).reshape(nt * LANES, S)
+        return a[:batch, :width]
+
+    knot = fields.get("u_min_k") is not None
+    bounds = {}
+    for name, width, knots in (("u_min", nu, N - 1), ("u_max", nu, N - 1),
+                               ("x_min", nx, N), ("x_max", nx, N)):
+        b = (_unpack_tiles(fields[name + "_k"], N, width, None, name)
+             [:batch, :knots] if knot else rows(name, width)[:, None])
+        bounds[name] = _t(b, dtype, device)
+    return HStreamProblem(
+        A=mat("A3", nx, nx), B=mat("B3", nx, nu), Kinf=mat("K3", nu, nx),
+        Quu_inv=mat("Quu3", nu, nu), AmBKt=mat("M3", nx, nx),
+        qc=_t(_unpack_tiles(fields["qc"], N, nx, None, "qc")[:batch],
+              dtype, device),
+        pterm=_t(rows("pterm", nx), dtype, device),
+        rho=_t(rows("rho_x", nx)[:, 0], dtype, device),
+        dims=(nx, nu, N), **bounds)

@@ -1,4 +1,5 @@
-"""CUDA kernels (the fused hot path) with their plain PyTorch versions."""
+"""CUDA kernels (the fused hot path, the hetero fleets, the long-horizon
+stream and hstream tiers) with their plain PyTorch versions."""
 
 from .fused_admm import (  # noqa: F401
     LAUNCH_COUNTS,
@@ -43,4 +44,23 @@ from .riccati_kernel import (  # noqa: F401
     riccati_cache_newton_plain,
     riccati_fixed_point_kernel,
     riccati_newton_kernel,
+)
+from .stream_admm import (  # noqa: F401
+    StreamCarry,
+    StreamProblem,
+    StreamResult,
+    pad_stream_problem,
+    stream_ref_vectors,
+    stream_solve,
+    stream_solve_plain,
+)
+from .hstream_admm import (  # noqa: F401
+    HStreamProblem,
+    gather_hstream,
+    hstream_carry_zeros,
+    hstream_ref_vectors,
+    hstream_solve,
+    hstream_solve_plain,
+    pad_hstream_from_plants,
+    pad_hstream_problem,
 )

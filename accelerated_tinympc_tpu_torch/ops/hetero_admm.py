@@ -331,8 +331,17 @@ def gather_hetero(hp: HeteroProblem, carry: HeteroCarry, x0: torch.Tensor,
 # ----------------------------------------------------------- plain version --
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Per-instance matrix-vector product: (B, r, c) x (B, c) -> (B, r)."""
+    """Matrix-vector product per instance: (B, r, c) x (B, c) -> (B, r);
+    a shared (r, c) matrix multiplies every row of ``v``."""
+    if M.dim() == 2:
+        return torch.matmul(v, M.transpose(-1, -2))
     return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
+
+
+def _per_row(rho: torch.Tensor, dims: int) -> torch.Tensor:
+    """A per-instance ``(B,)`` penalty shaped to broadcast over ``dims``
+    trailing axes; a shared scalar as it is."""
+    return rho if rho.dim() == 0 else rho.reshape((-1,) + (1,) * dims)
 
 
 def _cone_fn(group, dim: int, first: int, moff: int, cone_params,
@@ -392,10 +401,10 @@ def _iteration(x0, D, Y, G, hp: HeteroProblem, en_ib, en_sb, cone_u,
         Vnew = cone_x(Vnew)
     Ynew = Su - Znew
     Gnew = Tx - Vnew
-    rho3 = hp.rho[:, None, None]
+    rho3 = _per_row(hp.rho, 2)
     Rf = -rho3 * (Znew - Ynew)
     Qf = hp.qc - rho3 * (Vnew - Gnew)
-    p = hp.pterm - hp.rho[:, None] * (Vnew[:, -1] - Gnew[:, -1])
+    p = hp.pterm - _per_row(hp.rho, 1) * (Vnew[:, -1] - Gnew[:, -1])
     Bt = hp.B.transpose(-1, -2)
     Kt = hp.Kinf.transpose(-1, -2)
     ds = [None] * m
@@ -425,7 +434,9 @@ def hetero_solve_plain(
 ) -> HeteroResult:
     """Plain PyTorch version of :func:`hetero_solve` (which see): the
     kernels' arithmetic on whole-batch tensors, on any device and in float32
-    or float64."""
+    or float64. ``hp`` may also be a shared-plant operand set (2-D
+    matrices, a scalar ``rho``, bounds and ``qc`` without the batch axis or
+    with a single knot row): the stream tier's plain version runs here."""
     _check_cone_args(cones, cone_params, cone_masks)
     nx, nu, N = hp.dims
     cone_u = cone_x = None

@@ -3,7 +3,8 @@ early termination), condensed (dense horizon operators). The fused CUDA tier
 lives in :mod:`..ops.fused_admm`. Beside them: second-order cones, the
 compaction cascades over the fused and hetero adaptive kernels, adaptive
 rho (single instance, and per instance on the einsum, hetero and scan
-tiers) and the per-instance-operator tier."""
+tiers), the per-instance-operator tier, and the long-horizon sweeps
+(associative scan, block-condensed)."""
 
 from . import admm  # noqa: F401
 from .admm import admm_iteration, solve  # noqa: F401
@@ -17,6 +18,18 @@ from .condensed import (  # noqa: F401
     init_flat_state,
     solve_condensed,
     state_from_flat,
+)
+from .assoc_scan import (  # noqa: F401
+    backward_pass_assoc,
+    forward_pass_assoc,
+    solve_assoc,
+)
+from .block_condensed import (  # noqa: F401
+    block_ops_batched,
+    block_sizes,
+    block_sweeps,
+    solve_block,
+    solve_block_batched,
 )
 from .adaptive_rho import AdaptiveRhoResult, solve_adaptive_rho  # noqa: F401
 from .adaptive_hetero import (  # noqa: F401

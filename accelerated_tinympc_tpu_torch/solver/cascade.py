@@ -37,8 +37,9 @@ one plain :func:`..ops.fused_admm.fused_solve` call.
 adaptive kernel (K8), gathering the survivors' plants, carries and
 per-instance cone operands between segments. There an instance's arithmetic
 does not depend on where it sits in the batch, so that cascade is bit-exact
-against one long adaptive call. The stream and hstream cascades of the JAX
-package wait for their kernels.
+against one long adaptive call. :func:`stream_cascade_solve` and
+:func:`hstream_cascade_solve` do the same over the long-horizon kernels
+(K10, K12), and also offer the JAX package's segment-granular fixed mode.
 """
 
 from __future__ import annotations
@@ -52,8 +53,10 @@ from ..ops.fused_admm import (
     fused_solve,
 )
 from ..ops.hetero_admm import HeteroCarry, gather_hetero, hetero_solve
+from ..ops.stream_admm import StreamCarry
 
-__all__ = ["cascade_solve", "hetero_cascade_solve"]
+__all__ = ["cascade_solve", "hetero_cascade_solve", "stream_cascade_solve",
+           "hstream_cascade_solve"]
 
 
 def _segment_schedule(check_termination: int, segment_iters, segment_growth):
@@ -269,14 +272,161 @@ def hetero_cascade_solve(
     return out[0], out[1], out[2], HeteroCarry(*out[3:])
 
 
-def _waits(name: str, slice_: str):
-    def fn(*_a, **_k):
-        raise NotImplementedError(
-            f"{name} is not ported yet: it waits for its kernel "
-            f"(ROADMAP.md slice {slice_})")
-    fn.__name__ = name
-    return fn
+def _stream_segments(x0, carry, state, max_iter, segment_iters,
+                     segment_growth, check_termination, abs_pri_tol,
+                     abs_dua_tol, solve, gather, trace):
+    """The segment loop of the two long-horizon cascades. ``solve(x0, carry,
+    k, state)`` runs ``k`` iterations on the survivors (``state``: the other
+    per-instance operands, narrowed alongside); ``gather(state, carry, x0,
+    keep)`` returns the narrowed ``(state, carry, x0)``.
+
+    In fixed mode a segment's solved flag is the scan tier's convergence
+    predicate on its final-iteration residuals (reference admm.cpp:99-105
+    at a check cadence of ``segment_iters``) and an instance reports the
+    iterations up to its exit segment's end."""
+    if max_iter < 1 or segment_iters < 1:
+        raise ValueError("max_iter and segment_iters must be >= 1")
+    if segment_growth < 1.0:
+        raise ValueError("segment_growth must be >= 1.0")
+    ce = int(check_termination)
+    if ce > 0 and segment_iters % ce:
+        raise ValueError(
+            "segment_iters must be a multiple of check_termination so the "
+            "segment-local check cadence matches the single-call schedule")
+    cur = {"x0": x0, "carry": carry, "state": state}
+
+    def launch(k, _done_iters):
+        res = solve(cur["x0"], cur["carry"], k, cur["state"])
+        if ce:
+            return res
+        st = res.stats.clone()
+        st[:, 1] = ((st[:, 2] < abs_pri_tol) & (st[:, 4] < abs_pri_tol)
+                    & (st[:, 3] < abs_dua_tol)
+                    & (st[:, 5] < abs_dua_tol)).to(st.dtype)
+        st[:, 0] = k
+        return res._replace(stats=st)
+
+    def compact(res_carry, keep):
+        cur["state"], cur["carry"], cur["x0"] = gather(
+            cur["state"], res_carry, cur["x0"], keep)
+
+    out = _segments(max_iter, segment_iters, segment_growth, max(ce, 1),
+                    launch, compact, trace)
+    return out[0], out[1], out[2], StreamCarry(*out[3:])
 
 
-stream_cascade_solve = _waits("stream_cascade_solve", "10")
-hstream_cascade_solve = _waits("hstream_cascade_solve", "10")
+def stream_cascade_solve(
+    x0: torch.Tensor,
+    carry,
+    sp,
+    *,
+    max_iter: int = 100,
+    segment_iters: int = 25,
+    segment_growth: float = 4.0,
+    check_termination: int = 0,
+    abs_pri_tol: float = 1e-3,
+    abs_dua_tol: float = 1e-3,
+    knot_block: int = 32,
+    cones=None,
+    en_input_bound: bool = True,
+    en_state_bound: bool = True,
+    trace: list | None = None,
+):
+    """Early-termination compaction for the streaming long-horizon tier.
+
+    Two modes:
+
+    * ``check_termination == 0`` (segment-granular): fixed-iteration
+      segments, the scan tier's convergence predicate applied to each
+      segment's final-iteration residuals (reference: admm.cpp:99-105 at a
+      check cadence of ``segment_iters``), converged instances kept out of
+      later segments. A converged instance's controls equal the
+      fixed-iteration solve at its recorded (segment-multiple) count; its
+      carry is the slack-saved post-backward state (one stage past the
+      reference's early-exit freeze, an equally valid warm start).
+    * ``check_termination > 0`` (in-kernel freeze + compaction): each
+      segment runs the adaptive kernel (K10), so instances freeze at their
+      exact check (reference early exit admm.cpp:135-144) inside the
+      segment, and the survivors are gathered between segments. The result
+      equals one long adaptive call: iteration counts, solved flags, frozen
+      iterates and residual stats, bit for bit on the card (an instance's
+      arithmetic does not depend on its place in the batch).
+      ``segment_iters`` must be a multiple of ``check_termination``.
+
+    Survivors are launched as they are (the JAX function pads them to
+    power-of-two lane-tile buckets, a bound on recompiles of its
+    shape-specialised kernel that a CUDA launch does not need: no
+    ``min_bucket``). Returns ``(U, X, stats, carry)`` in the original batch
+    order; ``trace``, if a list, receives one ``(iterations, batch)`` pair
+    per launch.
+    """
+    from ..ops.stream_admm import stream_solve
+
+    kw = dict(knot_block=knot_block, check_termination=check_termination,
+              abs_pri_tol=abs_pri_tol, abs_dua_tol=abs_dua_tol,
+              en_input_bound=en_input_bound, en_state_bound=en_state_bound,
+              cones=cones)
+
+    def solve(x, c, k, _state):
+        return stream_solve(x, c, sp, max_iter=k, **kw)
+
+    def gather(state, c, x, keep):
+        return state, StreamCarry(*(a.index_select(0, keep) for a in c)), \
+            x.index_select(0, keep)
+
+    return _stream_segments(x0, carry, None, max_iter, segment_iters,
+                            segment_growth, check_termination, abs_pri_tol,
+                            abs_dua_tol, solve, gather, trace)
+
+
+def hstream_cascade_solve(
+    x0: torch.Tensor,
+    carry,
+    hsp,
+    *,
+    max_iter: int = 100,
+    segment_iters: int = 25,
+    segment_growth: float = 4.0,
+    check_termination: int = 0,
+    abs_pri_tol: float = 1e-3,
+    abs_dua_tol: float = 1e-3,
+    knot_block: int = 16,
+    cones=None,
+    cone_params=None,
+    cone_masks=None,
+    en_input_bound: bool = True,
+    en_state_bound: bool = True,
+    trace: list | None = None,
+):
+    """Segment-level early termination for the heterogeneous streaming tier
+    (per-instance plants at long horizons): :func:`stream_cascade_solve`'s
+    two modes (which see), with the survivors' plants, carries, x0 and
+    per-instance cone operands (``cone_params``/``cone_masks``, as in
+    :func:`..ops.hstream_admm.hstream_solve`) gathered at each compaction
+    (:func:`..ops.hstream_admm.gather_hstream`), as in
+    :func:`hetero_cascade_solve`. (The JAX function takes no per-instance
+    cone operands, so a fleet's per-instance cone geometry does not reach
+    its segments: ROADMAP.md section 3.)
+
+    Returns ``(U, X, stats, carry)`` in the original batch order.
+    """
+    from ..ops.hstream_admm import gather_hstream, hstream_solve
+
+    kw = dict(knot_block=knot_block, check_termination=check_termination,
+              abs_pri_tol=abs_pri_tol, abs_dua_tol=abs_dua_tol,
+              en_input_bound=en_input_bound, en_state_bound=en_state_bound,
+              cones=cones)
+
+    def solve(x, c, k, state):
+        hp, cp, cm = state
+        return hstream_solve(x, c, hp, max_iter=k, cone_params=cp,
+                             cone_masks=cm, **kw)
+
+    def gather(state, c, x, keep):
+        hp, c2, x2, cp, cm = gather_hstream(state[0], c, x, keep, *state[1:])
+        return (hp, cp, cm), c2, x2
+
+    return _stream_segments(x0, carry, (hsp, cone_params, cone_masks),
+                            max_iter, segment_iters, segment_growth,
+                            check_termination, abs_pri_tol, abs_dua_tol,
+                            solve, gather, trace)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
 
-Builds the CUDA kernels from the sources in this checkout (three sources, one
+Builds the CUDA kernels from the sources in this checkout (four sources, one
 ``nvcc`` each, started together), holds each kernel against its plain PyTorch
 version on the card at batch 4,099 (the heterogeneous-plant kernels also
 against a float64 plain version and the plain version on the CPU, and
@@ -18,6 +18,11 @@ cascade, and per-instance adaptive rho with the Riccati kernels. Then the
 third: ``TinyMPCFleet`` on 65,536 perturbed quadrotors (setup, fixed and
 adaptive solves, the hetero cascade, a 20-tick fleet mission, an online
 plant refresh, adaptive rho with the hetero and einsum engines at 16,384).
+Then the fourth, long horizons: the stream kernels at N=1024 (nx=8, nu=3)
+for batches 512 and 8,192 with both compaction cascades, ``TinyMPC(tier=
+"block")`` against the scan tier, and ``TinyMPCFleet`` on the hstream and
+block tiers at N=256 for 8,192 perturbed quadrotors; the long-horizon
+kernels are held against their plain versions at batch 1,027 first.
 Every phase prints one JSON line with the seconds since the start;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the exit code is non-zero and no result line is printed. Without a CUDA
@@ -302,6 +307,33 @@ def hetero_bound(dims, iters_total: float, batch: int):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def stream_bound(dims, iters_total: float, batch: int, shared: bool):
+    """Least time for the long-horizon kernels: 2 m (4 nx nu + 2 nx^2 +
+    nu^2) FLOP per instance-iteration (``iters_total`` summed over the
+    instances as this run's data needed), bytes as for every row: x0, the
+    carry, the plant and its cache (once when shared, else per instance),
+    qc, pterm, rho and uniform bounds read once, U, X, the carry and the
+    stats written once. Also returned: the bound with the iterates streamed
+    through device memory every iteration (forward: d, y, g read, y, z, g,
+    v written; backward: y, z, g, v, qc read, d written; 7 m nu + 6 N nx
+    floats per instance-iteration), the least traffic of a design that
+    cannot hold a batch's iterates on chip."""
+    nx, nu, N = dims
+    m = N - 1
+    flops = iters_total * 2 * m * (4 * nx * nu + 2 * nx * nx + nu * nu)
+    plant = (2 * nx * nx + 2 * nx * nu + nu * nu + N * nx + nx + 1
+             + 2 * nx + 2 * nu)
+    words_in = batch * (nx + 3 * m * nu + 2 * N * nx) + (
+        1 if shared else batch) * plant
+    words_out = batch * (m * nu + N * nx + 3 * m * nu + 2 * N * nx + 8)
+    t_ops = flops / PEAK_FP32_FLOPS
+    t_bytes = 4 * (words_in + words_out) / PEAK_BYTES_PER_S
+    t_stream = 4 * iters_total * (7 * m * nu + 6 * N * nx) / PEAK_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * max(t_ops, t_stream))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device: "
@@ -343,7 +375,8 @@ def main() -> None:
             xs.cpu(), ha.HeteroCarry(*(a.cpu() for a in cy)),
             hp.to(device="cpu"), **{k: cpu(v) for k, v in kw.items()}))
 
-    def arbitrated(name, got, want, ref64, check, rho, plain_cpu):
+    def arbitrated(name, got, want, ref64, check, rho, plain_cpu,
+                   max_iter=100):
         """``got`` (a kernel) against ``want`` (another float32 version on
         the card) with the float64 plain version ``ref64`` as arbiter. The
         case passes on the bars of ``compare_solve`` between the two float32
@@ -356,12 +389,15 @@ def main() -> None:
         (``plain_cpu()``, run only here); schedule agreement with float64
         no lower than ``want``'s minus 1 point; counts never off float64 by
         more than ``want``'s worst plus one check block. Solved flags that
-        disagree below the cap fail in either case."""
-        case = compare_solve(name, got, want, check, rho, max_iter=100)
+        disagree below the cap fail in either case. ``ref64`` may be a
+        callable, run only where the arbiter is needed."""
+        case = compare_solve(name, got, want, check, rho, max_iter=max_iter)
         if not case["failures"]:
             case["held_by"] = "kernel_vs_f32"
             return case
         cpu = plain_cpu()
+        if callable(ref64):
+            ref64 = ref64()
         sched = lambda r: (r.stats[:, 0].to(got.stats.dtype),
                            r.stats[:, 1].to(got.stats.dtype))
         (it_k, s_k), (it_w, s_w), (it_c, s_c), (it_64, s_64) = (
@@ -421,7 +457,7 @@ def main() -> None:
     ptxas = {
         name: [ln.strip() for ln in _build.build_log(name).splitlines()
                if "registers" in ln or "spill" in ln]
-        for name in ("fused_admm", "riccati", "hetero_admm")}
+        for name in ("fused_admm", "riccati", "hetero_admm", "stream_admm")}
     emit("build", seconds=round(_build.last_build_seconds, 2), ptxas=ptxas)
 
     # -------------------------------------------------------------- kernels
@@ -1688,6 +1724,389 @@ def main() -> None:
          launches_fleet=counts3, launches_with_adaptive_rho=counts3_rho,
          polish_moved_kinf=polish_moved, cascade=cascade3, mission=mission3,
          adaptive_rho=adaptive3)
+
+    # ====================================================== long horizons
+    # K9-K12 (csrc/stream_admm.cu) against their plain versions at batch
+    # 1,027 (not a multiple of any block), with the float64 plain version as
+    # arbiter where float32 itself strays (cold long-horizon transients
+    # amplify rounding through the clips). The plain version issues ~20
+    # small launches per knot (~25 us each, measured: 8.0 s for 25
+    # iterations at N=1024), so the comparisons run 20 iterations at N=1024
+    # (adaptive: up to 20) and 30 at N=256 (adaptive: up to 40).
+    from accelerated_tinympc_tpu_torch.ops import hstream_admm as hs
+    from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
+    from accelerated_tinympc_tpu_torch.solver.cascade import (
+        stream_cascade_solve,
+    )
+
+    SB = 1027
+    LONG_BATCH = 8192
+    T_LONG = time.perf_counter()
+
+    def long_plant(N, knot=False):
+        """examples/torch_long_horizon.py's plant (random_lti seed 0, nx=8,
+        nu=3, |u| <= 3, |x| <= 30); ``knot``: the input bound tightens from
+        4.5 to 1.5 over the horizon."""
+        prob, rho = atm.models.random_lti_problem(0, 8, 3, N, device=dev)
+        if knot:
+            lim = prob.u_max * torch.linspace(
+                1.5, 0.5, N - 1, device=dev)[:, None]
+            prob = prob.replace(u_min=-lim, u_max=lim)
+        cch = atm.riccati_cache(prob.A, prob.B, prob.Q, prob.R, rho,
+                                device=dev)
+        return prob, cch
+
+    def spread_x0(batch, nx, scales, seed=1):
+        rng = np.random.default_rng(seed)
+        sc = np.resize(np.asarray(scales, np.float64), batch)[:, None]
+        return torch.as_tensor(sc * rng.standard_normal((batch, nx)),
+                               dtype=torch.float32, device=dev)
+
+    def at_horizon(prob_b, N):
+        """A batch-leading problem of uniform bounds and reference carried
+        to horizon N (its first knot's rows repeated)."""
+        Bn = prob_b.A.shape[0]
+        rows = lambda a, k: a[:, :1].expand(Bn, k, a.shape[-1]).contiguous()
+        return prob_b.replace(
+            u_min=rows(prob_b.u_min, N - 1), u_max=rows(prob_b.u_max, N - 1),
+            x_min=rows(prob_b.x_min, N), x_max=rows(prob_b.x_max, N),
+            Xref=rows(prob_b.Xref, N), Uref=rows(prob_b.Uref, N - 1))
+
+    def to64(a):
+        return a.double() if isinstance(a, torch.Tensor) else a
+
+    def stream_case(name, solve, plain, ops, xs, cy, check, rho, **kw):
+        """Kernel against the plain version on the card, arbitrated by the
+        float64 plain version (and the float32 one on the CPU where the
+        kernel-vs-plain bars are missed). Returns the case, the kernel's
+        result and the plain version's milliseconds."""
+        got = solve(xs, cy, ops, **kw)
+        want, ms = timed(lambda: plain(xs, cy, ops, **kw))
+        ref64 = lambda: as_flat(plain(
+            xs.double(), sa.StreamCarry(*(a.double() for a in cy)),
+            ops.to(dtype=torch.float64),
+            **{k: to64(v) for k, v in kw.items()}))
+        cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v
+        case = arbitrated(
+            name, as_flat(got), as_flat(want), ref64, check, rho,
+            lambda: as_flat(plain(xs.cpu(), sa.StreamCarry(
+                *(a.cpu() for a in cy)), ops.to(device="cpu"),
+                **{k: cpu(v) for k, v in kw.items()})),
+            max_iter=kw["max_iter"])
+        case["solved_share"] = float(got.stats[:, 1].mean())
+        case["plain_ms"] = ms
+        return case, got, ms
+
+    str_cases = []
+    plain_ms4 = {}
+    akw = lambda it, check, tol: dict(max_iter=it, check_termination=check,
+                                      abs_pri_tol=tol, abs_dua_tol=tol)
+    # K9/K10 at the example's shape (8, 3, N=1024), x0 of three scales so
+    # the input bounds bind and the exits spread
+    prob_l, cache_l = long_plant(1024)
+    sp_l = sa.pad_stream_problem(prob_l, cache_l)
+    xs_l = spread_x0(SB, 8, (0.3, 3.0, 10.0))
+    cold_l = sa.StreamCarry.zeros(SB, sp_l)
+    rho_l = float(sp_l.rho)
+    for label, kw, check in (("K9 fixed-20", dict(max_iter=20), 0),
+                             ("K10 check=5", akw(20, 5, 1e-3), 5)):
+        case, got, ms = stream_case(
+            f"{label} example 8/3/1024", sa.stream_solve,
+            sa.stream_solve_plain, sp_l, xs_l, cold_l, check, rho_l, **kw)
+        str_cases.append(case)
+        plain_ms4[label.split()[0]] = (case, ms, kw["max_iter"])
+    # knot_block has no effect in the CUDA kernels: bit for bit at 8, 16, 64
+    kb = [sa.stream_solve(xs_l, cold_l, sp_l, knot_block=k, **akw(60, 5, 1e-3))
+          for k in (8, 16, 64)]
+    kb_same = all(torch.equal(r.U, kb[0].U) and torch.equal(r.stats,
+                                                            kb[0].stats)
+                  and all(torch.equal(a, b) for a, b in zip(r.carry,
+                                                            kb[0].carry))
+                  for r in kb[1:])
+    # per-knot bound schedules, and the lander's shape with both cones
+    prob_k, cache_k = long_plant(256, knot=True)
+    sp_k = sa.pad_stream_problem(prob_k, cache_k)
+    assert sp_k.has_knot_bounds
+    xs_k = spread_x0(SB, 8, (0.3, 3.0, 10.0), seed=2)
+    str_cases.append(stream_case(
+        "K9 fixed-30 per-knot bounds 8/3/256", sa.stream_solve,
+        sa.stream_solve_plain, sp_k, xs_k, sa.StreamCarry.zeros(SB, sp_k), 0,
+        float(sp_k.rho), max_iter=30)[0])
+    I3 = np.eye(3)
+    lmpc = atm.TinyMPC.setup(
+        np.block([[I3, 0.1 * I3], [0 * I3, I3]]),
+        np.vstack([0.005 * I3, 0.1 * I3]),
+        np.concatenate([np.full(3, 10.0), np.full(3, 1.0)]), np.full(3, 1.0),
+        1.0, 256, u_min=-10.0, u_max=10.0, x_min=-100.0, x_max=100.0,
+        device=dev)
+    sp_c = sa.pad_stream_problem(lmpc.problem, lmpc.cache)
+    rng = np.random.default_rng(3)
+    xs_c = torch.as_tensor(np.asarray([3.0, -2.0, 6.0, 1.0, 0.5, -1.0])[None]
+                           + 0.3 * rng.standard_normal((SB, 6)),
+                           dtype=torch.float32, device=dev)
+    cold_c = sa.StreamCarry.zeros(SB, sp_c)
+    for label, kw, check in (
+            ("K9 fixed-30", dict(max_iter=30), 0),
+            ("K10 check=2", dict(akw(40, 2, 1e-2)), 2)):
+        case, got, _ms = stream_case(
+            f"{label} lander 6/3/256 cones", sa.stream_solve,
+            sa.stream_solve_plain, sp_c, xs_c, cold_c, check,
+            float(sp_c.rho), cones=lcones, **kw)
+        case["cone_excess"] = slack_excess(got.carry.z, got.carry.v, lcones)
+        if not case["cone_excess"] <= CONE_TOL:
+            case["failures"].append(f"{label} lander: final slack violates "
+                                    f"a cone by {case['cone_excess']}")
+        str_cases.append(case)
+    # K11/K12: the robust sweep's family (a) and the design sweep's family
+    # (b) with per-instance cone parameters and geometry, at N=256
+    fa = robust_family(SB, seed=7)
+    hsp_a = hs.pad_hstream_from_plants(fa[0].A, fa[0].B, fa[0].Q, fa[0].R,
+                                       fa[1], at_horizon(fa[0], 256))[0]
+    fb = fleet_family(SB, seed=8)
+    hsp_b = hs.pad_hstream_from_plants(fb[0].A, fb[0].B, fb[0].Q, fb[0].R,
+                                       fb[1], at_horizon(fb[0], 256))[0]
+    for label, hsp, xs, extra, geometry in (
+            ("a robust 12/4/256", hsp_a, fa[2], {}, None),
+            ("b fleet_sweep 8/3/256 cones", hsp_b, fb[2], fb[3], fb[4])):
+        cy = sa.StreamCarry.zeros(SB, hsp)
+        for mode, kw, check in (("K11 fixed-30", dict(max_iter=30), 0),
+                                ("K12 check=5", akw(40, 5, 1e-3), 5)):
+            case, got, ms = stream_case(
+                f"{mode} {label}", hs.hstream_solve, hs.hstream_solve_plain,
+                hsp, xs, cy, check, float(hsp.rho.max()), **kw, **extra)
+            if geometry is not None:
+                case["cone_excess"] = geometry_excess(got.carry.z, geometry)
+                if not case["cone_excess"] <= CONE_TOL:
+                    case["failures"].append(
+                        f"{mode} {label}: final slack violates its cone by "
+                        f"{case['cone_excess']}")
+            if label.startswith("a"):
+                plain_ms4[mode.split()[0]] = (case, ms, kw["max_iter"])
+            str_cases.append(case)
+    kb_h = [hs.hstream_solve(fa[2], sa.StreamCarry.zeros(SB, hsp_a), hsp_a,
+                             knot_block=k, **akw(60, 5, 1e-3))
+            for k in (8, 16, 64)]
+    kb_same = kb_same and all(
+        torch.equal(r.U, kb_h[0].U) and torch.equal(r.stats, kb_h[0].stats)
+        for r in kb_h[1:])
+    str_cases.append({"case": "knot_block 8/16/64 bit-identical (K10, K12)",
+                      "equal": kb_same,
+                      "failures": [] if kb_same else ["knot_block changes "
+                                                      "the results"]})
+    torch.cuda.synchronize()
+    emit("kernels_stream", batch=SB, seconds=round(time.perf_counter()
+                                                   - T_LONG, 1),
+         cases=str_cases)
+    raise_failures(str_cases)
+
+    # ----------------------------------------------------------- fourth path
+    # Long horizons through the entry points, counts set to 0 just before
+    # and read just after.
+    sa.reset_launch_counts()
+    steps4 = {}
+
+    def step4(name, fn, n_solves, **info):
+        out, ms = timed(fn)
+        steps4[name] = {"ms": ms, "solves_per_s": n_solves / ms * 1e3,
+                        **info}
+        return out
+
+    adapt5 = akw(100, 5, 1e-3)
+    long_runs = {}
+    for Bn in (512, LONG_BATCH):
+        x0_b = spread_x0(Bn, 8, (0.3, 3.0, 10.0), seed=11)
+        cold_b = sa.StreamCarry.zeros(Bn, sp_l)
+        fx = step4(f"stream_solve_fixed100_b{Bn}", lambda: sa.stream_solve(
+            x0_b, cold_b, sp_l, max_iter=100), Bn)
+        ad = step4(f"stream_solve_adaptive_b{Bn}", lambda: sa.stream_solve(
+            x0_b, cold_b, sp_l, **adapt5), Bn)
+        steps4[f"stream_solve_adaptive_b{Bn}"].update(
+            iterations_mean=float(ad.stats[:, 0].mean()),
+            converged_fraction=float(ad.stats[:, 1].mean()))
+        long_runs[Bn] = (x0_b, cold_b, fx, ad)
+    x0_m, cold_m, fx_m, ad_m = long_runs[LONG_BATCH]
+    trace_f, trace_a = [], []
+    cf = step4("stream_cascade_fixed_segments25", lambda: stream_cascade_solve(
+        x0_m, cold_m, sp_l, max_iter=100, segment_iters=25,
+        abs_pri_tol=1e-3, abs_dua_tol=1e-3, trace=trace_f), LONG_BATCH)
+    ca = step4("stream_cascade_inkernel25", lambda: stream_cascade_solve(
+        x0_m, cold_m, sp_l, segment_iters=25, trace=trace_a, **adapt5),
+        LONG_BATCH)
+    cascade4 = {
+        "fixed_segments": trace_f, "inkernel_segments": trace_a,
+        "inkernel_bitwise_equal": bool(
+            torch.equal(ca[0], ad_m.U) and torch.equal(ca[2], ad_m.stats)
+            and all(torch.equal(a, b) for a, b in zip(ca[3], ad_m.carry))),
+        "fixed_counts": sorted(set(cf[2][:, 0].int().tolist())),
+        "fixed_converged_fraction": float(cf[2][:, 1].mean()),
+    }
+    assert cascade4["inkernel_bitwise_equal"], cascade4
+    assert set(cascade4["fixed_counts"]) <= {25, 50, 75, 100}, cascade4
+
+    # what comes out is right: the stream kernel at batch 512 against the
+    # block-condensed tier (another formulation, dense block products), with
+    # the float64 block tier as arbiter
+    x0_s, _cold_s, fx_s, _ad_s = long_runs[512]
+    blk = {}
+    for dt in (torch.float32, torch.float64):
+        mb = atm.TinyMPC.from_parts(
+            prob_l.to(dtype=dt), cache_l.to(dtype=dt), tier="block",
+            batch=512, device=dev, settings=atm.Settings(
+                max_iter=100, check_termination=0))
+        mb.set_x0(x0_s.to(dt))
+        mb.solve()
+        blk[dt] = torch.as_tensor(mb.get_u(), device=dev)
+    e_stream = max_err(fx_s.U, blk[torch.float64])
+    e_block = max_err(blk[torch.float32], blk[torch.float64])
+    vs_block = {"stream_vs_block_f32": max_err(fx_s.U, blk[torch.float32]),
+                "stream_vs_block_f64": e_stream,
+                "block_f32_vs_block_f64": e_block}
+    assert e_stream <= max(VAL_TOL, e_block), vs_block
+
+    # TinyMPC(tier="block") against the scan tier at N=1024: a solve and a
+    # 10-tick mission (adaptive, check 5, tol 1e-3) for 64 instances at the
+    # example's x0 scale. The scan tier issues ~13 launches per knot (0.36 s
+    # an iteration on the card, measured), so it runs on the CPU, in float64.
+    x0_t = spread_x0(64, 8, (0.3,), seed=13)
+
+    def long_mpc(tier, device, dtype):
+        m = atm.TinyMPC.from_parts(
+            prob_l.to(dtype=dtype), cache_l.to(dtype=dtype), tier=tier,
+            batch=64, device=device, settings=atm.Settings(**adapt5))
+        m.set_x0(x0_t.to(device=device, dtype=dtype))
+        return m
+
+    mb = long_mpc("block", dev, torch.float32)
+    ms_ = long_mpc("scan", "cpu", torch.float64)
+    step4("tinympc_block_solve", mb.solve, 64)
+    _st, scan_ms = timed(ms_.solve)
+    same = mb.state.iter.cpu() == ms_.state.iter
+    solve_agree = float(same.float().mean())
+    u_err = max_err(torch.as_tensor(mb.get_u()), torch.as_tensor(
+        ms_.get_u()), same.cpu())
+    xf_b, us_b = step4("tinympc_block_rollout10", lambda: mb.rollout(10),
+                       640)
+    (xf_s, us_s), scan_roll_ms = timed(lambda: ms_.rollout(10))
+    block4 = {
+        "scan_solve_ms": scan_ms, "scan_rollout10_ms": scan_roll_ms,
+        "solve_iters_agree": solve_agree, "solve_u_err_same_count": u_err,
+        "mission_last_iters_agree": float(
+            (mb.state.iter.cpu() == ms_.state.iter).float().mean()),
+        "us_err_all_instances": max_err(us_b.cpu(), us_s),
+        "x_final_err": max_err(xf_b.cpu(), xf_s)}
+    # two float32 formulations, an adaptive exit: the mission bars
+    assert solve_agree >= AGREE_MISSION and u_err <= VAL_TOL, block4
+    assert block4["us_err_all_instances"] <= 2e-3, block4
+
+    # TinyMPCFleet on the hstream tier: 8,192 perturbed quadrotors at N=256
+    # (the robust sweep's family), fixed, adaptive, through the cascade
+    # (bit-exact against the one-call solve), a warm second solve; then the
+    # block tier on the same fleet.
+    prob_f, rho_f, x0_f = robust_family(LONG_BATCH, seed=12)
+    bounds4 = dict(u_min=prob_f.u_min[:, 0], u_max=prob_f.u_max[:, 0],
+                   x_min=prob_f.x_min[:, 0], x_max=prob_f.x_max[:, 0])
+    fleets = {}
+    for tier in ("hstream", "block"):
+        f = step4(f"fleet_{tier}_setup", lambda: atm.TinyMPCFleet.setup(
+            prob_f.A, prob_f.B, prob_f.Q, prob_f.R, rho_f, 256, tier=tier,
+            settings=atm.Settings(max_iter=100, check_termination=0),
+            device=dev, **bounds4), LONG_BATCH)
+        f.set_xref(prob_f.Xref[:, :1].expand(LONG_BATCH, 256, 12))
+        f.set_x0(x0_f)
+        step4(f"fleet_{tier}_solve_fixed100", f.solve, LONG_BATCH)
+        u_fx = f.get_u()
+        f.settings = f.settings.replace(**{k: v for k, v in adapt5.items()
+                                           if k != "max_iter"})
+        f.reset_duals()
+        twin = copy.copy(f)
+        twin.compaction_segment = 25 if tier == "hstream" else 0
+        st1 = step4(f"fleet_{tier}_solve_adaptive_warm", f.solve, LONG_BATCH)
+        u_ad = f.get_u()
+        steps4[f"fleet_{tier}_solve_adaptive_warm"].update(
+            iterations_mean=st1["iterations_mean"],
+            converged_fraction=st1["converged_fraction"])
+        if tier == "hstream":
+            st2 = step4("fleet_hstream_solve_adaptive_warm_cascade25",
+                        twin.solve, LONG_BATCH)
+            assert (st2["iterations"] == st1["iterations"]).all()
+            assert torch.equal(twin.get_u(), u_ad)
+        if tier == "hstream":  # a warm second solve
+            f.reset_duals()
+            st3 = step4("fleet_hstream_solve_adaptive_second", f.solve,
+                        LONG_BATCH)
+            steps4["fleet_hstream_solve_adaptive_second"].update(
+                iterations_mean=st3["iterations_mean"])
+        for name, arr in (("u_fixed", u_fx), ("u_adapt", u_ad),
+                          ("u_last", f.get_u())):
+            assert bool(torch.isfinite(arr).all()), f"{tier} {name}"
+        assert u_ad.shape == (LONG_BATCH, 255, 4)
+        fleets[tier] = (u_fx, st1, u_ad)
+        del twin, f
+    fleet4 = {
+        "fixed_u_err_hstream_vs_block": max_err(fleets["hstream"][0],
+                                                fleets["block"][0]),
+        "adaptive_iters_agree": float(np.mean(
+            fleets["hstream"][1]["iterations"]
+            == fleets["block"][1]["iterations"])),
+        "adaptive_u0_err_all": max_err(fleets["hstream"][2][:, 0],
+                                       fleets["block"][2][:, 0])}
+    # two float32 formulations of an ill-conditioned family (PR 3: each
+    # float32 version ~2e-4 from float64 at N=10): the exit-tolerance bars
+    assert fleet4["adaptive_iters_agree"] >= AGREE_MISSION, fleet4
+    assert fleet4["adaptive_u0_err_all"] <= 2e-3, fleet4
+    counts4 = dict(sa.LAUNCH_COUNTS)
+    for k, v in counts4.items():
+        assert v > 0, f"fourth path never launched {k}"
+    for name, arr in (("stream_fixed", fx_m.U), ("stream_adaptive", ad_m.U)):
+        assert bool(torch.isfinite(arr).all()), f"fourth path: {name}"
+    assert fx_m.U.shape == (LONG_BATCH, 1023, 3)
+    emit("fourth_path", batch=LONG_BATCH, steps=steps4,
+         launches=counts4, cascade=cascade4, stream_vs_block=vs_block,
+         tinympc_block_vs_scan=block4, fleet_hstream_vs_block=fleet4,
+         seconds=round(time.perf_counter() - T_LONG, 1))
+
+    # K9-K12 rows: times at batch 8,192 (K9/K10 the example's plant at
+    # N=1024, K11/K12 the robust family at N=256), the plain versions' at
+    # the comparison batch, launches from the fourth path.
+    hsp_m = hs.pad_hstream_from_plants(
+        prob_f.A, prob_f.B, prob_f.Q, prob_f.R, rho_f,
+        at_horizon(prob_f, 256))[0]
+    hcold_m = sa.StreamCarry.zeros(LONG_BATCH, hsp_m)
+    for key, name, replaces, run, dims4, shared in (
+            ("K9", "stream_solve_fixed",
+             "accelerated_tinympc_tpu/ops/stream_admm.py:372",
+             lambda: sa.stream_solve(x0_m, cold_m, sp_l, max_iter=100),
+             (8, 3, 1024), True),
+            ("K10", "stream_solve_adaptive",
+             "accelerated_tinympc_tpu/ops/stream_admm.py:562",
+             lambda: sa.stream_solve(x0_m, cold_m, sp_l, **adapt5),
+             (8, 3, 1024), True),
+            ("K11", "hstream_solve_fixed",
+             "accelerated_tinympc_tpu/ops/hstream_admm.py:338",
+             lambda: hs.hstream_solve(x0_f, hcold_m, hsp_m, max_iter=100),
+             (12, 4, 256), False),
+            ("K12", "hstream_solve_adaptive",
+             "accelerated_tinympc_tpu/ops/hstream_admm.py:588",
+             lambda: hs.hstream_solve(x0_f, hcold_m, hsp_m, **adapt5),
+             (12, 4, 256), False)):
+        ms = cuda_ms(run)
+        out = run()
+        iters = float(out.stats[:, 0].sum())
+        bound_ms, bound_by, streamed_ms = stream_bound(dims4, iters,
+                                                       LONG_BATCH, shared)
+        case, p_ms, p_iters = plain_ms4[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "accelerated_tinympc_tpu_torch/ops/csrc/stream_admm.cu",
+            "replaces": replaces, "launches": counts4[name],
+            "max_abs_err": case["max_abs_err"], "ms": ms,
+            "plain_ms": p_ms, "plain_batch": SB, "plain_max_iter": p_iters,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "streamed_bound_ms": streamed_ms, "library_ms": None,
+            "batch": LONG_BATCH, "dims": dims4,
+            "iters_mean": iters / LONG_BATCH})
+    emit("long_horizon_seconds", seconds=round(time.perf_counter() - T_LONG,
+                                               1))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

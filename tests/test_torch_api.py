@@ -148,11 +148,14 @@ def _bad_axis():
 
 
 # What the port does not do yet raises NotImplementedError naming ROADMAP.md;
-# cones and compaction are taken now (see TAKEN below), so their cases hold
-# what still is an error in each: the misuse each mode refuses.
+# cones, compaction and tier="block" are taken now (see TAKEN below), so
+# their cases hold what still is an error in each: the misuse each mode
+# refuses.
 NOT_YET = (NotImplementedError, "ROADMAP")
 RAISES = {
-    "tier_block": (NOT_YET, dict(tier="block")),
+    "tier_block": ((ValueError, "batched fused tier"),
+                   dict(tier="block", batch=2, cones=lambda: _tilt(),
+                        cone_mu=np.ones((1, 2)))),
     "cones": ((ValueError, "indices must be in"),
               dict(tier="fused", cones=_bad_axis)),
     "cone_mu": ((ValueError, "pass cones= as well"),
@@ -196,6 +199,7 @@ TAKEN = {
         tier="fused", batch=2, cone_shift_x=np.zeros((1, 2)),
         cones=_tilt()._replace(state_cones=_tilt().input_cones)),
     "compaction": lambda: dict(tier="fused", batch=2, compaction_segment=10),
+    "tier_block": lambda: dict(tier="block", batch=2, block=4),
 }
 
 

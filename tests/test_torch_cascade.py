@@ -153,12 +153,25 @@ def test_short_solve_is_one_call_and_validation(quad):
                                   "hstream_cascade_solve"])
 def test_other_cascades_wait_for_their_kernels(name):
     """The stream and hstream cascades, and the fleet tier that runs the
-    hstream one, raise until their kernels are ported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if name == "fleet_tier_hstream":
-            z = np.zeros((2, 3, 3))
+    hstream one, waited for their kernels; they are ported now
+    (tests/test_torch_stream.py, test_torch_hstream.py), so each case holds
+    what is still refused there: the fleet's mesh= (the multi-GPU slice), a
+    segment off the check cadence, a shrinking segment."""
+    z = np.zeros((2, 3, 3))
+    if name == "fleet_tier_hstream":
+        f = atm_t.TinyMPCFleet.setup(
+            z, np.zeros((2, 3, 1)), np.ones((2, 3)), np.ones((2, 1)),
+            1.0, 5, tier="hstream", device=DEV)
+        assert f._hp.dims == (3, 1, 5)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             atm_t.TinyMPCFleet.setup(
                 z, np.zeros((2, 3, 1)), np.ones((2, 3)), np.ones((2, 1)),
-                1.0, 5, tier="hstream", device=DEV)
-        else:
-            getattr(ct_mod, name)()
+                1.0, 5, tier="hstream", device=DEV, mesh=object())
+        return
+    with pytest.raises(ValueError, match="multiple of check_termination"
+                       if name == "stream_cascade_solve"
+                       else "segment_growth"):
+        getattr(ct_mod, name)(
+            torch.zeros((2, 3)), None, None, segment_iters=12,
+            check_termination=5 if name == "stream_cascade_solve" else 0,
+            segment_growth=1.0 if name == "stream_cascade_solve" else 0.5)

@@ -242,10 +242,11 @@ def test_auto_engine_and_unported_paths(plants, monkeypatch):
     f.solve()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         f.solve_adaptive_rho(mesh=object())
-    for tier in ("hstream", "block"):
-        with pytest.raises(NotImplementedError, match="slice 10"):
+    for tier in ("hstream", "block"):  # ported; mesh= still refused
+        atm_t.TinyMPCFleet.setup(A, Bm, Q, R, 1.0, N, tier=tier, device=DEV)
+        with pytest.raises(NotImplementedError, match="slice 11"):
             atm_t.TinyMPCFleet.setup(A, Bm, Q, R, 1.0, N, tier=tier,
-                                     device=DEV)
+                                     mesh=object(), device=DEV)
     with pytest.raises(NotImplementedError, match="slice 11"):
         atm_t.TinyMPCFleet.setup(A, Bm, Q, R, 1.0, N, mesh=object(),
                                  device=DEV)

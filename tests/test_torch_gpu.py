@@ -378,3 +378,133 @@ def test_hetero_kernel_refuses_large_sizes(card):
     big = hp.replace(dims=(33, 2, 5))
     with pytest.raises(ValueError, match="instance_ops"):
         ha.hetero_solve(x0, ha.HeteroCarry.zeros(hp), big)
+
+
+# ------------------------------------------------------ long horizons ----
+
+def _stream_parts(batch, nx, nu, horizon, seed=0, knot=False):
+    """One random plant for the stream tier and a fleet of random plants for
+    the hstream tier, with box bounds (per-knot schedules with ``knot``)
+    and a small reference; x0 of three scales, so adaptive counts spread."""
+    from accelerated_tinympc_tpu_torch.ops import hstream_admm as hs
+    from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
+
+    A, Bm, Q, R, rho = _plants(batch, nx, nu, seed)
+    rng = np.random.default_rng(seed + 1)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    lim = np.full((batch, horizon - 1, nu), 0.8)
+    if knot:
+        lim = lim * np.linspace(1.5, 0.5, horizon - 1)[None, :, None]
+    prob = atm.Problem(
+        A=A, B=Bm, Q=Q, R=R, u_min=t(-lim), u_max=t(lim),
+        x_min=t(np.full((batch, horizon, nx), -5.0)),
+        x_max=t(np.full((batch, horizon, nx), 5.0)),
+        Xref=t(0.1 * rng.standard_normal((batch, horizon, nx))),
+        Uref=t(np.zeros((batch, horizon - 1, nu))))
+    hsp, caches = hs.pad_hstream_from_plants(A, Bm, Q, R, rho, prob)
+    one = atm.Problem(**{k: v[0] for k, v in prob.tensors().items()})
+    sp = sa.pad_stream_problem(one, atm.Cache(**{
+        k: v[0] for k, v in caches.tensors().items()}))
+    scale = np.repeat([0.05, 0.5, 2.0], -(-batch // 3))[:batch, None]
+    x0 = t(scale * rng.standard_normal((batch, nx)))
+    return sp, hsp, x0
+
+
+def _assert_stream_close(got, want, min_agree=0.98):
+    same = got.stats[:, 0] == want.stats[:, 0]
+    assert float(same.float().mean()) >= min_agree
+    assert torch.equal(got.stats[same, 1], want.stats[same, 1])
+    for k in ("U", "X"):
+        err = (getattr(got, k) - getattr(want, k))[same].abs().max()
+        assert float(err) <= 2 * ATOL, k
+    for k in ("d", "y", "g", "z", "v"):
+        err = (getattr(got.carry, k) - getattr(want.carry, k))[same]
+        assert float(err.abs().max()) <= 2 * ATOL, k
+
+
+@pytest.mark.parametrize("dims", [(8, 3, 64), (6, 3, 256), (12, 4, 33),
+                                  (1, 1, 5)])
+@pytest.mark.parametrize("tier", ["stream", "hstream"])
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+def test_stream_kernels_match_plain(card, dims, tier, mode):
+    from accelerated_tinympc_tpu_torch.ops import hstream_admm as hs
+    from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
+
+    sp, hsp, x0 = _stream_parts(133, *dims, knot=dims[2] == 33)
+    kw = dict(max_iter=40)
+    if mode == "adaptive":
+        kw.update(check_termination=5, abs_pri_tol=1e-3, abs_dua_tol=1e-3)
+    solve, plain, ops = ((sa.stream_solve, sa.stream_solve_plain, sp)
+                         if tier == "stream" else
+                         (hs.hstream_solve, hs.hstream_solve_plain, hsp))
+    name = f"{tier}_solve_{mode}"
+    before = sa.LAUNCH_COUNTS[name]
+    cold = sa.StreamCarry.zeros(133, ops)
+    got = solve(x0, cold, ops, **kw)
+    assert sa.LAUNCH_COUNTS[name] == before + 1
+    _assert_stream_close(got, plain(x0, cold, ops, **kw))
+    if mode == "adaptive":  # knot_block changes no bit
+        again = solve(x0, cold, ops, knot_block=7, **kw)
+        assert torch.equal(again.U, got.U) and torch.equal(again.stats,
+                                                           got.stats)
+
+
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+def test_stream_kernels_with_cones(card, mode):
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+    from accelerated_tinympc_tpu_torch.ops import hstream_admm as hs
+    from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
+    from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
+
+    B = 133
+    sp, hsp, x0 = _stream_parts(B, 6, 3, 64, seed=4)
+    cones = ConeSet(input_cones=(Cone((0, 1), 2, 1.0, 2.0),),
+                    state_cones=(Cone((0, 1), 2, 2.0, 1.0),))
+    ball = np.zeros((B, 3), np.float32)
+    ball[: B // 2, [0, 1]] = 1.0
+    ball[B // 2:, [1, 2]] = 1.0
+    axis = np.where(np.arange(B) < B // 2, 2, 0)
+    cp = ha.pad_hetero_cone_params(
+        cones, B, mu_u=np.linspace(0.6, 1.4, B)[None], device="cuda")
+    cm = ha.pad_hetero_cone_masks(cones, B, 6, 3, ball_u=[ball],
+                                  axis_u=[axis], device="cuda")
+    kw = dict(max_iter=60, cones=cones)
+    if mode == "adaptive":
+        kw.update(check_termination=2, abs_pri_tol=1e-2, abs_dua_tol=1e-2)
+    cold = sa.StreamCarry.zeros(B, sp)
+    _assert_stream_close(sa.stream_solve(x0, cold, sp, **kw),
+                         sa.stream_solve_plain(x0, cold, sp, **kw))
+    kw.update(cone_params=cp, cone_masks=cm)
+    _assert_stream_close(hs.hstream_solve(x0, cold, hsp, **kw),
+                         hs.hstream_solve_plain(x0, cold, hsp, **kw))
+
+
+def test_stream_cascades_are_bit_exact_on_the_card(card):
+    from accelerated_tinympc_tpu_torch.ops import hstream_admm as hs
+    from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
+    from accelerated_tinympc_tpu_torch.solver.cascade import (
+        hstream_cascade_solve, stream_cascade_solve,
+    )
+
+    sp, hsp, x0 = _stream_parts(1000, 8, 3, 128, seed=2)
+    kw = dict(check_termination=5, abs_pri_tol=1e-3, abs_dua_tol=1e-3)
+    for solve, cascade, ops in ((sa.stream_solve, stream_cascade_solve, sp),
+                                (hs.hstream_solve, hstream_cascade_solve,
+                                 hsp)):
+        cold = sa.StreamCarry.zeros(1000, ops)
+        one = solve(x0, cold, ops, max_iter=100, **kw)
+        U, X, stats, carry = cascade(x0, cold, ops, max_iter=100,
+                                     segment_iters=10, **kw)
+        assert torch.equal(U, one.U) and torch.equal(stats, one.stats)
+        assert all(torch.equal(a, b) for a, b in zip(carry, one.carry))
+
+
+def test_stream_kernels_refuse(card):
+    from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
+
+    sp, hsp, x0 = _stream_parts(4, 3, 2, 5)
+    cold = sa.StreamCarry.zeros(4, sp)
+    with pytest.raises(ValueError, match="scan tier"):
+        sa.stream_solve(x0, cold, sp.replace(dims=(33, 2, 5)))
+    with pytest.raises(TypeError, match="float32"):
+        sa.stream_solve(x0.double(), cold, sp)
