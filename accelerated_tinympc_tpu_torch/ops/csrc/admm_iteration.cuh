@@ -1,64 +1,75 @@
 // Shared iteration body of the fused ADMM kernels (fixed solve, adaptive
-// solve, in-kernel rollout) for Hopper (sm_90a), FP32 FMA only.
+// solve, in-kernel rollout) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel bodies of the JAX package:
 //   accelerated_tinympc_tpu/ops/fused_admm.py  _iteration / _fixed_core /
 //   _adaptive_core, and the tick body of ops/fused_rollout.py _kernel_rollout.
 //
 // What bounds it on this card: operations. One iteration of one instance is
-// four small matrix-vector products (2*(Du*Dx + Du*Du + Dx*Du + Du*Du) FLOP,
-// 22,464 at nx=12, nu=4, N=10) that depend on the previous iteration, while
-// the bytes that must move are one read of the warm start and one write of
-// the result per *solve*. So the design keeps everything on the SM:
+// two small products that depend on the previous iteration (forward D Wf,
+// backward S Wb: 2*(Du*Dx + Du*Du + Dx*Du + Du*Du) FLOP, 22,464 at nx=12,
+// nu=4, N=10), while the bytes that must move are one read of the warm
+// start and one write of the result per *solve*. So the design keeps
+// everything on the SM:
 //
-//   * The operators are staged once per block into dynamic shared memory,
-//     unpadded, as two concatenated matrices over z = [x | u] (width
-//     Dz = Dx + Du):  Wf = [W_fd | W_gd] (Du x Dz)  maps D -> [X | U],
-//                     Wb = [W_q ; W_r]  (Dz x Du)  maps S -> D.
-//   * A block owns a tile of instances; their iterates (D, duals, slacks,
-//     the hoisted x0 terms) stay in shared memory for all iterations.
+//   * The operators are staged once per block into dynamic shared memory as
+//     two matrices over z = [x | u] (width Dz = Dx + Du), in float32:
+//       Wf = [W_fd | W_gd] (Du x Dz)  maps D -> [X | U],
+//       Wb = [W_q ; W_r]   (Dz x Du)  maps S -> D.
+//   * Persistent blocks of slots. The grid is as many blocks as the SMs hold
+//     at once; a block owns `tile` slots, and a global work counter (one
+//     int, zeroed by the wrapper before each launch) hands each slot the
+//     next unstarted instance. A slot keeps its own iteration counter, so
+//     warmup, checks, the recording check and the iteration cap are decided
+//     per slot. When a slot's instance freezes at a check or reaches the cap
+//     the block retires it (results and carry to device memory) and loads
+//     the next one into the slot; in the rollout a slot carries an
+//     (instance, tick) pair and only moves its own instance to the next
+//     tick. No instance waits for another, and there is no partly filled
+//     last wave.
+//   * Products by FP32 FMA out of shared memory. What limits them is not
+//     the FMA rate alone but the 128 B/clk an SM can return from shared
+//     memory to registers. So each thread owns a register tile of RI = 8
+//     slots x TJ = 4 adjacent columns: per step of four k it loads 8 + 4
+//     float4 and does 128 FMAs (1.5 B/FMA). The backward product has few
+//     columns (Du/4 column groups), so its depth Dz is split over H adjacent
+//     lanes whose partial sums meet in a shuffle reduction. (A split-operand
+//     TF32 product on the tensor cores, mma.sync m16n8k8 in three passes,
+//     was measured on an H100 in this design's place and lost: PERF.md.)
+//   * Position independence: a slot row's arithmetic depends only on its own
+//     data (a register tile row does not see the other rows, the residual
+//     maxima reduce by max, every sum's order is fixed), so a permuted batch
+//     gives the permuted result bit for bit.
 //   * The forward product, the box clip, the dual update and the residual
 //     terms are fused: the thread that finishes X[i][j] (or U) clips it,
 //     updates the dual and writes S[i][j] = slack - dual for the backward
 //     product.
-//   * What limits a product here is not the FMA rate alone but the 128 B/clk an
-//     SM can return from shared memory to registers. So each thread owns a
-//     register tile of RI = 8 instances x TJ = 4 adjacent columns: per step
-//     of four k it loads 8 + 4 float4 and does 128 FMAs (1.5 B/FMA; a tile
-//     of 8 x 1 needs 4.5 B/FMA). The backward product has few columns (Du/4
-//     column groups), so its depth Dz is split over H adjacent lanes whose
-//     partial sums meet in a shuffle reduction.
-//   * Early exit is per instance: a converged instance stops being written
-//     (its shared-memory state *is* its result: D and the slacks from before
-//     the check iteration, the duals from after it), a group of RI finished
-//     instances skips its products, and the block leaves the loop when all
-//     its instances are done (a block-uniform __syncthreads_and, so no
-//     barrier is ever skipped by part of a block).
+//   * Early exit is per slot: a frozen slot stops being written (its shared
+//     memory *is* its result: D and the slacks from before the check
+//     iteration, the duals from after it); its U and X are recomputed from
+//     the D it kept, in the forward product's summation order. A register
+//     tile group whose slots are all done skips its products.
 //   * A check costs no reduction: max_j r_j < tol holds exactly when no term
-//     reaches the tolerance, so each thread only raises a flag for an
-//     instance it sees violated. The residual maxima themselves are reduced
-//     once per solve: at the last check for the instances still live, and
-//     after the loop, together with U and X, for the frozen ones (recomputed
-//     from the D they kept, in the same summation order).
-//   * Slacks are double-buffered per instance (zpar) so that the check
+//     reaches the tolerance, so each lane only raises a flag for a slot it
+//     sees violated. The residual maxima are reduced on the recording
+//     iteration (the last check, or the last iteration of a fixed solve)
+//     and, for a frozen slot, when it is retired.
+//   * Slacks are double-buffered per slot (zpar) so that the check
 //     iteration can read the old slack for the dual residual and still leave
-//     it in place for an instance that freezes.
+//     it in place for a slot that freezes.
 //
 //   * Second-order cones (template parameter CONES; replaces the TPU
 //     package's _cone_apply, ops/fused_admm.py) couple the ball and axis
-//     entries of one knot, which in general sit in different threads' register
-//     tiles (a knot of 12 states spans three column groups; a knot of 6 or 3
-//     starts off the float4 grid). So with cones the stage splits in three
-//     with a barrier between: the forward product clips as before and leaves
-//     the pre-projection iterate (in S), the relaxed iterate + old dual (in
-//     YG) and the clipped slack (in the new slack buffer) in shared memory;
-//     a cone pass with one thread per (instance, knot) projects the clipped
-//     slack in place, each cone in order (exact projection, three cases);
-//     an elementwise pass, float4 per thread again, does dual ascent,
-//     S = slack - dual, the residual terms and the violation flag against
-//     the projected slack. It needs no buffer beyond the box layout's (only
-//     the per-instance mu/shift rows when given). The box-only
-//     instantiations keep the fused per-element path.
+//     entries of one knot, which sit in different threads' register tiles.
+//     So with cones the stage splits in three with a barrier between: the
+//     forward product clips as before and leaves the pre-projection iterate
+//     (in S), the relaxed iterate + old dual (in YG) and the clipped slack
+//     (in the new slack buffer) in shared memory; a cone pass with one
+//     thread per (slot, knot) projects the clipped slack in place, each cone
+//     in order (exact projection, three cases); an elementwise pass does dual
+//     ascent, S = slack - dual, the residual terms and the violation flag
+//     against the projected slack. The box-only instantiations keep the fused
+//     per-element path.
 //
 // Stage order per iteration is the reference's (src/tinympc/admm.cpp:117-150)
 // in its folded condensed form: forward (x0 terms hoisted into XbUb), slack
@@ -68,20 +79,38 @@
 
 #pragma once
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace atm {
 
-constexpr int RI = 8;  // instances per register tile; tile % RI == 0
+constexpr int RI = 8;  // slots per register tile; tile % RI == 0
 constexpr int TJ = 4;  // adjacent columns per register tile (one float4)
+// Retire and refill once this many slots wait (or no slot is live): a
+// refill costs two barriers, and on an H100 batching 8 beat refilling at
+// every iteration (PERF.md).
+constexpr int REFILL_MIN = 8;
 
 constexpr int MAX_CONES = 8;  // input cones + state cones of one problem
 constexpr int MAX_BALL = 8;   // ball entries of one cone
+
+// Slot states (Smem::done).
+constexpr int LIVE = 0;    // iterating
+constexpr int DONE = 1;    // frozen, waiting to be retired, or idle
+constexpr int CAPPED = 2;  // reached the cap this iteration: the backward
+                           // stage still runs it, then it is retired
+// What a slot's next iteration does (Smem::flags).
+constexpr int F_CHECK = 1;   // a convergence check
+constexpr int F_RECORD = 2;  // accumulate the residual maxima
+constexpr int F_EMIT = 4;    // write U, X to device memory (the slot's last
+                             // iteration of its last solve)
+// Why a slot is retired (Smem::ret).
+constexpr int R_STAY = 0, R_RETIRE = 1, R_RETIRE_EMIT = 2;
 
 struct Dims {
   int nx, nu, N;    // knot widths and horizon
   int Dx, Du, Dz;   // N*nx, (N-1)*nu, Dx+Du
   int DuP, DzP;     // Du, Dz rounded up to 4 (float4 rows, zero padded)
-  int tile;         // instances per block
+  int tile;         // slots per block
   int ksplit;       // lanes sharing one backward tile's depth (power of 2)
   int ncp;          // cones with per-instance mu/shift rows (0 or all)
 };
@@ -113,37 +142,46 @@ __host__ __device__ inline Dims make_dims(int nx, int nu, int N, int tile,
 // memory. The Python wrapper mirrors `total` (ops/fused_admm.py,
 // kernel_smem_bytes) and the C entry refuses a launch if the two disagree.
 struct Layout {
-  int Wf, Wb, lo, hi, cd, A, Bm;             // staged once per block
-  int D, S, YG, ZV, Xb, x0, u0, stat;        // per-instance floats
-  int res, done, zpar, viol;                 // per-instance ints
-  int cmu, csh;                              // per-instance cone mu, shift
+  int Wf, Wb, Wx, lo, hi, A, Bm;               // staged once per block
+  int D, cd, S, YG, ZV, Xb, x0, u0, stat;      // per-slot floats
+  int res, done, zpar, viol, itc, flags, inst, tick, ret, list, nref;
+  int cmu, csh;                                // per-slot cone mu, shift
   int total;
 };
 
 __host__ __device__ inline Layout make_layout(const Dims& d) {
   Layout L;
   int o = 0;
-  L.Wf = o;   o += d.DuP * d.DzP;   // rows of DzP: float4 along columns
+  const int t = d.tile;
+  L.Wf = o;   o += d.DuP * d.DzP;   // k rows; rows and columns past Du, Dz 0
   L.Wb = o;   o += d.DzP * d.DuP;
+  L.Wx = o;   o += d.nx * d.DzP;
   L.lo = o;   o += d.DzP;
   L.hi = o;   o += d.DzP;
-  L.cd = o;   o += d.DuP;
   L.A = o;    o += r4(d.nx * d.nx);
   L.Bm = o;   o += r4(d.nx * d.nu);
-  L.D = o;    o += r4(d.tile * d.DuP);
-  L.S = o;    o += r4(d.tile * d.DzP);
-  L.YG = o;   o += r4(d.tile * d.DzP);
-  L.ZV = o;   o += r4(2 * d.tile * d.DzP);
-  L.Xb = o;   o += r4(d.tile * d.DzP);
-  L.x0 = o;   o += r4(2 * d.tile * d.nx);
-  L.u0 = o;   o += r4(d.tile * d.nu);
-  L.stat = o; o += r4(d.tile * 6);
-  L.res = o;  o += r4(d.tile * 4);
-  L.done = o; o += r4(d.tile);
-  L.zpar = o; o += r4(d.tile);
-  L.viol = o; o += r4(d.tile);
-  L.cmu = o;  o += r4(d.ncp * d.tile);       // [cone][instance]
-  L.csh = o;  o += r4(d.ncp * d.tile);
+  L.D = o;    o += t * d.DuP;
+  L.cd = o;   o += t * d.DuP;        // the slot's const_d row
+  L.S = o;    o += t * d.DzP;
+  L.YG = o;   o += t * d.DzP;
+  L.ZV = o;   o += 2 * t * d.DzP;
+  L.Xb = o;   o += t * d.DzP;
+  L.x0 = o;   o += r4(t * d.nx);
+  L.u0 = o;   o += r4(t * d.nu);
+  L.stat = o; o += r4(t * 6);
+  L.res = o;  o += r4(t * 4);
+  L.done = o; o += t;
+  L.zpar = o; o += t;
+  L.viol = o; o += t;
+  L.itc = o;  o += t;
+  L.flags = o; o += t;
+  L.inst = o; o += t;
+  L.tick = o; o += t;
+  L.ret = o;  o += t;
+  L.list = o; o += t;
+  L.nref = o; o += 4;
+  L.cmu = o;  o += r4(d.ncp * t);       // [cone][slot]
+  L.csh = o;  o += r4(d.ncp * t);
   L.total = o;
   return L;
 }
@@ -167,6 +205,7 @@ struct Args {
   float *us;                    // (ticks,B,nu)  rollout only
   int *iters;                   // (ticks,B)     rollout only
   float *x_final;               // (B,nx)        rollout only
+  int *counter;                 // work counter, 0 at launch
   int B, ticks, tracking;
   int max_iter, check_every, warmup;
   float rho, alpha, pri_tol, dua_tol;
@@ -174,31 +213,36 @@ struct Args {
 };
 
 struct Smem {
-  float *Wf, *Wb, *lo, *hi, *cd, *A, *Bm;
-  float *D, *S, *YG, *ZV, *Xb, *x0, *u0, *stat;
-  int *res, *done, *zpar, *viol;
+  float *Wf, *Wb, *Wx, *lo, *hi, *A, *Bm;
+  float *D, *cd, *S, *YG, *ZV, *Xb, *x0, *u0, *stat;
+  int *res, *done, *zpar, *viol, *itc, *flags, *inst, *tick, *ret;
+  int *list, *nref;
   float *cmu, *csh;
 };
 
 __device__ inline Smem carve(float* base, const Layout& L) {
   Smem s;
-  s.Wf = base + L.Wf; s.Wb = base + L.Wb; s.lo = base + L.lo;
-  s.hi = base + L.hi; s.cd = base + L.cd; s.A = base + L.A;
-  s.Bm = base + L.Bm; s.D = base + L.D; s.S = base + L.S;
-  s.YG = base + L.YG; s.ZV = base + L.ZV; s.Xb = base + L.Xb;
-  s.x0 = base + L.x0; s.u0 = base + L.u0; s.stat = base + L.stat;
-  s.res = reinterpret_cast<int*>(base + L.res);
-  s.done = reinterpret_cast<int*>(base + L.done);
-  s.zpar = reinterpret_cast<int*>(base + L.zpar);
-  s.viol = reinterpret_cast<int*>(base + L.viol);
+  auto I = [base](int off) { return reinterpret_cast<int*>(base + off); };
+  s.Wf = base + L.Wf; s.Wb = base + L.Wb; s.Wx = base + L.Wx;
+  s.lo = base + L.lo;
+  s.hi = base + L.hi; s.A = base + L.A; s.Bm = base + L.Bm;
+  s.D = base + L.D; s.cd = base + L.cd; s.S = base + L.S;
+  s.YG = base + L.YG; s.ZV = base + L.ZV;
+  s.Xb = base + L.Xb; s.x0 = base + L.x0; s.u0 = base + L.u0;
+  s.stat = base + L.stat;
+  s.res = I(L.res); s.done = I(L.done); s.zpar = I(L.zpar);
+  s.viol = I(L.viol); s.itc = I(L.itc); s.flags = I(L.flags);
+  s.inst = I(L.inst); s.tick = I(L.tick); s.ret = I(L.ret);
+  s.list = I(L.list); s.nref = I(L.nref);
   s.cmu = base + L.cmu; s.csh = base + L.csh;
   return s;
 }
 
 // ---------------------------------------------------------------- staging --
 
-// Zero all per-instance state, then stage the operators (rows beyond Du / Dz
-// stay zero so the float4 product loops can run over the padded depth).
+// Zero all per-slot state, then stage the operators (rows and columns
+// beyond Du / Dz stay zero, so the products can run over the padded
+// widths and the padding of every iterate stays zero).
 __device__ inline void stage_block(const Args& a, const Layout& L,
                                    float* base, const Smem& s) {
   const Dims& d = a.d;
@@ -213,6 +257,10 @@ __device__ inline void stage_block(const Args& a, const Layout& L,
     const int k = i / d.Du, c = i - k * d.Du;
     s.Wb[k * d.DuP + c] = a.Wb[i];
   }
+  for (int i = tid; i < d.nx * d.Dz; i += nt) {
+    const int k = i / d.Dz, j = i - k * d.Dz;
+    s.Wx[k * d.DzP + j] = a.Wx[i];
+  }
   for (int i = tid; i < d.Dz; i += nt) { s.lo[i] = a.lo[i]; s.hi[i] = a.hi[i]; }
   if (a.A != nullptr) {
     for (int i = tid; i < d.nx * d.nx; i += nt) s.A[i] = a.A[i];
@@ -220,58 +268,28 @@ __device__ inline void stage_block(const Args& a, const Layout& L,
   }
 }
 
-// Load x0 and the warm-start carry of the block's instances. with_duals =
-// false leaves Y, G at zero (the rollout resets them every tick anyway).
-__device__ inline void load_carry(const Args& a, const Smem& s, int b0, int nb,
-                                  bool with_duals) {
-  const Dims& d = a.d;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int it = tid; it < nb * d.nx; it += nt) {
-    int i = it / d.nx, k = it - i * d.nx;
-    s.x0[i * d.nx + k] = a.x0[(size_t)(b0 + i) * d.nx + k];
-  }
-  for (int it = tid; it < nb * d.Du; it += nt) {
-    int i = it / d.Du, c = it - i * d.Du;
-    size_t gsrc = (size_t)(b0 + i) * d.Du + c;
-    s.D[i * d.DuP + c] = a.D0[gsrc];
-    s.ZV[i * d.DzP + d.Dx + c] = a.Z0[gsrc];
-    if (with_duals) s.YG[i * d.DzP + d.Dx + c] = a.Y0[gsrc];
-  }
-  for (int it = tid; it < nb * d.Dx; it += nt) {
-    int i = it / d.Dx, j = it - i * d.Dx;
-    size_t gsrc = (size_t)(b0 + i) * d.Dx + j;
-    s.ZV[i * d.DzP + j] = a.V0[gsrc];
-    if (with_duals) s.YG[i * d.DzP + j] = a.G0[gsrc];
-  }
-  // Per-instance cone parameters; the ragged edge keeps mu = shift = 0.
-  for (int it = tid; it < d.ncp * nb; it += nt) {
-    int c = it / nb, i = it - c * nb;
-    s.cmu[c * d.tile + i] = a.cone_mu[(size_t)c * a.B + b0 + i];
-    s.csh[c * d.tile + i] = a.cone_shift[(size_t)c * a.B + b0 + i];
-  }
+// Flags of a slot's iteration `it` (1-based). final_solve: the slot's
+// result is returned (every solve; the last tick of a mission).
+template <bool ADAPTIVE>
+__device__ inline int iteration_flags(const Args& a, int it, bool final_solve) {
+  const bool last = it == a.max_iter;
+  const bool check = ADAPTIVE && it > a.warmup && it % a.check_every == 0;
+  const bool record =
+      ADAPTIVE ? check && it == (a.max_iter / a.check_every) * a.check_every
+               : last;
+  return (check ? F_CHECK : 0) | (record ? F_RECORD : 0) |
+         (last && final_solve ? F_EMIT : 0);
 }
 
-// Per-solve bookkeeping: live flags (the ragged edge of the batch is born
-// done), statistics and residual accumulators cleared.
-__device__ inline void reset_solve(const Args& a, const Smem& s, int nb) {
+// Hoisted x0 terms of slot i, by one warp: Xb[i][j] = sum_k x0[i][k] Wx[k][j]
+// (Wx = [W_fx | W_gx]).
+__device__ inline void slot_xbub(const Args& a, const Smem& s, int i) {
   const Dims& d = a.d;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int i = tid; i < d.tile; i += nt) s.done[i] = (i >= nb) ? 1 : 0;
-  for (int i = tid; i < d.tile * 6; i += nt) s.stat[i] = 0.0f;
-  for (int i = tid; i < d.tile * 4; i += nt) s.res[i] = 0;
-  for (int i = tid; i < d.tile; i += nt) s.viol[i] = 0;
-}
-
-// Hoisted x0 terms: XbUb[i][j] = sum_k x0[i][k] * Wx[k][j]  (Wx = [W_fx|W_gx]).
-__device__ inline void compute_xbub(const Args& a, const Smem& s,
-                                    const float* x0, int nb) {
-  const Dims& d = a.d;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int it = tid; it < nb * d.Dz; it += nt) {
-    int i = it / d.Dz, j = it - i * d.Dz;
+  const int lane = threadIdx.x & 31;
+  for (int j = lane; j < d.Dz; j += 32) {
     float acc = 0.0f;
     for (int k = 0; k < d.nx; ++k)
-      acc = fmaf(x0[i * d.nx + k], __ldg(a.Wx + k * d.Dz + j), acc);
+      acc = fmaf(s.x0[i * d.nx + k], s.Wx[k * d.DzP + j], acc);
     s.Xb[i * d.DzP + j] = acc;
   }
 }
@@ -279,23 +297,20 @@ __device__ inline void compute_xbub(const Args& a, const Smem& s,
 // ----------------------------------------------------------------- stages --
 
 // Forward product fused with slack projection, dual ascent and residuals.
-// A thread owns one (group of RI instances, group of TJ adjacent columns of
-// z) register tile at a time. The loop over items is warp-uniform so that
-// the residual maxima can reduce with one redux per quantity over the lanes
-// that share an instance group.
-//   check    : flag every instance with a residual term at or above its
-//              tolerance (s.viol); costs no reduction across lanes
-//   record   : accumulate the four residual maxima of this iteration
-//   keep_u0  : keep the first-knot controls of this iteration in s.u0
-//   Uout/Xout: not nullptr -> write this iteration's U, X to global
+// A thread owns one (group of RI slots, group of TJ adjacent columns of z)
+// register tile at a time. The loop over items is warp-uniform so that the
+// residual maxima can reduce with one redux per quantity over the lanes
+// that share a slot group. Per slot row, its flags say whether this
+// iteration checks (s.viol: raised for a slot with a residual term at or
+// above its tolerance), records the four residual maxima or writes U, X to
+// device memory. KEEP_U0 (rollout): every iteration leaves the first-knot
+// controls in s.u0.
 // CONES = true: the stage ends after the box clip; it leaves the
 // pre-projection iterate in S (and in u0, U, X where asked), t = relaxed
 // iterate + old dual in YG and the clipped slack in the new slack buffer,
 // for cone_stage and finish_stage.
-template <bool CONES>
-__device__ inline void forward_stage(const Args& a, const Smem& s, int b0,
-                                     bool check, bool record, bool keep_u0,
-                                     float* Uout, float* Xout) {
+template <bool CONES, bool KEEP_U0>
+__device__ inline void forward_stage(const Args& a, const Smem& s) {
   const Dims& d = a.d;
   const int lane = threadIdx.x & 31;
   const int ncg = d.DzP / TJ;
@@ -310,11 +325,15 @@ __device__ inline void forward_stage(const Args& a, const Smem& s, int b0,
     const int g = item / ncg, cg = item - g * ncg;
     const int i0 = g * RI, j0 = cg * TJ;
     bool dn[RI];
+    int fl[RI];
     bool live = false;
+    int anyfl = 0;
 #pragma unroll
     for (int r = 0; r < RI; ++r) {
-      dn[r] = !active || s.done[i0 + r] != 0;
+      dn[r] = !active || s.done[i0 + r] != LIVE;
+      fl[r] = dn[r] ? 0 : s.flags[i0 + r];
       live |= !dn[r];
+      anyfl |= fl[r];
     }
     if (!__any_sync(0xffffffffu, live)) continue;  // warp-uniform
     float acc[RI][TJ];
@@ -347,143 +366,125 @@ __device__ inline void forward_stage(const Args& a, const Smem& s, int b0,
         }
       }
     }
-    if constexpr (CONES) {
-      const float4 l4 = *reinterpret_cast<const float4*>(s.lo + j0);
-      const float4 h4 = *reinterpret_cast<const float4*>(s.hi + j0);
-      const float lo[TJ] = {l4.x, l4.y, l4.z, l4.w};
-      const float hi[TJ] = {h4.x, h4.y, h4.z, h4.w};
+    const float4 l4 = *reinterpret_cast<const float4*>(s.lo + j0);
+    const float4 h4 = *reinterpret_cast<const float4*>(s.hi + j0);
+    const float lo[TJ] = {l4.x, l4.y, l4.z, l4.w};
+    const float hi[TJ] = {h4.x, h4.y, h4.z, h4.w};
+    const bool holds_u0 = j0 < d.Dx + d.nu && j0 + TJ > d.Dx;
+    // The elementwise stage, in three versions by the flags of the warp's
+    // slots this iteration: none (most iterations of a fixed solve), checks
+    // only (most iterations of an adaptive one: the violation test runs on
+    // every element, without a per-slot branch), or any.
+    auto finish = [&](auto mode_tag) {
+      constexpr int MODE = decltype(mode_tag)::value;
+      constexpr bool FLAGS = MODE == 2;
+      // Lanes of this warp that work on the same slot group: items run with
+      // the lanes, so they are the lanes from the group's first item to its
+      // last (threads beyond the last item repeat it and count with it).
+      const bool rec_any = FLAGS && !CONES &&
+                           __any_sync(0xffffffffu, (anyfl & F_RECORD) != 0);
+      unsigned peers = 0u;
+      if (rec_any) {
+        const int item0 = base + (threadIdx.x & ~31);
+        const int first = max(g * ncg - item0, 0);
+        const int end =
+            g == (nitems - 1) / ncg ? 32 : min((g + 1) * ncg - item0, 32);
+        peers = (end >= 32 ? 0xffffffffu : (1u << end) - 1u) &
+                ~((1u << first) - 1u);
+      }
+      const bool leader = rec_any && lane == __ffs(peers) - 1;
 #pragma unroll
       for (int r = 0; r < RI; ++r) {
-        if (dn[r]) continue;
         const int i = i0 + r;
         const int idx = i * d.DzP + j0;
-        const int zp = s.zpar[i];
-        const float4 xb4 = *reinterpret_cast<const float4*>(s.Xb + idx);
-        const float4 y4 = *reinterpret_cast<const float4*>(s.YG + idx);
-        const float4 z4 =
-            *reinterpret_cast<const float4*>(s.ZV + zp * zstride + idx);
-        const float xu[TJ] = {xb4.x + acc[r][0], xb4.y + acc[r][1],
-                              xb4.z + acc[r][2], xb4.w + acc[r][3]};
-        const float yo[TJ] = {y4.x, y4.y, y4.z, y4.w};
-        const float zo[TJ] = {z4.x, z4.y, z4.z, z4.w};
-        float t[TJ], zn[TJ];
+        int mx[4] = {0, 0, 0, 0};  // pri_x, dua_x, pri_u, dua_u (int views)
+        bool viol = false;
+        if (!dn[r]) {
+          const int zp = s.zpar[i];
+          const float4 xb4 = *reinterpret_cast<const float4*>(s.Xb + idx);
+          const float4 y4 = *reinterpret_cast<const float4*>(s.YG + idx);
+          const float4 z4 =
+              *reinterpret_cast<const float4*>(s.ZV + zp * zstride + idx);
+          const float xb[TJ] = {xb4.x, xb4.y, xb4.z, xb4.w};
+          const float yo[TJ] = {y4.x, y4.y, y4.z, y4.w};
+          const float zo[TJ] = {z4.x, z4.y, z4.z, z4.w};
+          float o1[TJ], zn[TJ], o3[TJ];
 #pragma unroll
-        for (int c = 0; c < TJ; ++c) {
-          const int j = j0 + c;
-          const float xr =
-              relax ? alpha * xu[c] + (1.0f - alpha) * zo[c] : xu[c];
-          t[c] = xr + yo[c];
-          zn[c] = fminf(fmaxf(t[c], lo[c]), hi[c]);  // box clip, inf-safe
-          if (j < d.Dz) {
-            if (Uout != nullptr) {
-              if (j < d.Dx) Xout[(size_t)(b0 + i) * d.Dx + j] = xu[c];
-              else Uout[(size_t)(b0 + i) * d.Du + (j - d.Dx)] = xu[c];
+          for (int c = 0; c < TJ; ++c) {
+            const int j = j0 + c;
+            const float xu = xb[c] + acc[r][c];   // pre-projection X or U
+            const float xr =
+                relax ? alpha * xu + (1.0f - alpha) * zo[c] : xu;
+            const float t = xr + yo[c];
+            zn[c] = fminf(fmaxf(t, lo[c]), hi[c]);  // box clip, inf-safe
+            if (CONES) {
+              o1[c] = t;              // relaxed iterate + old dual
+              o3[c] = xu;             // pre-projection iterate
+            } else {
+              o1[c] = t - zn[c];      // dual ascent
+              o3[c] = zn[c] - o1[c];  // S = slack - dual
             }
-            if (keep_u0 && j >= d.Dx && j < d.Dx + d.nu)
-              s.u0[i * d.nu + (j - d.Dx)] = xu[c];
-          }
-        }
-        *reinterpret_cast<float4*>(s.S + idx) =
-            make_float4(xu[0], xu[1], xu[2], xu[3]);
-        *reinterpret_cast<float4*>(s.YG + idx) =
-            make_float4(t[0], t[1], t[2], t[3]);
-        *reinterpret_cast<float4*>(s.ZV + (zp ^ 1) * zstride + idx) =
-            make_float4(zn[0], zn[1], zn[2], zn[3]);
-      }
-      continue;
-    }
-    float lo[TJ], hi[TJ];
-    {
-      const float4 l4 = *reinterpret_cast<const float4*>(s.lo + j0);
-      const float4 h4 = *reinterpret_cast<const float4*>(s.hi + j0);
-      lo[0] = l4.x; lo[1] = l4.y; lo[2] = l4.z; lo[3] = l4.w;
-      hi[0] = h4.x; hi[1] = h4.y; hi[2] = h4.z; hi[3] = h4.w;
-    }
-    // Lanes of this warp that work on the same instance group: items run
-    // with the lanes, so they are the lanes from the group's first item to
-    // its last (threads beyond the last item repeat it and count with it).
-    unsigned peers = 0u;
-    if (record) {
-      const int item0 = base + (threadIdx.x & ~31);
-      const int first = max(g * ncg - item0, 0);
-      const int end =
-          g == (nitems - 1) / ncg ? 32 : min((g + 1) * ncg - item0, 32);
-      peers = (end >= 32 ? 0xffffffffu : (1u << end) - 1u) &
-              ~((1u << first) - 1u);
-    }
-    const bool leader = record && lane == __ffs(peers) - 1;
-#pragma unroll
-    for (int r = 0; r < RI; ++r) {
-      const int i = i0 + r;
-      const int idx = i * d.DzP + j0;
-      int mx[4] = {0, 0, 0, 0};  // pri_x, dua_x, pri_u, dua_u as int views
-      bool viol = false;
-      if (!dn[r]) {
-        const int zp = s.zpar[i];
-        const float4 xb4 = *reinterpret_cast<const float4*>(s.Xb + idx);
-        const float4 y4 = *reinterpret_cast<const float4*>(s.YG + idx);
-        const float4 z4 =
-            *reinterpret_cast<const float4*>(s.ZV + zp * zstride + idx);
-        const float xb[TJ] = {xb4.x, xb4.y, xb4.z, xb4.w};
-        const float yo[TJ] = {y4.x, y4.y, y4.z, y4.w};
-        const float zo[TJ] = {z4.x, z4.y, z4.z, z4.w};
-        float yn[TJ], zn[TJ], sv[TJ];
-#pragma unroll
-        for (int c = 0; c < TJ; ++c) {
-          const int j = j0 + c;
-          const float xu = xb[c] + acc[r][c];   // pre-projection X or U
-          const float xr = relax ? alpha * xu + (1.0f - alpha) * zo[c] : xu;
-          const float t = xr + yo[c];
-          zn[c] = fminf(fmaxf(t, lo[c]), hi[c]);  // box clip, inf-safe
-          yn[c] = t - zn[c];                      // dual ascent
-          sv[c] = zn[c] - yn[c];
-          if (j < d.Dz) {
-            if (Uout != nullptr) {
-              if (j < d.Dx) Xout[(size_t)(b0 + i) * d.Dx + j] = xu;
-              else Uout[(size_t)(b0 + i) * d.Du + (j - d.Dx)] = xu;
-            }
-            if (keep_u0 && j >= d.Dx && j < d.Dx + d.nu)
+            // The first-knot controls of every iteration: what a slot
+            // keeps is those of its last one (rollout).
+            if (KEEP_U0 && holds_u0 && j >= d.Dx && j < d.Dx + d.nu)
               s.u0[i * d.nu + (j - d.Dx)] = xu;
-            const float pr = fabsf(xu - zn[c]);
-            const float dr = fabsf(zo[c] - zn[c]);
-            // max_j(.) < tol  <=>  every term < tol (a NaN fails both ways).
-            if (check)
-              viol |= !(pr < a.pri_tol) || !(dr * a.rho < a.dua_tol);
-            if (record) {
-              // |.| >= 0: the int view orders like the float, NaN on top.
-              const int o = j < d.Dx ? 0 : 2;
-              mx[o] = max(mx[o], __float_as_int(pr));
-              mx[o + 1] = max(mx[o + 1], __float_as_int(dr));
+            if (MODE == 1 && !CONES && j < d.Dz)
+              viol |= !(fabsf(xu - zn[c]) < a.pri_tol) ||
+                      !(fabsf(zo[c] - zn[c]) * a.rho < a.dua_tol);
+            if (FLAGS && j < d.Dz) {
+              if (fl[r] & F_EMIT) {
+                const int b = s.inst[i];
+                if (j < d.Dx) a.X[(size_t)b * d.Dx + j] = xu;
+                else a.U[(size_t)b * d.Du + (j - d.Dx)] = xu;
+              }
+              if (!CONES) {
+                const float pr = fabsf(xu - zn[c]);
+                const float dr = fabsf(zo[c] - zn[c]);
+                // max_j(.) < tol  <=>  every term < tol (a NaN fails both).
+                if (fl[r] & F_CHECK)
+                  viol |= !(pr < a.pri_tol) || !(dr * a.rho < a.dua_tol);
+                if (fl[r] & F_RECORD) {
+                  // |.| >= 0: the int view orders like the float, NaN on top.
+                  const int o = j < d.Dx ? 0 : 2;
+                  mx[o] = max(mx[o], __float_as_int(pr));
+                  mx[o + 1] = max(mx[o + 1], __float_as_int(dr));
+                }
+              }
             }
           }
+          // Columns beyond Dz are padding: operators, bounds and Xb are zero
+          // there, so the stored values stay zero.
+          *reinterpret_cast<float4*>(s.YG + idx) =
+              make_float4(o1[0], o1[1], o1[2], o1[3]);
+          *reinterpret_cast<float4*>(s.ZV + (zp ^ 1) * zstride + idx) =
+              make_float4(zn[0], zn[1], zn[2], zn[3]);
+          *reinterpret_cast<float4*>(s.S + idx) =
+              make_float4(o3[0], o3[1], o3[2], o3[3]);
+          if (viol && (fl[r] & F_CHECK)) s.viol[i] = 1;
         }
-        // Columns beyond Dz are padding: operators, bounds and Xb are zero
-        // there, so the stored values stay zero.
-        *reinterpret_cast<float4*>(s.YG + idx) =
-            make_float4(yn[0], yn[1], yn[2], yn[3]);
-        *reinterpret_cast<float4*>(s.ZV + (zp ^ 1) * zstride + idx) =
-            make_float4(zn[0], zn[1], zn[2], zn[3]);
-        *reinterpret_cast<float4*>(s.S + idx) =
-            make_float4(sv[0], sv[1], sv[2], sv[3]);
-        if (viol) s.viol[i] = 1;
-      }
-      if (record) {
+        if (rec_any) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int m = __reduce_max_sync(peers, mx[q]);
-          if (leader && m > 0) atomicMax(&s.res[i * 4 + q], m);
+          for (int q = 0; q < 4; ++q) {
+            const int m = __reduce_max_sync(peers, mx[q]);
+            if (leader && (fl[r] & F_RECORD) && m > 0)
+              atomicMax(&s.res[i * 4 + q], m);
+          }
         }
       }
-    }
+    };
+    const unsigned wfl = __reduce_or_sync(0xffffffffu, (unsigned)anyfl);
+    if (wfl == 0u) finish(std::integral_constant<int, 0>{});
+    else if (wfl == (unsigned)F_CHECK) finish(std::integral_constant<int, 1>{});
+    else finish(std::integral_constant<int, 2>{});
   }
 }
 
-// Cone projections, one thread per (instance, knot): knots 0..N-1 are the
+// Cone projections, one thread per (slot, knot): knots 0..N-1 are the
 // state knots, N..2N-2 the input knots. forward_stage<true> has left the
 // box-clipped slack in the new slack buffer; each cone of the knot's kind is
 // applied to it in order, in place (exact projection of (w[ball], w[axis] +
 // shift) onto ||v|| <= mu s: inside -> unchanged, polar -> 0, else the
-// boundary point; a == 0 guarded). mu and shift come from the per-instance
+// boundary point; a == 0 guarded). mu and shift come from the per-slot
 // rows when given (d.ncp > 0), else from the table: the arithmetic is the
 // same either way.
 __device__ inline void cone_stage(const Args& a, const Smem& s) {
@@ -496,7 +497,7 @@ __device__ inline void cone_stage(const Args& a, const Smem& s) {
   const int zstride = d.tile * d.DzP;
   for (int item = threadIdx.x; item < d.tile * nk; item += blockDim.x) {
     const int i = item / nk, k = k_lo + item - i * nk;
-    if (s.done[i] != 0) continue;
+    if (s.done[i] != LIVE) continue;
     const bool is_x = k < d.N;
     const int j0 = is_x ? k * d.nx : d.Dx + (k - d.N) * d.nu;
     float* zn = s.ZV + (s.zpar[i] ^ 1) * zstride + i * d.DzP + j0;
@@ -524,19 +525,20 @@ __device__ inline void cone_stage(const Args& a, const Smem& s) {
   }
 }
 
-// Closes the coned slack stage, one thread per (instance, group of TJ
-// columns): dual ascent against the *projected* slack, S = slack - dual, the
-// residual terms, the violation flag and (on the recording iteration) the
-// maxima. Reads t = relaxed iterate + old dual from YG, the pre-projection
-// iterate from S and the projected slack from the new slack buffer.
-__device__ inline void finish_stage(const Args& a, const Smem& s, bool check,
-                                    bool record) {
+// Closes the coned slack stage, one thread per (slot, group of TJ columns):
+// dual ascent against the *projected* slack, S = slack - dual, the residual
+// terms, the violation flag and (on the recording iteration) the maxima.
+// Reads t = relaxed iterate + old dual from YG, the pre-projection iterate
+// from S and the projected slack from the new slack buffer.
+__device__ inline void finish_stage(const Args& a, const Smem& s) {
   const Dims& d = a.d;
   const int ncg = d.DzP / TJ;
   const int zstride = d.tile * d.DzP;
   for (int item = threadIdx.x; item < d.tile * ncg; item += blockDim.x) {
     const int i = item / ncg, j0 = (item - i * ncg) * TJ;
-    if (s.done[i] != 0) continue;
+    if (s.done[i] != LIVE) continue;
+    const int fl = s.flags[i];
+    const bool check = fl & F_CHECK, record = fl & F_RECORD;
     const int idx = i * d.DzP + j0;
     const int zp = s.zpar[i];
     const float4 x4 = *reinterpret_cast<const float4*>(s.S + idx);
@@ -581,52 +583,62 @@ __device__ inline void finish_stage(const Args& a, const Smem& s, bool check,
   }
 }
 
-// One thread per instance closes the iteration's bookkeeping: keep the
-// recorded residuals, freeze the instance if a check flagged no violation (it
-// then keeps its old D and old slacks: zpar is not flipped, the backward
-// stage skips it), otherwise adopt the new slacks. Returns true, block-uniformly, when a
-// check found every instance of the block done.
-template <bool ADAPTIVE>
-__device__ inline bool decide_stage(const Args& a, const Smem& s, int it,
-                                    bool is_check, bool record) {
+// One thread per live slot closes the iteration's bookkeeping: count the
+// iteration, keep the recorded residuals, freeze the slot if a check flagged
+// no violation (it then keeps its old D and old slacks: zpar is not
+// flipped, the backward stage skips it), otherwise adopt the new slacks;
+// a slot at the cap is marked CAPPED (the backward stage still runs it).
+// Either way it is marked for retirement, and its next flags are set.
+// Returns 1 for a slot that stays LIVE (thread i < tile), else 0.
+template <bool ADAPTIVE, bool ROLLOUT>
+__device__ inline int decide_stage(const Args& a, const Smem& s) {
   const int i = threadIdx.x;
-  int mydone = 1;
-  if (i < a.d.tile) {
-    int dflag = s.done[i];
-    if (!dflag) {
-      bool frozen = false;
-      if (record) {
-        const float ps = __int_as_float(s.res[i * 4 + 0]);
-        const float ds = __int_as_float(s.res[i * 4 + 1]) * a.rho;
-        const float pu = __int_as_float(s.res[i * 4 + 2]);
-        const float du = __int_as_float(s.res[i * 4 + 3]) * a.rho;
-        s.stat[i * 6 + 2] = ps; s.stat[i * 6 + 3] = ds;
-        s.stat[i * 6 + 4] = pu; s.stat[i * 6 + 5] = du;
-        s.res[i * 4 + 0] = 0; s.res[i * 4 + 1] = 0;
-        s.res[i * 4 + 2] = 0; s.res[i * 4 + 3] = 0;
-      }
-      if (ADAPTIVE && is_check) {
-        if (s.viol[i] == 0) {
-          frozen = true;
-          s.stat[i * 6 + 0] = (float)it;
-          s.stat[i * 6 + 1] = 1.0f;
-          s.done[i] = 1;
-          dflag = 1;
-        }
-        s.viol[i] = 0;
-      }
-      if (!frozen) s.zpar[i] ^= 1;
+  int live = 0;
+  if (i < a.d.tile && s.done[i] == LIVE) {
+    const int it = s.itc[i] + 1;
+    s.itc[i] = it;
+    const int fl = s.flags[i];
+    const bool final_solve = !ROLLOUT || s.tick[i] == a.ticks - 1;
+    if (fl & F_RECORD) {
+      s.stat[i * 6 + 2] = __int_as_float(s.res[i * 4 + 0]);
+      s.stat[i * 6 + 3] = __int_as_float(s.res[i * 4 + 1]) * a.rho;
+      s.stat[i * 6 + 4] = __int_as_float(s.res[i * 4 + 2]);
+      s.stat[i * 6 + 5] = __int_as_float(s.res[i * 4 + 3]) * a.rho;
+      s.res[i * 4 + 0] = 0; s.res[i * 4 + 1] = 0;
+      s.res[i * 4 + 2] = 0; s.res[i * 4 + 3] = 0;
     }
-    mydone = dflag;
+    bool frozen = false;
+    if (ADAPTIVE && (fl & F_CHECK)) {
+      frozen = s.viol[i] == 0;
+      s.viol[i] = 0;
+    }
+    if (frozen) {
+      s.stat[i * 6 + 0] = (float)it;
+      s.stat[i * 6 + 1] = 1.0f;
+      s.done[i] = DONE;
+      s.ret[i] = final_solve ? R_RETIRE_EMIT : R_RETIRE;
+      s.list[atomicAdd(s.nref, 1)] = i;
+    } else {
+      s.zpar[i] ^= 1;
+      if (it == a.max_iter) {
+        s.stat[i * 6 + 0] = (float)a.max_iter;
+        s.done[i] = CAPPED;
+        s.ret[i] = R_RETIRE;
+        s.list[atomicAdd(s.nref, 1)] = i;
+      } else {
+        s.flags[i] = iteration_flags<ADAPTIVE>(a, it + 1, final_solve);
+        live = 1;
+      }
+    }
   }
-  if (ADAPTIVE && is_check) return __syncthreads_and(mydone) != 0;
-  return false;
+  return live;
 }
 
-// Backward product: D[i][c] = sum_k S[i][k] * Wb[k][c] + const_d[c]. A
-// register tile is RI instances x TJ adjacent columns; its depth Dz is split
-// over ksplit adjacent lanes (k-steps h, h + ksplit, ...), whose partial
-// sums meet in a butterfly of shuffles. Finished instances keep their D.
+// Backward product: D[i][c] = sum_k S[i][k] Wb[k][c] + const_d[c], const_d
+// the slot's row (the tick's row when tracking). A register tile is RI slots
+// x TJ adjacent columns; its depth Dz is split over ksplit adjacent lanes
+// (k-steps h, h + ksplit, ...), whose partial sums meet in a butterfly of
+// shuffles (a fixed order). Frozen slots keep their D.
 __device__ inline void backward_stage(const Args& a, const Smem& s) {
   const Dims& d = a.d;
   const int H = d.ksplit;
@@ -645,7 +657,7 @@ __device__ inline void backward_stage(const Args& a, const Smem& s) {
     bool live = false;
 #pragma unroll
     for (int r = 0; r < RI; ++r) {
-      dn[r] = !active || s.done[i0 + r] != 0;
+      dn[r] = !active || s.done[i0 + r] == DONE;
       live |= !dn[r];
     }
     if (!__any_sync(0xffffffffu, live)) continue;  // warp-uniform
@@ -691,30 +703,40 @@ __device__ inline void backward_stage(const Args& a, const Smem& s) {
           acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], off);
     }
     if (active && h == 0) {
-      const float4 cd = *reinterpret_cast<const float4*>(s.cd + c0);
 #pragma unroll
-      for (int r = 0; r < RI; ++r)
-        if (!dn[r])
-          *reinterpret_cast<float4*>(s.D + (i0 + r) * d.DuP + c0) =
-              make_float4(acc[r][0] + cd.x, acc[r][1] + cd.y,
-                          acc[r][2] + cd.z, acc[r][3] + cd.w);
+      for (int r = 0; r < RI; ++r) {
+        if (dn[r]) continue;
+        const float4 cd =
+            *reinterpret_cast<const float4*>(s.cd + (i0 + r) * d.DuP + c0);
+        *reinterpret_cast<float4*>(s.D + (i0 + r) * d.DuP + c0) =
+            make_float4(acc[r][0] + cd.x, acc[r][1] + cd.y,
+                        acc[r][2] + cd.z, acc[r][3] + cd.w);
+      }
     }
   }
 }
 
-// Results of the instances that froze at a check, one warp per instance: U
-// and X are the pre-projection iterate of that check, Xb + D Wf with the D
-// they kept, summed in the forward stage's order; the residuals are those
-// of that check, from the old slacks (the buffer zpar points at) and the
-// new ones (the other buffer, untouched since).
-__device__ inline void emit_frozen(const Args& a, const Smem& s, int b0,
-                                   float* Uout, float* Xout) {
+// ------------------------------------------------------- retire and refill --
+
+// Results of retired slot i, by one warp. A slot that froze at a check and
+// returns its result (ret == R_RETIRE_EMIT) first writes U and X, the
+// pre-projection iterate of that check: Xb + D Wf with the D it kept, summed
+// in the forward stage's order, so what that check computed; and the
+// residuals of that check, from the old slacks (the buffer zpar points at)
+// and the new ones (the other buffer, untouched since). For a mission tick
+// then the trace row (pre-projection first-knot control and iteration
+// count) and the plant step x+ = A x + B u0 into x0 (and x_final after the
+// last tick). For a solve, and for the last tick of a mission, the carry
+// (D; duals; the slack buffer zpar points at) and the statistics.
+template <bool ROLLOUT>
+__device__ inline void retire_slot(const Args& a, const Smem& s, int i) {
   const Dims& d = a.d;
   const int lane = threadIdx.x & 31;
+  const int b = s.inst[i];
   const int zstride = d.tile * d.DzP;
-  for (int i = threadIdx.x >> 5; i < d.tile; i += blockDim.x >> 5) {
-    if (s.stat[i * 6 + 1] == 0.0f) continue;  // warp-uniform
-    const int zp = s.zpar[i];
+  const int zp = s.zpar[i];
+  const bool final_solve = !ROLLOUT || s.tick[i] == a.ticks - 1;
+  if (s.ret[i] == R_RETIRE_EMIT) {   // warp-uniform
     int mx[4] = {0, 0, 0, 0};  // pri_x, dua_x, pri_u, dua_u as int views
     for (int j = lane; j < d.Dz; j += 32) {
       float acc = 0.0f;
@@ -722,8 +744,8 @@ __device__ inline void emit_frozen(const Args& a, const Smem& s, int b0,
         acc = fmaf(s.D[i * d.DuP + k], s.Wf[k * d.DzP + j], acc);
       const int idx = i * d.DzP + j;
       const float xu = s.Xb[idx] + acc;
-      if (j < d.Dx) Xout[(size_t)(b0 + i) * d.Dx + j] = xu;
-      else Uout[(size_t)(b0 + i) * d.Du + (j - d.Dx)] = xu;
+      if (j < d.Dx) a.X[(size_t)b * d.Dx + j] = xu;
+      else a.U[(size_t)b * d.Du + (j - d.Dx)] = xu;
       const float zo = s.ZV[zp * zstride + idx];
       const float zn = s.ZV[(zp ^ 1) * zstride + idx];
       const int o = j < d.Dx ? 0 : 2;
@@ -738,86 +760,200 @@ __device__ inline void emit_frozen(const Args& a, const Smem& s, int b0,
       s.stat[i * 6 + 4] = __int_as_float(mx[2]);
       s.stat[i * 6 + 5] = __int_as_float(mx[3]) * a.rho;
     }
+    __syncwarp();   // the plant step below reuses the Xb row
+  }
+  if (ROLLOUT) {
+    const int t = s.tick[i];
+    for (int c = lane; c < d.nu; c += 32)
+      a.us[((size_t)t * a.B + b) * d.nu + c] = s.u0[i * d.nu + c];
+    if (lane == 0) a.iters[(size_t)t * a.B + b] = (int)s.stat[i * 6 + 0];
+    // Plant step, through the slot's Xb row (recomputed after the step).
+    float* xn = s.Xb + i * d.DzP;
+    for (int r = lane; r < d.nx; r += 32) {
+      float ax = 0.0f, bu = 0.0f;
+      for (int k = 0; k < d.nx; ++k)
+        ax = fmaf(s.x0[i * d.nx + k], s.A[r * d.nx + k], ax);
+      for (int k = 0; k < d.nu; ++k)
+        bu = fmaf(s.u0[i * d.nu + k], s.Bm[r * d.nu + k], bu);
+      xn[r] = ax + bu;
+    }
+    __syncwarp();
+    for (int r = lane; r < d.nx; r += 32) {
+      s.x0[i * d.nx + r] = xn[r];
+      if (final_solve) a.x_final[(size_t)b * d.nx + r] = xn[r];
+    }
+  }
+  if (!final_solve) return;
+  for (int j = lane; j < d.Dz; j += 32) {
+    const int idx = i * d.DzP + j;
+    const float yg = s.YG[idx];
+    const float zv = s.ZV[zp * zstride + idx];
+    if (j < d.Dx) {
+      a.G[(size_t)b * d.Dx + j] = yg;
+      a.V[(size_t)b * d.Dx + j] = zv;
+    } else {
+      a.Y[(size_t)b * d.Du + (j - d.Dx)] = yg;
+      a.Z[(size_t)b * d.Du + (j - d.Dx)] = zv;
+    }
+  }
+  for (int c = lane; c < d.Du; c += 32)
+    a.D[(size_t)b * d.Du + c] = s.D[i * d.DuP + c];
+  if (lane < 6) a.stats[(size_t)b * 6 + lane] = s.stat[i * 6 + lane];
+}
+
+// Slot i after its claim, by one warp: a new instance (s.inst >= 0 and
+// s.itc < 0) loads x0 and its warm-start carry (duals zero in a mission: the
+// reference resets them every tick) and its cone rows; a mission slot moving
+// to its next tick resets its duals only (D and the slacks warm-start it);
+// both clear the solve's bookkeeping and compute Xb. An idle slot (no
+// instance left) is marked DONE.
+template <bool ADAPTIVE, bool ROLLOUT>
+__device__ inline void load_slot(const Args& a, const Smem& s, int i) {
+  const Dims& d = a.d;
+  const int lane = threadIdx.x & 31;
+  const int b = s.inst[i];
+  if (b < 0) {
+    if (lane == 0) { s.done[i] = DONE; s.ret[i] = R_STAY; }
+    return;
+  }
+  const bool fresh = s.itc[i] < 0;
+  __syncwarp();   // every lane has read itc before lane 0 resets it
+  const int zstride = d.tile * d.DzP;
+  float* yg = s.YG + i * d.DzP;
+  float* zv = s.ZV + s.zpar[i] * zstride + i * d.DzP;
+  if (fresh) {
+    for (int k = lane; k < d.nx; k += 32)
+      s.x0[i * d.nx + k] = a.x0[(size_t)b * d.nx + k];
+    for (int c = lane; c < d.Du; c += 32) {
+      const size_t src = (size_t)b * d.Du + c;
+      s.D[i * d.DuP + c] = a.D0[src];
+      zv[d.Dx + c] = a.Z0[src];
+      yg[d.Dx + c] = ROLLOUT ? 0.0f : a.Y0[src];
+    }
+    for (int j = lane; j < d.Dx; j += 32) {
+      const size_t src = (size_t)b * d.Dx + j;
+      zv[j] = a.V0[src];
+      yg[j] = ROLLOUT ? 0.0f : a.G0[src];
+    }
+    for (int c = lane; c < d.ncp; c += 32) {
+      s.cmu[c * d.tile + i] = a.cone_mu[(size_t)c * a.B + b];
+      s.csh[c * d.tile + i] = a.cone_shift[(size_t)c * a.B + b];
+    }
+  } else {
+    for (int j = lane; j < d.Dz; j += 32) yg[j] = 0.0f;  // dual reset
+  }
+  // The tick's reference constant (tracking streams one row per tick).
+  if (fresh || (ROLLOUT && a.tracking)) {
+    const float* cd = a.cd + (ROLLOUT && a.tracking ? s.tick[i] * d.Du : 0);
+    for (int c = lane; c < d.Du; c += 32) s.cd[i * d.DuP + c] = cd[c];
+  }
+  if (lane < 6) s.stat[i * 6 + lane] = 0.0f;
+  if (lane < 4) s.res[i * 4 + lane] = 0;
+  if (lane == 0) {
+    const int t = ROLLOUT ? s.tick[i] : 0;
+    s.viol[i] = 0;
+    s.itc[i] = 0;
+    s.flags[i] = iteration_flags<ADAPTIVE>(
+        a, 1, !ROLLOUT || t == a.ticks - 1);
+    s.ret[i] = R_STAY;
+    s.done[i] = LIVE;
+  }
+  __syncwarp();
+  slot_xbub(a, s, i);
+}
+
+// The next work of slot i, by lane 0 of the warp that retired it: in a
+// mission the same instance's next tick, else the next instance from the
+// work counter (none left: the slot idles).
+template <bool ROLLOUT>
+__device__ inline void claim_slot(const Args& a, const Smem& s, int i,
+                                  bool initial) {
+  if (!initial && ROLLOUT && s.tick[i] < a.ticks - 1) {
+    s.tick[i] += 1;
+  } else {
+    const int b = atomicAdd(a.counter, 1);
+    s.inst[i] = b < a.B ? b : -1;
+    s.tick[i] = 0;
+    s.itc[i] = -1;   // a new instance
   }
 }
 
-// ------------------------------------------------------------- solve core --
+// Retire the n slots listed in s.list and refill them, one warp per slot
+// (initial = true: claim an instance for every slot; the list holds them
+// all). Only the slot's own rows are touched, so a warp goes from retiring
+// to loading without a barrier. Ends with a barrier. Returns,
+// block-uniformly, the number of LIVE slots afterwards.
+template <bool ADAPTIVE, bool ROLLOUT>
+__device__ inline int refill_stage(const Args& a, const Smem& s, int n,
+                                   bool initial) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int e = warp; e < n; e += nwarps) {
+    const int i = s.list[e];
+    if (!initial) retire_slot<ROLLOUT>(a, s, i);
+    __syncwarp();   // every lane is done with the slot's old state
+    if (lane == 0) claim_slot<ROLLOUT>(a, s, i, initial);
+    __syncwarp();
+    load_slot<ADAPTIVE, ROLLOUT>(a, s, i);
+  }
+  __syncthreads();   // the loads' done flags, before they are counted
+  if (threadIdx.x == 0) *s.nref = 0;
+  return __syncthreads_count(threadIdx.x < a.d.tile &&
+                             s.done[threadIdx.x] == LIVE);
+}
 
-// The ADMM loop of one solve on the block's shared-memory state. Expects
-// D, YG, ZV[zpar], XbUb, cd loaded, reset_solve done, and a barrier since.
-//   ADAPTIVE = false: max_iter iterations; residuals of the final iteration
-//     against the pre-save slacks; solved stays 0.
-//   ADAPTIVE = true: a check where it > warmup and it % check_every == 0;
-//     an instance that never converges returns the live values after
-//     max_iter iterations and the residuals of its last check. The residual
-//     columns are filled only where U and X are asked for (Uout != nullptr).
-// Afterwards shared memory holds each instance's result (a barrier has
-// passed since its last write); U and X are in global memory where asked.
+// ------------------------------------------------------------- solve loop --
+
+// The whole launch of one block: stage the operators, claim an instance
+// for every slot, then iterate until the work counter is exhausted and every
+// slot is idle. ADAPTIVE = false: every solve runs max_iter iterations; the
+// residuals of the final iteration against the pre-save slacks; solved
+// stays 0. ADAPTIVE = true: a check where it > warmup and it % check_every
+// == 0; a slot that never converges returns the live values after max_iter
+// iterations and the residuals of its last check. ROLLOUT: every instance
+// runs a.ticks solves, each from zero duals and the previous tick's D and
+// slacks, the plant stepped with the pre-projection first-knot control.
 // CONES = true splits the slack stage (forward product and clip, barrier,
-// cone_stage, barrier, finish_stage); emit_frozen needs no cone code, since
-// the new slacks it reads are the projected ones.
-template <bool ADAPTIVE, bool CONES>
-__device__ inline void solve_core(const Args& a, const Smem& s, int b0,
-                                  float* Uout, float* Xout, bool keep_u0) {
-  // The last iteration that checks: its residuals are what an instance that
-  // never converges reports.
-  const int last_check =
-      ADAPTIVE ? (a.max_iter / a.check_every) * a.check_every : 0;
-  for (int it = 1; it <= a.max_iter; ++it) {
-    const bool is_last = it == a.max_iter;
-    const bool is_check =
-        ADAPTIVE && it > a.warmup && (it % a.check_every) == 0;
-    const bool record = ADAPTIVE ? is_check && it == last_check : is_last;
-    forward_stage<CONES>(a, s, b0, is_check, record,
-                         keep_u0 && (is_check || is_last),
-                         is_last ? Uout : nullptr, Xout);
+// cone_stage, barrier, finish_stage); the frozen slots' U and X
+// (retire_slot) need no cone code, since the new slacks they read are the
+// projected ones.
+template <bool ADAPTIVE, bool CONES, bool ROLLOUT>
+__device__ inline void run_block(const Args& a, float* base) {
+  const Layout L = make_layout(a.d);
+  const Smem s = carve(base, L);
+  stage_block(a, L, base, s);
+  __syncthreads();
+  if (threadIdx.x < a.d.tile) s.list[threadIdx.x] = threadIdx.x;
+  __syncthreads();
+  int live = refill_stage<ADAPTIVE, ROLLOUT>(a, s, a.d.tile, true);
+  while (live > 0) {
+    forward_stage<CONES, ROLLOUT>(a, s);
     __syncthreads();
     if constexpr (CONES) {
       cone_stage(a, s);
       __syncthreads();
-      finish_stage(a, s, is_check, record);
+      finish_stage(a, s);
       __syncthreads();
     }
-    if (decide_stage<ADAPTIVE>(a, s, it, is_check, record)) break;
-    backward_stage(a, s);
-    __syncthreads();
-  }
-  const int i = threadIdx.x;
-  if (i < a.d.tile && s.stat[i * 6 + 1] == 0.0f)
-    s.stat[i * 6 + 0] = (float)a.max_iter;
-  __syncthreads();
-  if (ADAPTIVE && Uout != nullptr) {
-    emit_frozen(a, s, b0, Uout, Xout);
-    __syncthreads();
-  }
-}
-
-// Write the block's results: carries (D; duals; the slack buffer zpar points
-// at) and statistics. U and X were written by the forward stage.
-__device__ inline void write_result(const Args& a, const Smem& s, int b0,
-                                    int nb) {
-  const Dims& d = a.d;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int zstride = d.tile * d.DzP;
-  for (int it = tid; it < nb * d.Dz; it += nt) {
-    const int i = it / d.Dz, j = it - i * d.Dz;
-    const int idx = i * d.DzP + j;
-    const float yg = s.YG[idx];
-    const float zv = s.ZV[s.zpar[i] * zstride + idx];
-    if (j < d.Dx) {
-      a.G[(size_t)(b0 + i) * d.Dx + j] = yg;
-      a.V[(size_t)(b0 + i) * d.Dx + j] = zv;
+    // A slot that freezes must be DONE before the backward stage reads the
+    // flags; without checks a slot only turns CAPPED, which the backward
+    // stage runs like a LIVE one, so no barrier is needed between the two.
+    live = decide_stage<ADAPTIVE, ROLLOUT>(a, s);
+    if (ADAPTIVE) {
+      live = __syncthreads_count(live);
+      backward_stage(a, s);
+      __syncthreads();
     } else {
-      a.Y[(size_t)(b0 + i) * d.Du + (j - d.Dx)] = yg;
-      a.Z[(size_t)(b0 + i) * d.Du + (j - d.Dx)] = zv;
+      backward_stage(a, s);
+      live = __syncthreads_count(live);
     }
+    const int nret = *s.nref;   // slots waiting to be retired
+    if (nret >= REFILL_MIN || (live == 0 && nret > 0)) {
+      live = refill_stage<ADAPTIVE, ROLLOUT>(a, s, nret, false);
+    } else if (threadIdx.x < a.d.tile && s.done[threadIdx.x] == CAPPED) {
+      s.done[threadIdx.x] = DONE;   // it waits for a refill; the next
+    }                               // forward stage's barrier orders this
   }
-  for (int it = tid; it < nb * d.Du; it += nt) {
-    const int i = it / d.Du, c = it - i * d.Du;
-    a.D[(size_t)(b0 + i) * d.Du + c] = s.D[i * d.DuP + c];
-  }
-  for (int it = tid; it < nb * 6; it += nt)
-    a.stats[(size_t)b0 * 6 + it] = s.stat[it];
 }
 
 }  // namespace atm

@@ -1,28 +1,32 @@
 // Fused ADMM kernels for Hopper (sm_90a): the whole batched solve, or a whole
-// receding-horizon mission, in one launch. Three kernels share the iteration
-// body in admm_iteration.cuh (see the design note there):
+// receding-horizon mission, in one launch. The kernels share the iteration
+// body in admm_iteration.cuh (see the design note there: persistent blocks
+// of per-instance slots fed by a work counter, FP32 FMA products from
+// register tiles):
 //
 //   fused_solve_fixed_kernel     replaces accelerated_tinympc_tpu/ops/
 //                                fused_admm.py _kernel_fixed
 //   fused_solve_adaptive_kernel  replaces fused_admm.py _kernel_adaptive
 //   fused_rollout_kernel         replaces ops/fused_rollout.py
-//                                _kernel_rollout
+//                                _kernel_rollout (adaptive tick solves;
+//                                fused_rollout_fixed_kernel the fixed ones)
 //
 // Each has a second instantiation with second-order cones in the slack stage
 // (template parameter CONES; replaces fused_admm.py _cone_apply, which the
 // TPU kernels close over when cone operands are given). The box-only
 // instantiations contain no cone code.
 //
-// All three are bound by operations (FP32 FMA), not bytes: global memory is
-// read once and written once per solve; the rollout writes one u0/iteration
-// trace row per tick and keeps the (x0, D, Z, V) carry in shared memory
+// All are bound by operations (FP32 FMA), not bytes: global memory is read
+// once and written once per solve; the rollout writes one u0/iteration trace
+// row per tick and keeps the (x0, D, Z, V) carry of an instance in its slot
 // across ticks (the TPU kernel's sequential tick grid dimension becomes a
-// loop inside the block).
+// per-slot tick counter).
 //
 // Plain C interface (loaded with ctypes). Every entry launches on the given
-// stream, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() (or -1 when the caller's launch geometry does not match
-// the kernel's own shared-memory layout).
+// stream, does not synchronise, allocates nothing (the work counter is the
+// caller's, zeroed before the launch), and returns cudaGetLastError() (or -1
+// when the caller's launch geometry does not match the kernel's own
+// shared-memory layout).
 
 #include "admm_iteration.cuh"
 
@@ -30,110 +34,26 @@ namespace atm {
 
 extern __shared__ float4 smem4[];
 
-template <bool ADAPTIVE, bool CONES>
-__device__ inline void solve_block(const Args& a) {
-  float* base = reinterpret_cast<float*>(smem4);
-  const Layout L = make_layout(a.d);
-  const Smem s = carve(base, L);
-  const int b0 = blockIdx.x * a.d.tile;
-  const int nb = min(a.d.tile, a.B - b0);
-
-  stage_block(a, L, base, s);
-  for (int c = threadIdx.x; c < a.d.Du; c += blockDim.x) s.cd[c] = a.cd[c];
-  load_carry(a, s, b0, nb, /*with_duals=*/true);
-  reset_solve(a, s, nb);
-  __syncthreads();
-  compute_xbub(a, s, s.x0, nb);
-  __syncthreads();
-  solve_core<ADAPTIVE, CONES>(a, s, b0, a.U, a.X, /*keep_u0=*/false);
-  write_result(a, s, b0, nb);
-}
-
-__global__ void __launch_bounds__(256, 1) fused_solve_fixed_kernel(Args a) {
-  solve_block<false, false>(a);
-}
-
-__global__ void __launch_bounds__(256, 1) fused_solve_adaptive_kernel(Args a) {
-  solve_block<true, false>(a);
-}
-
-__global__ void __launch_bounds__(256, 1)
-fused_solve_fixed_cones_kernel(Args a) {
-  solve_block<false, true>(a);
-}
-
-__global__ void __launch_bounds__(256, 1)
-fused_solve_adaptive_cones_kernel(Args a) {
-  solve_block<true, true>(a);
-}
-
-// Whole mission: per tick dual reset, solve (fixed or adaptive, warm-started
-// D and slacks), trace of the pre-projection u0 and the iteration count,
-// plant step x+ = A x + B u0. The final tick's full result is returned.
-template <bool CONES>
-__device__ inline void rollout_block(const Args& a) {
-  float* base = reinterpret_cast<float*>(smem4);
-  const Dims& d = a.d;
-  const Layout L = make_layout(d);
-  const Smem s = carve(base, L);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int b0 = blockIdx.x * d.tile;
-  const int nb = min(d.tile, a.B - b0);
-
-  stage_block(a, L, base, s);
-  load_carry(a, s, b0, nb, /*with_duals=*/false);
-  float* xc = s.x0;                  // current plant state
-  float* xn = s.x0 + d.tile * d.nx;  // next plant state
-  __syncthreads();
-
-  for (int t = 0; t < a.ticks; ++t) {
-    const bool last = t == a.ticks - 1;
-    // Dual reset (reference: quadrotor_hovering.cpp:100-101) and the tick's
-    // reference constant (tracking streams one const_d row per tick).
-    for (int i = tid; i < d.tile * d.DzP; i += nt) s.YG[i] = 0.0f;
-    const float* cd = a.tracking ? a.cd + (size_t)t * d.Du : a.cd;
-    for (int c = tid; c < d.Du; c += nt) s.cd[c] = cd[c];
-    reset_solve(a, s, nb);
-    compute_xbub(a, s, xc, nb);
-    __syncthreads();
-    float* Uo = last ? a.U : nullptr;
-    float* Xo = last ? a.X : nullptr;
-    if (a.check_every > 0) solve_core<true, CONES>(a, s, b0, Uo, Xo, true);
-    else solve_core<false, CONES>(a, s, b0, Uo, Xo, true);
-
-    // Trace: pre-projection first-knot control and iteration count.
-    for (int it = tid; it < nb * d.nu; it += nt) {
-      const int i = it / d.nu, c = it - i * d.nu;
-      a.us[((size_t)t * a.B + b0 + i) * d.nu + c] = s.u0[it];
-    }
-    for (int i = tid; i < nb; i += nt)
-      a.iters[(size_t)t * a.B + b0 + i] = (int)s.stat[i * 6 + 0];
-    // Plant step (reference: quadrotor_hovering.cpp:110).
-    for (int it = tid; it < nb * d.nx; it += nt) {
-      const int i = it / d.nx, r = it - i * d.nx;
-      float ax = 0.0f, bu = 0.0f;
-      for (int k = 0; k < d.nx; ++k)
-        ax = fmaf(xc[i * d.nx + k], s.A[r * d.nx + k], ax);
-      for (int k = 0; k < d.nu; ++k)
-        bu = fmaf(s.u0[i * d.nu + k], s.Bm[r * d.nu + k], bu);
-      xn[it] = ax + bu;
-    }
-    float* tmp = xc; xc = xn; xn = tmp;
-    __syncthreads();
+#define ATM_KERNEL(name, ADAPTIVE, CONES, ROLLOUT)                  \
+  __global__ void __launch_bounds__(256, 1) name(Args a) {          \
+    run_block<ADAPTIVE, CONES, ROLLOUT>(                            \
+        a, reinterpret_cast<float*>(smem4));                        \
   }
 
-  for (int it = tid; it < nb * d.nx; it += nt)
-    a.x_final[(size_t)b0 * d.nx + it] = xc[it];
-  write_result(a, s, b0, nb);
-}
+ATM_KERNEL(fused_solve_fixed_kernel, false, false, false)
+ATM_KERNEL(fused_solve_adaptive_kernel, true, false, false)
+ATM_KERNEL(fused_solve_fixed_cones_kernel, false, true, false)
+ATM_KERNEL(fused_solve_adaptive_cones_kernel, true, true, false)
+// Whole mission: per tick and slot, dual reset, solve (fixed or adaptive,
+// warm-started D and slacks), trace of the pre-projection u0 and the
+// iteration count, plant step x+ = A x + B u0. The final tick's full result
+// is returned. The adaptive and fixed tick solves are two instantiations.
+ATM_KERNEL(fused_rollout_kernel, true, false, true)
+ATM_KERNEL(fused_rollout_fixed_kernel, false, false, true)
+ATM_KERNEL(fused_rollout_cones_kernel, true, true, true)
+ATM_KERNEL(fused_rollout_fixed_cones_kernel, false, true, true)
 
-__global__ void __launch_bounds__(256, 1) fused_rollout_kernel(Args a) {
-  rollout_block<false>(a);
-}
-
-__global__ void __launch_bounds__(256, 1) fused_rollout_cones_kernel(Args a) {
-  rollout_block<true>(a);
-}
+#undef ATM_KERNEL
 
 // Fill the cone table from the host arrays of the C interface: cone_idx =
 // [nc_u, nc_x, then per cone nball, axis, ball[MAX_BALL]], cone_par = per
@@ -171,7 +91,7 @@ static int launch(K kernel, Args a, int threads, int smem_bytes,
   const Layout L = make_layout(a.d);
   if (smem_bytes != L.total * 4 || a.d.tile <= 0 || a.d.tile % RI != 0 ||
       threads < a.d.tile || threads % 32 != 0 || threads > 256 || a.B <= 0 ||
-      a.max_iter < 1)
+      a.max_iter < 1 || a.counter == nullptr)
     return -1;
   // Split the backward product's depth over as many adjacent lanes (at most
   // 8) as it takes to give every thread of the block a tile.
@@ -182,7 +102,18 @@ static int launch(K kernel, Args a, int threads, int smem_bytes,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (a.B + a.d.tile - 1) / a.d.tile;
+  // Persistent blocks: as many as the SMs hold at once, and no more than
+  // the batch fills.
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return -1;
+  const int need = (a.B + a.d.tile - 1) / a.d.tile;
+  const int blocks = n_sm * per_sm < need ? n_sm * per_sm : need;
   kernel<<<blocks, threads, smem_bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -211,7 +142,7 @@ int atm_fused_solve(
     float* U, float* X, float* D, float* Y, float* G, float* Z, float* V,
     float* stats,
     const int* cone_idx, const float* cone_par,
-    const float* cone_mu, const float* cone_shift,
+    const float* cone_mu, const float* cone_shift, int* counter,
     int B, int nx, int nu, int N, int max_iter, int check_every, int warmup,
     float rho, float alpha, float pri_tol, float dua_tol,
     int tile, int threads, int smem_bytes, void* stream) {
@@ -221,6 +152,7 @@ int atm_fused_solve(
   a.A = nullptr; a.Bm = nullptr;
   a.U = U; a.X = X; a.D = D; a.Y = Y; a.G = G; a.Z = Z; a.V = V;
   a.stats = stats;
+  a.counter = counter;
   a.B = B; a.ticks = 1; a.tracking = 0;
   a.max_iter = max_iter; a.check_every = check_every; a.warmup = warmup;
   a.rho = rho; a.alpha = alpha; a.pri_tol = pri_tol; a.dua_tol = dua_tol;
@@ -254,7 +186,7 @@ int atm_fused_rollout(
     float* us, int* iters, float* x_final,
     float* U, float* X, float* D, float* Y, float* G, float* Z, float* V,
     float* stats,
-    const int* cone_idx, const float* cone_par,
+    const int* cone_idx, const float* cone_par, int* counter,
     int B, int nx, int nu, int N, int ticks, int tracking,
     int max_iter, int check_every, int warmup,
     float rho, float alpha, float pri_tol, float dua_tol,
@@ -267,17 +199,25 @@ int atm_fused_rollout(
   a.U = U; a.X = X; a.D = D; a.Y = Y; a.G = G; a.Z = Z; a.V = V;
   a.stats = stats;
   a.us = us; a.iters = iters; a.x_final = x_final;
+  a.counter = counter;
   a.B = B; a.ticks = ticks; a.tracking = tracking;
   a.max_iter = max_iter; a.check_every = check_every; a.warmup = warmup;
   a.rho = rho; a.alpha = alpha; a.pri_tol = pri_tol; a.dua_tol = dua_tol;
   a.d = atm::make_dims(nx, nu, N, tile);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool adaptive = check_every > 0;
   if (cone_idx != nullptr) {
     if (!atm::fill_cones(a, cone_idx, cone_par, nullptr, nullptr)) return -1;
-    return atm::launch(atm::fused_rollout_cones_kernel, a, threads, smem_bytes,
-                       static_cast<cudaStream_t>(stream));
+    return adaptive
+        ? atm::launch(atm::fused_rollout_cones_kernel, a, threads, smem_bytes,
+                      st)
+        : atm::launch(atm::fused_rollout_fixed_cones_kernel, a, threads,
+                      smem_bytes, st);
   }
-  return atm::launch(atm::fused_rollout_kernel, a, threads, smem_bytes,
-                     static_cast<cudaStream_t>(stream));
+  return adaptive
+      ? atm::launch(atm::fused_rollout_kernel, a, threads, smem_bytes, st)
+      : atm::launch(atm::fused_rollout_fixed_kernel, a, threads, smem_bytes,
+                    st);
 }
 
 }  // extern "C"

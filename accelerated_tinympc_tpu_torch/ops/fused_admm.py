@@ -5,9 +5,10 @@ formulation (:mod:`..solver.condensed`) turns each ADMM iteration into a
 handful of small products plus elementwise chains; as separate tensor ops
 every ``(B, .)`` intermediate goes through device memory once per
 iteration. Here the whole solve loop runs inside one kernel
-(``csrc/fused_admm.cu``): per tile of instances every iterate and every
-operator stays in one block's shared memory for all iterations, so device
-memory is read once and written once per *solve*.
+(``csrc/fused_admm.cu``): the operators and the iterates of one slot per
+instance in flight stay in a block's shared memory for all iterations (a
+slot takes the next instance from a work counter when its own one is done),
+so device memory is read once and written once per *solve*.
 
 Semantics: stage for stage the reference iteration (reference:
 src/tinympc/admm.cpp:111-152) in a fixed-iteration mode and an adaptive mode
@@ -64,10 +65,10 @@ LAUNCH_COUNTS = {
     "fused_rollout_cones": 0,
 }
 
-# Kernel geometry. Instances per block are a multiple of the register tile;
-# the shared-memory budget is the 227 KB a Hopper block may take. Threads
-# per block follow the tile (16 per instance, at most 256): the best pairs
-# of tools/torch_kernel_sweep.py's table on an H100.
+# Kernel geometry. Slots per block are a multiple of the register tile; the
+# shared-memory budget is the 227 KB a Hopper block may take. Threads per
+# block follow the tile (16 per slot, at most 256): the best pairs of
+# tools/torch_kernel_sweep.py's table on an H100.
 REGISTER_TILE = 8
 MAX_TILE = 64
 MAX_THREADS = 256
@@ -513,14 +514,13 @@ def kernel_smem_bytes(nx: int, nu: int, horizon: int, tile: int,
     kernels need nothing else beyond the box layout."""
     r4 = lambda n: (n + 3) & ~3
     Dx, Du = horizon * nx, (horizon - 1) * nu
-    Dz = Dx + Du
-    DuP, DzP = r4(Du), r4(Dz)
+    DuP, DzP = r4(Du), r4(Dx + Du)
     words = (
-        DuP * DzP + DzP * DuP + 2 * DzP + DuP
+        DuP * DzP + DzP * DuP + nx * DzP + 2 * DzP   # Wf, Wb, Wx, lo, hi
         + r4(nx * nx) + r4(nx * nu)
-        + r4(tile * DuP) + 3 * r4(tile * DzP) + r4(2 * tile * DzP)
-        + r4(2 * tile * nx) + r4(tile * nu) + r4(tile * 6)
-        + r4(tile * 4) + 3 * r4(tile)
+        + 2 * tile * DuP + 5 * tile * DzP          # D, cd; S, YG, ZV x2, Xb
+        + r4(tile * nx) + r4(tile * nu) + r4(tile * 6) + r4(tile * 4)
+        + 9 * tile + 4                             # per-slot ints, nref
         + 2 * r4(ncp * tile)
     )
     return 4 * words
@@ -528,9 +528,9 @@ def kernel_smem_bytes(nx: int, nu: int, horizon: int, tile: int,
 
 def choose_tile(dims: tuple, batch: int, n_sm: int = 132,
                 limit: int = SMEM_LIMIT_BYTES, ncp: int = 0) -> int:
-    """Instances per block: the largest multiple of the register tile that
-    fits shared memory, not more than spreads the batch over all SMs. Raises
-    if even one register tile does not fit beside the operators."""
+    """Slots per block: the largest multiple of the register tile that fits
+    shared memory, not more than spreads the batch over all SMs. Raises if
+    even one register tile does not fit beside the operators."""
     nx, nu, N = dims
     if kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp) > limit:
         raise ValueError(
@@ -560,10 +560,10 @@ def _library() -> ctypes.CDLL:
         lib.atm_fused_smem_bytes.argtypes = [_I] * 5
         lib.atm_fused_smem_bytes.restype = _I
         lib.atm_fused_solve.argtypes = (
-            [_P] * 24 + [_I] * 7 + [_F] * 4 + [_I] * 3 + [_P])
+            [_P] * 25 + [_I] * 7 + [_F] * 4 + [_I] * 3 + [_P])
         lib.atm_fused_solve.restype = _I
         lib.atm_fused_rollout.argtypes = (
-            [_P] * 25 + [_I] * 9 + [_F] * 4 + [_I] * 3 + [_P])
+            [_P] * 26 + [_I] * 9 + [_F] * 4 + [_I] * 3 + [_P])
         lib.atm_fused_rollout.restype = _I
         lib._atm_declared = True
     return lib
@@ -611,6 +611,12 @@ def _geometry(pp: PaddedProblem, B: int, device, batch_tile, threads,
         threads = min(MAX_THREADS, THREADS_PER_INSTANCE * tile)
     threads = max(int(threads), -(-tile // 32) * 32)
     return tile, threads, kernel_smem_bytes(nx, nu, N, tile, ncp)
+
+
+def work_counter(device) -> torch.Tensor:
+    """The kernels' work counter: one int, zero at launch (the kernels
+    allocate nothing)."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
 
 
 def _cone_table(cone_ops: FusedConeOps | None):
@@ -686,7 +692,7 @@ def fused_solve(
     ``xref_q``/``pterm_c`` override the baked reference vectors (tracking
     mode -- build them with :func:`ref_vectors`). ``warmup_iters`` (adaptive
     mode only) runs that many iterations without convergence checks first.
-    ``batch_tile`` (instances per block) and ``threads`` override the
+    ``batch_tile`` (slots per block) and ``threads`` override the
     kernel's launch geometry.
 
     Tensors on the CPU go through :func:`fused_solve_plain`; tensors on a
@@ -739,6 +745,7 @@ def fused_solve(
                            new(Du), new(Dx))
     stats = new(6)
     adaptive = check_termination > 0
+    counter = work_counter(dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -752,6 +759,7 @@ def fused_solve(
             cone_idx, cone_par,
             mu_rows.data_ptr() if ncp else None,
             shift_rows.data_ptr() if ncp else None,
+            counter.data_ptr(),
             B, nx, nu, N, int(max_iter),
             int(check_termination) if adaptive else 0,
             min(int(warmup_iters), int(max_iter) - 1) if adaptive else 0,

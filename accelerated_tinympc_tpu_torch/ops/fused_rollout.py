@@ -6,11 +6,12 @@ loop-of-kernels rollout (:func:`..api.mpc.fused_mpc_rollout`) pays, per
 tick, a kernel launch and a round trip of every warm-start carry through
 device memory -- which matters once the adaptive mode cuts warm ticks to a
 few iterations. Here the tick loop itself runs inside the kernel
-(``csrc/fused_admm.cu``, ``fused_rollout_kernel``): the carry (x0, D, Z, V)
-lives in the block's shared memory across ticks, each tick resets the duals,
-runs the shared fixed/adaptive iteration core, applies the pre-projection
-first-knot control to the plant, and writes one trace row (u0 and the
-iteration count) per tick.
+(``csrc/fused_admm.cu``, ``fused_rollout_kernel``): an instance's carry
+(x0, D, Z, V) lives in its slot of a block's shared memory across ticks, and
+each slot moves its own instance from tick to tick (no tick waits for other
+instances): it resets the duals, runs the shared fixed/adaptive iteration
+core, applies the pre-projection first-knot control to the plant, and writes
+one trace row (u0 and the iteration count) per tick.
 
 Per-tick semantics are exactly the reference receding-horizon loop
 (reference: examples/quadrotor_hovering.cpp:90-114): measurement into
@@ -44,6 +45,7 @@ from .fused_admm import (
     _library,
     _raise_on,
     _unsupported,
+    work_counter,
     fold_const_d,
     fused_solve_plain,
     ref_vectors,
@@ -224,6 +226,7 @@ def fused_rollout(
                            new(B, Dx), new(B, Du), new(B, Dx))
     stats = new(B, 6)
     adaptive = check_termination > 0
+    counter = work_counter(dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -234,7 +237,7 @@ def fused_rollout(
             us.data_ptr(), iters.data_ptr(), x_final.data_ptr(),
             U.data_ptr(), X.data_ptr(), D.data_ptr(), Y.data_ptr(),
             G.data_ptr(), Z.data_ptr(), V.data_ptr(), stats.data_ptr(),
-            cone_idx, cone_par,
+            cone_idx, cone_par, counter.data_ptr(),
             B, nx, nu, N, T, 0 if const_seq is None else 1,
             int(max_iter), int(check_termination) if adaptive else 0,
             min(int(warmup_iters), int(max_iter) - 1) if adaptive else 0,

@@ -1,11 +1,12 @@
 """Early-termination compaction cascade over the fused adaptive kernel.
 
 Counterpart of ``cascade_solve`` in the JAX package's ``solver/cascade.py``.
-The adaptive fused kernel freezes converged instances in place: a block of
-instances leaves its loop only when all of them are done, so one straggler
-keeps its whole block at ``max_iter`` cost (ops/csrc/admm_iteration.cuh; the
-reference has the same all-or-nothing structure per solve, just with a batch
-of one -- src/tinympc/admm.cpp:117-152).
+The adaptive fused kernel freezes converged instances in place and hands
+their slots to unstarted instances (ops/csrc/admm_iteration.cuh), so a
+straggler no longer holds a block of other instances; what a long adaptive
+call still pays for is the straggler's own iterations (the reference has
+the same all-or-nothing structure per solve, just with a batch of one --
+src/tinympc/admm.cpp:117-152).
 
 :func:`cascade_solve` reclaims that compute at the launch level: run the
 kernel ``segment_iters`` iterations at a time, pull converged instances out
@@ -24,14 +25,16 @@ CPU: the matrix products group their sums by batch size), a few float32 ulp
 on the iterates. That can only alter scheduling if a residual sits within
 an ulp of the tolerance at a check.
 
-Cost model: one long call costs ``sum over blocks of (block's slowest
-instance)`` iterations; the cascade costs ``sum_s survivors_s * segment_s``
+Cost model: one long call costs about the sum of its instances' own
+iterations (slots are refilled inside the kernel); the cascade costs
+``sum_s survivors_s * segment_s``
 plus, per segment, one launch, one ``index_copy_`` of the segment's rows
 into the preallocated ``(B, .)`` outputs, one read of the solved column by
-the host, and one ``index_select`` of the survivors. On workloads where most
-instances converge early (warm-started MPC re-solves, mixed-difficulty
-sweeps) the reclaimed tail dominates; for tightly clustered convergence use
-one plain :func:`..ops.fused_admm.fused_solve` call.
+the host, and one ``index_select`` of the survivors. On the fused tier the
+kernel's own slot refill already reclaims the stragglers' waste, so one
+plain :func:`..ops.fused_admm.fused_solve` call is the faster of the two
+there (PERF.md); the cascade pays where a kernel keeps groups of instances
+in step (the hetero and long-horizon kernels below).
 
 :func:`hetero_cascade_solve` does the same over the heterogeneous-plant
 adaptive kernel (K8), gathering the survivors' plants, carries and

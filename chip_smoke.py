@@ -11,7 +11,10 @@ against the fused kernels on a fleet of identical plants), times each at
 batch 65,536, drives the port's main path
 (batched fused MPC on the quadrotor, nx=12, nu=4, N=10) through ``TinyMPC``
 at batch 65,536, and checks two batch-1 missions against the golden
-trajectories of the compiled C++ reference. Then the second path, again
+trajectories of the compiled C++ reference. The ``slots`` phase holds the
+fused kernels' per-instance slots to position independence: a permuted
+batch, a batch smaller than one block's slots and two launches back to back
+give the same instance the same bits. Then the second path, again
 through ``TinyMPC`` at batch 65,536: second-order cones inside the fused
 kernels (the powered-descent lander, nx=6, nu=3, N=15), the compaction
 cascade, and per-instance adaptive rho with the Riccati kernels. Then the
@@ -47,9 +50,13 @@ ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
-# tensor cores, and HBM3 bandwidth. The kernels are FP32-FMA work.
+# tensor cores, and HBM3 bandwidth. The bounds of every row are FP32 work at
+# the FP32 peak, so the rows stay comparable. The fused kernels (K1-K4) run
+# their products on the tensor cores in three split TF32 passes; the ceiling
+# of that scheme, TF32 dense / 3, is reported beside them as information.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_TF32X3_FLOPS = 495e12 / 3
 
 VAL_TOL = 1e-4   # controls and what warm-starts them (U, D, Z, us, x_final)
                  # kernel vs plain, and u0 vs the golden CSVs
@@ -275,6 +282,43 @@ def riccati_bound(nx, nu, steps_total: float, batch: int, inner: int = 0,
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def tf32x3_bound(dims, iters_total: float) -> float:
+    """Milliseconds the split-TF32 products of ``iters_total``
+    instance-iterations need at the scheme's ceiling (TF32 dense / 3):
+    information beside the FP32 bound of the fused rows."""
+    nx, nu, N = dims
+    Dx, Du = N * nx, (N - 1) * nu
+    flops = iters_total * 2 * (Du * Dx + Du * Du + Dx * Du + Du * Du)
+    return 1e3 * flops / PEAK_TF32X3_FLOPS
+
+
+def ptxas_per_kernel(log: str) -> list:
+    """Registers, spills and static shared memory of each kernel, from the
+    ``-Xptxas -v`` lines of one build log."""
+    import re
+
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)'?", ln)
+        if m and "Compiling" in ln:
+            name = m.group(1)
+            short = re.search(r"atm\d+(\w+?_kernel)", name)
+            cur = {"kernel": short.group(1) if short else name}
+            rows.append(cur)
+        if cur is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("smem_static", r"(\d+) bytes smem")):
+            m = re.search(pat, ln)
+            if m:
+                cur[key] = int(m.group(1))
+    return rows
+
+
 def cone_excess(W, cone, mu=None, shift=None):
     """Worst violation ``||w[ball]|| - mu (w[axis] + shift)`` of per-knot
     vectors ``W (B, K, dim)``; ``mu``/``shift`` ``(B,)`` override the cone's
@@ -457,8 +501,9 @@ def main() -> None:
     ptxas = {
         name: [ln.strip() for ln in _build.build_log(name).splitlines()
                if "registers" in ln or "spill" in ln]
-        for name in ("fused_admm", "riccati", "hetero_admm", "stream_admm")}
-    emit("build", seconds=round(_build.last_build_seconds, 2), ptxas=ptxas)
+        for name in ("riccati", "hetero_admm", "stream_admm")}
+    emit("build", seconds=round(_build.last_build_seconds, 2), ptxas=ptxas,
+         fused_kernels=ptxas_per_kernel(_build.build_log("fused_admm")))
 
     # -------------------------------------------------------------- kernels
     def flagship(batch, seed=0, spread=0.05):
@@ -583,6 +628,67 @@ def main() -> None:
     torch.cuda.synchronize()
     emit("kernels", batch=B, cases=cases)
     raise_failures(cases)
+
+    # ------------------------------------------------------------- slots
+    # Position independence of the slot kernels: an instance's arithmetic
+    # depends on its own data only (not on its slot, its block or the order
+    # in which slots claim instances), so a permuted batch gives the
+    # permuted result bit for bit. K2 on the warm workload above and K3 over
+    # a 12-tick adaptive mission, hovering and tracking (a const_d row per
+    # slot); batches smaller than one block's slots; two launches back to
+    # back (the work counter starts at 0 in each). All at one launch
+    # geometry (the backward product's depth split follows slots and threads).
+    tile_, threads_, _smem = fused_admm._geometry(pp, B, dev, None, None)
+    geo = dict(batch_tile=tile_, threads=threads_)
+    perm = torch.as_tensor(np.random.default_rng(7).permutation(B),
+                           device=dev)
+    inv = torch.argsort(perm)
+    solve_fields = lambda r: (r.U, r.X, r.stats) + tuple(r.carry)
+    mission_fields = lambda r: (
+        r.x_final, r.us.transpose(0, 1), r.iters.T) + solve_fields(r.final)
+    kw2 = dict(max_iter=100, check_termination=1, **geo)
+
+    def permuted_equal(fields, run, xs, cy):
+        a = fields(run(xs, cy))
+        b = fields(run(xs[perm], FusedCarry(*(t[perm] for t in cy))))
+        return all(torch.equal(x, y[inv]) for x, y in zip(a, b))
+
+    k2 = lambda xs, cy: fused_solve(xs, cy, pp, **kw2)
+    slot_cases = {
+        "K2 warm permuted": permuted_equal(solve_fields, k2, x1, warm),
+        "K3 hovering 12 ticks permuted": permuted_equal(
+            mission_fields, lambda xs, cy: fused_rollout(
+                xs, cy, pp, rops, 12, **kw2), x0s, cold),
+        "K3 tracking 12 ticks permuted": permuted_equal(
+            mission_fields, lambda xs, cy: fused_rollout(
+                xs, cy, tpp, trops, 12, const_seq=cs[:12], **kw2),
+            tx0s, cold),
+    }
+    first, second = solve_fields(k2(x1, warm)), solve_fields(k2(x1, warm))
+    slot_cases["K2 back to back"] = all(
+        torch.equal(a, b) for a, b in zip(first, second))
+    small_cases = []
+    for n in (1, 5):
+        xs_n, cy_n = x1[:n], FusedCarry(*(t[:n] for t in warm))
+        got = k2(xs_n, cy_n)
+        small_cases.append(compare_solve(
+            f"K2 batch {n}", got, fused_solve_plain(
+                xs_n, cy_n, pp, max_iter=100, check_termination=1),
+            1, pp.rho_f))
+        # the same instances inside the whole batch, bit for bit
+        slot_cases[f"K2 batch {n} equals its rows of the full batch"] = all(
+            torch.equal(a, b[:n]) for a, b in zip(solve_fields(got), first))
+        m = fused_rollout(x0s[:n], FusedCarry(*(t[:n] for t in cold)), pp,
+                          rops, 12, **kw2)
+        full = fused_rollout(x0s, cold, pp, rops, 12, **kw2)
+        slot_cases[f"K3 batch {n} equals its rows of the full batch"] = all(
+            torch.equal(a, b[:n]) for a, b in zip(
+                mission_fields(m), mission_fields(full)))
+    torch.cuda.synchronize()
+    emit("slots", batch=B, bit_exact=slot_cases, small_batches=small_cases)
+    raise_failures(small_cases + [{"failures": [
+        f"slots: {k} is not bit-exact" for k, v in slot_cases.items()
+        if not v]}])
 
     # ------------------------------------------- cones in the fused kernels
     # The powered-descent lander of examples/torch_soc_landing.py: nx=6,
@@ -1095,6 +1201,9 @@ def main() -> None:
             "library_ms": None,
             "iters_mean": float(iters_of(main_out)) / n_solves,
         })
+        if source == "fused_admm.cu":
+            kernels[-1]["tf32x3_ceiling_ms"] = tf32x3_bound(
+                dims, float(iters_of(main_out)))
 
     kw1 = dict(max_iter=100, check_termination=0)
     kernel_row(

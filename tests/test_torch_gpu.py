@@ -10,7 +10,7 @@ import torch
 import accelerated_tinympc_tpu_torch as atm
 from accelerated_tinympc_tpu_torch.ops import (
     FusedCarry, fused_rollout, fused_rollout_plain, fused_solve,
-    fused_solve_plain, pad_problem, rollout_ops,
+    fused_solve_plain, pad_problem, rollout_const_seq, rollout_ops,
 )
 from accelerated_tinympc_tpu_torch.ops import fused_admm
 
@@ -42,24 +42,95 @@ def test_fixed_kernel_matches_plain(card):
     assert float((got.carry.D - want.carry.D).abs().max()) <= ATOL
 
 
-def test_adaptive_kernel_matches_plain(card):
+@pytest.mark.parametrize("n", [133, 5, 1])   # 5, 1: fewer than the slots
+def test_adaptive_kernel_matches_plain(card, n):
     _problem, pp, x0s, cold = card
+    x0s, cold = x0s[:n], FusedCarry(*(t[:n] for t in cold))
     kw = dict(max_iter=200, check_termination=1, abs_pri_tol=0.05,
               abs_dua_tol=0.05)
     got = fused_solve(x0s, cold, pp, **kw)
     want = fused_solve_plain(x0s, cold, pp, **kw)
     same = got.stats[:, 0] == want.stats[:, 0]
-    assert float(same.float().mean()) >= 0.99
+    assert float(same.float().mean()) >= (0.99 if n > 100 else 1.0)
     assert float((got.U - want.U)[same].abs().max()) <= ATOL
+    assert float((got.carry.D - want.carry.D)[same].abs().max()) <= ATOL
 
 
-def test_rollout_kernel_matches_plain(card):
+def _tracking(batch=133):
+    problem, cache, x0, Xref_total = atm.models.quadrotor_tracking_setup()
+    ops = atm.condensed_operators(cache, problem.A, problem.B,
+                                  problem.horizon)
+    pp = pad_problem(problem, cache, ops)
+    rng = np.random.default_rng(1)
+    x0s = torch.as_tensor(x0[None] + 0.02 * rng.standard_normal((batch, 12)),
+                          dtype=torch.float32, device="cuda")
+    cs = rollout_const_seq(pp, problem.Q, cache.Pinf, Xref_total, 12)
+    return problem, pp, x0s, cs
+
+
+@pytest.mark.parametrize("tracking", [False, True])
+def test_rollout_kernel_matches_plain(card, tracking):
     problem, pp, x0s, cold = card
+    kw = dict(max_iter=30)
+    if tracking:   # a const_d row per tick, per slot
+        problem, pp, x0s, cs = _tracking()
+        kw = dict(max_iter=100, check_termination=1, const_seq=cs[:10])
     rops = rollout_ops(problem, pp)
-    got = fused_rollout(x0s, cold, pp, rops, 10, max_iter=30)
-    want = fused_rollout_plain(x0s, cold, pp, rops, 10, max_iter=30)
-    assert float((got.us - want.us).abs().max()) <= ATOL
-    assert float((got.x_final - want.x_final).abs().max()) <= ATOL
+    got = fused_rollout(x0s, cold, pp, rops, 10, **kw)
+    want = fused_rollout_plain(x0s, cold, pp, rops, 10, **kw)
+    # chip_smoke.py's mission bars: counts per instance-tick, values on the
+    # instances whose whole schedule agrees, all controls within twice the
+    # exit tolerance (1e-3)
+    assert float((got.iters == want.iters).float().mean()) >= 0.95
+    same = (got.iters == want.iters).all(dim=0)
+    assert float((got.us - want.us)[:, same].abs().max()) <= ATOL
+    assert float((got.x_final - want.x_final)[same].abs().max()) <= ATOL
+    assert float((got.us - want.us).abs().max()) <= 2e-3
+
+
+def _permuted_equal(run, tensors, batch, seed=5):
+    """``run(*tensors)`` on a permuted batch, un-permuted, is bit for bit
+    ``run(*tensors)``: each instance's arithmetic depends on its own data
+    only, not on its slot, block or the order of claims."""
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(batch),
+                           device="cuda")
+    a = run(*tensors)
+    b = run(*(t[perm] for t in tensors))
+    inv = torch.argsort(perm)
+    return all(torch.equal(x, y[inv]) for x, y in zip(a, b))
+
+
+def _solve_fields(r):
+    return (r.U, r.X, r.stats) + tuple(r.carry)
+
+
+def _mission_fields(r):
+    return (r.x_final, r.us.transpose(0, 1), r.iters.T) + _solve_fields(
+        r.final)
+
+
+@pytest.mark.parametrize("kind", ["solve", "mission", "tracking mission"])
+def test_permuted_batch_is_bit_exact(card, kind):
+    problem, pp, x0s, cold = card
+    kw = dict(max_iter=100, check_termination=1)
+    rops = rollout_ops(problem, pp)
+    if kind == "solve":   # K2, warm after a short mission: exits spread
+        lead = fused_rollout(x0s, cold, pp, rops, 6, **kw)
+        x1, warm = lead.x_final, lead.final.carry.reset_duals()
+        run = lambda x, *c: _solve_fields(
+            fused_solve(x, FusedCarry(*c), pp, **kw))
+        assert _permuted_equal(run, (x1,) + tuple(warm), x1.shape[0])
+        # back to back: the work counter starts at zero in every launch
+        first, second = run(x1, *warm), run(x1, *warm)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        return
+    if kind == "tracking mission":   # K3 with a const_d row per slot
+        problem, pp, x0s, cs = _tracking()
+        kw["const_seq"] = cs
+        rops = rollout_ops(problem, pp)
+    run = lambda x, d, v: _mission_fields(fused_rollout(
+        x, FusedCarry(d, d, v, d, v), pp, rops, 12, **kw))
+    assert _permuted_equal(run, (x0s, cold.D, cold.V), x0s.shape[0])
 
 
 def test_float64_on_the_card_raises(card):
@@ -141,6 +212,13 @@ def test_coned_kernel_matches_plain(lander, mode, per_instance):
     got = fused_solve(x0s, cold, pp, **kw)
     assert fused_admm.LAUNCH_COUNTS[name] == before + 1
     _assert_solve_close(got, fused_solve_plain(x0s, cold, pp, **kw))
+    if per_instance and mode == "adaptive":   # K4 b through the slots
+        rows = {k: kw.pop(k) for k in ("cone_mu_u", "cone_shift_x")}
+        run = lambda x, mu, sh, *c: _solve_fields(fused_solve(
+            x, FusedCarry(*c), pp, cone_mu_u=mu[None], cone_shift_x=sh[None],
+            **kw))
+        assert _permuted_equal(run, (x0s, rows["cone_mu_u"][0],
+                                     rows["cone_shift_x"][0]) + tuple(cold), B)
     if not per_instance:
         Z = got.carry.Z.reshape(B, -1, 3)
         V = got.carry.V.reshape(B, -1, 6)

@@ -5,14 +5,20 @@
 
 Times the fixed-100 solve, an adaptive solve that checks every iteration and
 never exits (tolerance 0: what a check costs), a warm adaptive solve and an
-adaptive hovering mission (quadrotor, nx=12, nu=4, N=10) for every (instances
-per block, threads per block) pair that fits shared memory, with CUDA events
+adaptive hovering mission (quadrotor, nx=12, nu=4, N=10) for every (slots per
+block, threads per block) pair that fits shared memory, with CUDA events
 after a warm-up, and prints one JSON line per pair. Before them come the
 card's name and power limit, and one line on the warm solve's iteration
-counts: their mean, and the mean over blocks (and over register-tile groups)
-of the slowest instance, which is what a block (a group) waits for. The
-defaults the wrappers use (``ops/fused_admm.py`` MAX_THREADS,
-THREADS_PER_INSTANCE) were read off this table. Needs a CUDA device and nvcc.
+counts: their mean, and the mean over fixed groups of as many instances as a
+block has slots (and over register-tile groups) of the slowest instance,
+what a block of lockstep instances would wait for (the slot kernels do not).
+Each pair's line also gives what a check costs (the never-exiting adaptive
+solve over the fixed one) and the block-iterations the warm solve spends per
+iteration its instances need (its time over the fixed solve's per-iteration
+time, per mean iteration count: 1 would be perfect packing with free checks
+and refills). The defaults the wrappers use (``ops/fused_admm.py``
+MAX_THREADS, THREADS_PER_INSTANCE) were read off this table. Needs a CUDA
+device and nvcc.
 """
 
 from __future__ import annotations
@@ -105,6 +111,10 @@ def main():
                     x0s, cold, pp, rops, args.ticks, **adaptive, **geo),
                     reps=1),
             }
+            row["check_cost"] = row["adaptive_noexit_ms"] / row["fixed100_ms"]
+            row["warm_block_iters_per_needed"] = (
+                row["adaptive_warm_ms"] / row["fixed100_ms"] * 100
+                / float(its.mean()))
             print(json.dumps(row), flush=True)
 
 
