@@ -281,17 +281,37 @@ __device__ inline int iteration_flags(const Args& a, int it, bool final_solve) {
          (last && final_solve ? F_EMIT : 0);
 }
 
+// y[j] = sum_k x[k] W[k][j] for j < n (W's rows ldw apart), by one warp,
+// each sum in k order; emit(j, y[j]) takes the results. A lane runs the
+// columns lane + 32 q, q < 4, of 128 at once: four independent chains hide
+// the latency of the shared-memory loads and of the FMAs.
+template <typename Emit>
+__device__ inline void warp_row_product(const float* x, int K, const float* W,
+                                        int ldw, int n, Emit&& emit) {
+  const int lane = threadIdx.x & 31;
+  for (int j0 = lane; j0 < n; j0 += 128) {
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const float xk = x[k];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (j0 + 32 * q < n)
+          acc[q] = fmaf(xk, W[k * ldw + j0 + 32 * q], acc[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (j0 + 32 * q < n) emit(j0 + 32 * q, acc[q]);
+  }
+}
+
 // Hoisted x0 terms of slot i, by one warp: Xb[i][j] = sum_k x0[i][k] Wx[k][j]
 // (Wx = [W_fx | W_gx]).
 __device__ inline void slot_xbub(const Args& a, const Smem& s, int i) {
   const Dims& d = a.d;
-  const int lane = threadIdx.x & 31;
-  for (int j = lane; j < d.Dz; j += 32) {
-    float acc = 0.0f;
-    for (int k = 0; k < d.nx; ++k)
-      acc = fmaf(s.x0[i * d.nx + k], s.Wx[k * d.DzP + j], acc);
-    s.Xb[i * d.DzP + j] = acc;
-  }
+  float* xb = s.Xb + i * d.DzP;
+  warp_row_product(s.x0 + i * d.nx, d.nx, s.Wx, d.DzP, d.Dz,
+                   [&](int j, float v) { xb[j] = v; });
 }
 
 // ----------------------------------------------------------------- stages --
@@ -529,57 +549,72 @@ __device__ inline void cone_stage(const Args& a, const Smem& s) {
 // dual ascent against the *projected* slack, S = slack - dual, the residual
 // terms, the violation flag and (on the recording iteration) the maxima.
 // Reads t = relaxed iterate + old dual from YG, the pre-projection iterate
-// from S and the projected slack from the new slack buffer.
+// from S and the projected slack from the new slack buffer. As in
+// forward_stage, the loop over items is warp-uniform and the work runs in
+// one of three versions by the flags of the warp's slots: none, checks only
+// (the violation test on every element, without a per-slot branch), or any.
 __device__ inline void finish_stage(const Args& a, const Smem& s) {
   const Dims& d = a.d;
   const int ncg = d.DzP / TJ;
+  const int nitems = d.tile * ncg;
   const int zstride = d.tile * d.DzP;
-  for (int item = threadIdx.x; item < d.tile * ncg; item += blockDim.x) {
-    const int i = item / ncg, j0 = (item - i * ncg) * TJ;
-    if (s.done[i] != LIVE) continue;
-    const int fl = s.flags[i];
-    const bool check = fl & F_CHECK, record = fl & F_RECORD;
-    const int idx = i * d.DzP + j0;
-    const int zp = s.zpar[i];
-    const float4 x4 = *reinterpret_cast<const float4*>(s.S + idx);
-    const float4 t4 = *reinterpret_cast<const float4*>(s.YG + idx);
-    const float4 o4 =
-        *reinterpret_cast<const float4*>(s.ZV + zp * zstride + idx);
-    const float4 n4 =
-        *reinterpret_cast<const float4*>(s.ZV + (zp ^ 1) * zstride + idx);
-    const float xu[TJ] = {x4.x, x4.y, x4.z, x4.w};
-    const float t[TJ] = {t4.x, t4.y, t4.z, t4.w};
-    const float zo[TJ] = {o4.x, o4.y, o4.z, o4.w};
-    const float zn[TJ] = {n4.x, n4.y, n4.z, n4.w};
-    float yn[TJ], sv[TJ];
-    int mx[4] = {0, 0, 0, 0};  // pri_x, dua_x, pri_u, dua_u as int views
-    bool viol = false;
+  for (int base = 0; base < nitems; base += blockDim.x) {
+    const int item = base + threadIdx.x;
+    const int i = min(item, nitems - 1) / ncg;
+    const int j0 = (item - i * ncg) * TJ;
+    const bool live = item < nitems && s.done[i] == LIVE;
+    const int fl = live ? s.flags[i] & (F_CHECK | F_RECORD) : 0;
+    const unsigned wfl = __reduce_or_sync(0xffffffffu, (unsigned)fl);
+    if (!live) continue;
+    auto finish = [&](auto mode_tag) {
+      constexpr int MODE = decltype(mode_tag)::value;
+      const bool check = MODE == 1 || (MODE == 2 && (fl & F_CHECK));
+      const bool record = MODE == 2 && (fl & F_RECORD);
+      const int idx = i * d.DzP + j0;
+      const int zp = s.zpar[i];
+      const float4 x4 = *reinterpret_cast<const float4*>(s.S + idx);
+      const float4 t4 = *reinterpret_cast<const float4*>(s.YG + idx);
+      const float4 o4 =
+          *reinterpret_cast<const float4*>(s.ZV + zp * zstride + idx);
+      const float4 n4 =
+          *reinterpret_cast<const float4*>(s.ZV + (zp ^ 1) * zstride + idx);
+      const float xu[TJ] = {x4.x, x4.y, x4.z, x4.w};
+      const float t[TJ] = {t4.x, t4.y, t4.z, t4.w};
+      const float zo[TJ] = {o4.x, o4.y, o4.z, o4.w};
+      const float zn[TJ] = {n4.x, n4.y, n4.z, n4.w};
+      float yn[TJ], sv[TJ];
+      int mx[4] = {0, 0, 0, 0};  // pri_x, dua_x, pri_u, dua_u as int views
+      bool viol = false;
 #pragma unroll
-    for (int c = 0; c < TJ; ++c) {
-      const int j = j0 + c;
-      yn[c] = t[c] - zn[c];   // dual ascent
-      sv[c] = zn[c] - yn[c];
-      if (j < d.Dz) {
-        const float pr = fabsf(xu[c] - zn[c]);
-        const float dr = fabsf(zo[c] - zn[c]);
-        if (check) viol |= !(pr < a.pri_tol) || !(dr * a.rho < a.dua_tol);
-        if (record) {
-          const int o = j < d.Dx ? 0 : 2;
-          mx[o] = max(mx[o], __float_as_int(pr));
-          mx[o + 1] = max(mx[o + 1], __float_as_int(dr));
+      for (int c = 0; c < TJ; ++c) {
+        const int j = j0 + c;
+        yn[c] = t[c] - zn[c];   // dual ascent
+        sv[c] = zn[c] - yn[c];
+        if (MODE > 0 && j < d.Dz) {
+          const float pr = fabsf(xu[c] - zn[c]);
+          const float dr = fabsf(zo[c] - zn[c]);
+          if (check) viol |= !(pr < a.pri_tol) || !(dr * a.rho < a.dua_tol);
+          if (record) {
+            const int o = j < d.Dx ? 0 : 2;
+            mx[o] = max(mx[o], __float_as_int(pr));
+            mx[o + 1] = max(mx[o + 1], __float_as_int(dr));
+          }
         }
       }
-    }
-    *reinterpret_cast<float4*>(s.YG + idx) =
-        make_float4(yn[0], yn[1], yn[2], yn[3]);
-    *reinterpret_cast<float4*>(s.S + idx) =
-        make_float4(sv[0], sv[1], sv[2], sv[3]);
-    if (viol) s.viol[i] = 1;
-    if (record) {
+      *reinterpret_cast<float4*>(s.YG + idx) =
+          make_float4(yn[0], yn[1], yn[2], yn[3]);
+      *reinterpret_cast<float4*>(s.S + idx) =
+          make_float4(sv[0], sv[1], sv[2], sv[3]);
+      if (viol && (fl & F_CHECK)) s.viol[i] = 1;
+      if (record) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (mx[q] > 0) atomicMax(&s.res[i * 4 + q], mx[q]);
-    }
+        for (int q = 0; q < 4; ++q)
+          if (mx[q] > 0) atomicMax(&s.res[i * 4 + q], mx[q]);
+      }
+    };
+    if (wfl == 0u) finish(std::integral_constant<int, 0>{});
+    else if (wfl == (unsigned)F_CHECK) finish(std::integral_constant<int, 1>{});
+    else finish(std::integral_constant<int, 2>{});
   }
 }
 
@@ -738,10 +773,8 @@ __device__ inline void retire_slot(const Args& a, const Smem& s, int i) {
   const bool final_solve = !ROLLOUT || s.tick[i] == a.ticks - 1;
   if (s.ret[i] == R_RETIRE_EMIT) {   // warp-uniform
     int mx[4] = {0, 0, 0, 0};  // pri_x, dua_x, pri_u, dua_u as int views
-    for (int j = lane; j < d.Dz; j += 32) {
-      float acc = 0.0f;
-      for (int k = 0; k < d.Du; ++k)
-        acc = fmaf(s.D[i * d.DuP + k], s.Wf[k * d.DzP + j], acc);
+    warp_row_product(s.D + i * d.DuP, d.Du, s.Wf, d.DzP, d.Dz,
+                     [&](int j, float acc) {
       const int idx = i * d.DzP + j;
       const float xu = s.Xb[idx] + acc;
       if (j < d.Dx) a.X[(size_t)b * d.Dx + j] = xu;
@@ -751,7 +784,7 @@ __device__ inline void retire_slot(const Args& a, const Smem& s, int i) {
       const int o = j < d.Dx ? 0 : 2;
       mx[o] = max(mx[o], __float_as_int(fabsf(xu - zn)));
       mx[o + 1] = max(mx[o + 1], __float_as_int(fabsf(zo - zn)));
-    }
+    });
 #pragma unroll
     for (int q = 0; q < 4; ++q) mx[q] = __reduce_max_sync(0xffffffffu, mx[q]);
     if (lane == 0) {
@@ -822,18 +855,34 @@ __device__ inline void load_slot(const Args& a, const Smem& s, int i) {
   float* yg = s.YG + i * d.DzP;
   float* zv = s.ZV + s.zpar[i] * zstride + i * d.DzP;
   if (fresh) {
-    for (int k = lane; k < d.nx; k += 32)
-      s.x0[i * d.nx + k] = a.x0[(size_t)b * d.nx + k];
-    for (int c = lane; c < d.Du; c += 32) {
-      const size_t src = (size_t)b * d.Du + c;
-      s.D[i * d.DuP + c] = a.D0[src];
-      zv[d.Dx + c] = a.Z0[src];
-      yg[d.Dx + c] = ROLLOUT ? 0.0f : a.Y0[src];
-    }
-    for (int j = lane; j < d.Dx; j += 32) {
-      const size_t src = (size_t)b * d.Dx + j;
-      zv[j] = a.V0[src];
-      yg[j] = ROLLOUT ? 0.0f : a.G0[src];
+    // Every load of a round (128 columns of each input row) before any
+    // store, so that a lane's loads are in flight together.
+    const int nr = max(d.Dx, d.Du);   // Dx >= nx
+    for (int c0 = lane; c0 < nr; c0 += 128) {
+      float v[4][6];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = c0 + 32 * q;
+        const size_t su = (size_t)b * d.Du + c, sx = (size_t)b * d.Dx + c;
+        const bool u = c < d.Du, x = c < d.Dx;
+        v[q][0] = u ? __ldg(a.D0 + su) : 0.0f;
+        v[q][1] = u ? __ldg(a.Z0 + su) : 0.0f;
+        v[q][2] = u && !ROLLOUT ? __ldg(a.Y0 + su) : 0.0f;
+        v[q][3] = x ? __ldg(a.V0 + sx) : 0.0f;
+        v[q][4] = x && !ROLLOUT ? __ldg(a.G0 + sx) : 0.0f;
+        v[q][5] = c < d.nx ? __ldg(a.x0 + (size_t)b * d.nx + c) : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = c0 + 32 * q;
+        if (c < d.Du) {
+          s.D[i * d.DuP + c] = v[q][0];
+          zv[d.Dx + c] = v[q][1];
+          yg[d.Dx + c] = v[q][2];
+        }
+        if (c < d.Dx) { zv[c] = v[q][3]; yg[c] = v[q][4]; }
+        if (c < d.nx) s.x0[i * d.nx + c] = v[q][5];
+      }
     }
     for (int c = lane; c < d.ncp; c += 32) {
       s.cmu[c * d.tile + i] = a.cone_mu[(size_t)c * a.B + b];

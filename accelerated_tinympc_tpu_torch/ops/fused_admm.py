@@ -58,11 +58,13 @@ torch.backends.cuda.matmul.allow_tf32 = False  # full-float32 products
 LAUNCH_COUNTS = {
     "fused_solve_fixed": 0,
     "fused_solve_adaptive": 0,
-    "fused_rollout": 0,
+    "fused_rollout": 0,        # adaptive tick solves
+    "fused_rollout_fixed": 0,  # fixed tick solves (check_termination = 0)
     # the coned instantiations (cone_ops given)
     "fused_solve_fixed_cones": 0,
     "fused_solve_adaptive_cones": 0,
     "fused_rollout_cones": 0,
+    "fused_rollout_fixed_cones": 0,
 }
 
 # Kernel geometry. Slots per block are a multiple of the register tile; the

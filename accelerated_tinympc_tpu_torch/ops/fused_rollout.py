@@ -246,8 +246,8 @@ def fused_rollout(
             tile, threads, smem, stream,
         )
     _raise_on(err, "fused_rollout")
-    LAUNCH_COUNTS[
-        "fused_rollout" + ("_cones" if cone_idx is not None else "")] += 1
+    LAUNCH_COUNTS["fused_rollout" + ("" if adaptive else "_fixed")
+                  + ("_cones" if cone_idx is not None else "")] += 1
     final = FusedResult(
         U=U, X=X, carry=FusedCarry(D=D, Y=Y, G=G, Z=Z, V=V), stats=stats)
     return RolloutResult(x_final=x_final, us=us, iters=iters, final=final)

@@ -50,13 +50,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
-# tensor cores, and HBM3 bandwidth. The bounds of every row are FP32 work at
-# the FP32 peak, so the rows stay comparable. The fused kernels (K1-K4) run
-# their products on the tensor cores in three split TF32 passes; the ceiling
-# of that scheme, TF32 dense / 3, is reported beside them as information.
+# tensor cores, and HBM3 bandwidth. The kernels are FP32-FMA work.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_TF32X3_FLOPS = 495e12 / 3
 
 VAL_TOL = 1e-4   # controls and what warm-starts them (U, D, Z, us, x_final)
                  # kernel vs plain, and u0 vs the golden CSVs
@@ -240,6 +236,81 @@ def raise_failures(cases) -> None:
         raise AssertionError("; ".join(fails))
 
 
+# -------------------------------------------------------------- workloads --
+# The fused kernels' workloads, shared with tools/torch_fused_times.py and
+# tools/torch_kernel_sweep.py. The builders import the package when called,
+# so a tool can build them against another checkout's package.
+
+WARM_KW = dict(max_iter=100, check_termination=1)   # K2's and K3's solves
+LANDER_TOL = dict(abs_pri_tol=1e-2, abs_dua_tol=1e-2)
+LANDER_FIXED = dict(max_iter=100, check_termination=0)                  # K4 a
+LANDER_ADAPTIVE = dict(max_iter=300, check_termination=2, **LANDER_TOL)  # K4 b
+LANDER_MISSION = dict(max_iter=100, check_termination=2, **LANDER_TOL)   # K4 c
+
+
+def flagship(batch, dev, seed=0, spread=0.05):
+    """The quadrotor (nx=12, nu=4, N=10): ``(problem, cache, padded
+    operators, batch x0 spread around its nominal x0)``."""
+    import accelerated_tinympc_tpu_torch as atm
+    from accelerated_tinympc_tpu_torch.ops import pad_problem
+
+    problem, cache, x0 = atm.models.quadrotor_hovering_setup(device=dev)
+    ops = atm.condensed_operators(
+        cache, problem.A, problem.B, problem.horizon, device=dev)
+    pp = pad_problem(problem, cache, ops, device=dev)
+    rng = np.random.default_rng(seed)
+    x0s = torch.as_tensor(
+        x0[None] + spread * rng.standard_normal((batch, 12)),
+        dtype=torch.float32, device=dev)
+    return problem, cache, pp, x0s
+
+
+def warm_start(problem, pp, x0s, dev):
+    """K2's workload: the measurement and carried slacks after a 12-tick
+    adaptive mission from cold, duals reset, where the early exit really
+    ends solves at different iterations. Returns ``(x1, carry)``."""
+    from accelerated_tinympc_tpu_torch.ops import (
+        FusedCarry, fused_rollout, rollout_ops,
+    )
+
+    cold = FusedCarry.zeros(x0s.shape[0], pp, device=dev)
+    lead = fused_rollout(x0s, cold, pp, rollout_ops(problem, pp, device=dev),
+                         12, **WARM_KW)
+    return lead.x_final, lead.final.carry.reset_duals()
+
+
+def lander(batch, dev, seed=0):
+    """The powered-descent lander of examples/torch_soc_landing.py (nx=6,
+    nu=3, N=15): ``(problem, cache, padded operators, batch x0)``."""
+    import accelerated_tinympc_tpu_torch as atm
+    from accelerated_tinympc_tpu_torch.ops import pad_problem
+
+    I3 = np.eye(3)
+    A = np.block([[I3, 0.1 * I3], [0 * I3, I3]])
+    Bm = np.vstack([0.005 * I3, 0.1 * I3])
+    Q = np.concatenate([np.full(3, 10.0), np.full(3, 1.0)])
+    mpc = atm.TinyMPC.setup(
+        A, Bm, Q, np.full(3, 1.0), 1.0, 15, u_min=-10.0, u_max=10.0,
+        x_min=-100.0, x_max=100.0, device=dev)
+    lops = atm.condensed_operators(
+        mpc.cache, mpc.problem.A, mpc.problem.B, 15, device=dev)
+    lpp = pad_problem(mpc.problem, mpc.cache, lops, device=dev)
+    rng = np.random.default_rng(seed)
+    base = np.asarray([3.0, -2.0, 6.0, 1.0, 0.5, -1.0])
+    xs = torch.as_tensor(base[None] + 0.3 * rng.standard_normal((batch, 6)),
+                         dtype=torch.float32, device=dev)
+    return mpc.problem, mpc.cache, lpp, xs
+
+
+def lander_cones():
+    """The lander's thrust-tilt input cone and glideslope state cone."""
+    from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
+
+    tilt = Cone(ball=(0, 1), axis=2, mu=1.0, shift=3.0)    # thrust tilt
+    glide = Cone(ball=(0, 1), axis=2, mu=2.0, shift=0.1)   # glideslope
+    return ConeSet(input_cones=(tilt,), state_cones=(glide,))
+
+
 # ----------------------------------------------------------------- bounds --
 
 def solve_bound(dims, iters_total: float, n_solves: float, batch: int,
@@ -280,16 +351,6 @@ def riccati_bound(nx, nu, steps_total: float, batch: int, inner: int = 0,
     nbytes = 4 * batch * (words_in + words_out)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
-def tf32x3_bound(dims, iters_total: float) -> float:
-    """Milliseconds the split-TF32 products of ``iters_total``
-    instance-iterations need at the scheme's ceiling (TF32 dense / 3):
-    information beside the FP32 bound of the fused rows."""
-    nx, nu, N = dims
-    Dx, Du = N * nx, (N - 1) * nu
-    flops = iters_total * 2 * (Du * Dx + Du * Du + Dx * Du + Du * Du)
-    return 1e3 * flops / PEAK_TF32X3_FLOPS
 
 
 def ptxas_per_kernel(log: str) -> list:
@@ -506,19 +567,8 @@ def main() -> None:
          fused_kernels=ptxas_per_kernel(_build.build_log("fused_admm")))
 
     # -------------------------------------------------------------- kernels
-    def flagship(batch, seed=0, spread=0.05):
-        problem, cache, x0 = atm.models.quadrotor_hovering_setup(device=dev)
-        ops = atm.condensed_operators(
-            cache, problem.A, problem.B, problem.horizon, device=dev)
-        pp = pad_problem(problem, cache, ops, device=dev)
-        rng = np.random.default_rng(seed)
-        x0s = torch.as_tensor(
-            x0[None] + spread * rng.standard_normal((batch, 12)),
-            dtype=torch.float32, device=dev)
-        return problem, cache, pp, x0s
-
     cases = []
-    problem, cache, pp, x0s = flagship(KERNEL_BATCH)
+    problem, cache, pp, x0s = flagship(KERNEL_BATCH, dev)
     B = KERNEL_BATCH
     cold = FusedCarry.zeros(B, pp, device=dev)
 
@@ -537,12 +587,8 @@ def main() -> None:
     cases.append(compare_solve(
         "K1 fixed-100 cold", k1, fused_solve_plain(x0s, cold, pp, **kw), 0,
         pp.rho_f, plain64(x0s, cold, **kw)))
-    # Warm start: measurement and carried slacks after a 12-tick mission,
-    # where the early exit really ends solves at different iterations.
     rops = rollout_ops(problem, pp, device=dev)
-    lead = fused_rollout(x0s, cold, pp, rops, 12, max_iter=100,
-                         check_termination=1)
-    x1, warm = lead.x_final, lead.final.carry.reset_duals()
+    x1, warm = warm_start(problem, pp, x0s, dev)
     for check in (1, 10):
         for label, xs, cy in (("cold", x0s, cold), ("warm", x1, warm)):
             kw = dict(max_iter=100, check_termination=check,
@@ -694,28 +740,7 @@ def main() -> None:
     # The powered-descent lander of examples/torch_soc_landing.py: nx=6,
     # nu=3, N=15, so Dx = 90 and Du = 42 are no multiples of the kernels'
     # float4 grid and a knot starts anywhere on it. Box-only first.
-    LANDER_TOL = dict(abs_pri_tol=1e-2, abs_dua_tol=1e-2)
-
-    def lander(batch, seed=0):
-        I3 = np.eye(3)
-        A = np.block([[I3, 0.1 * I3], [0 * I3, I3]])
-        Bm = np.vstack([0.005 * I3, 0.1 * I3])
-        Q = np.concatenate([np.full(3, 10.0), np.full(3, 1.0)])
-        mpc = atm.TinyMPC.setup(
-            A, Bm, Q, np.full(3, 1.0), 1.0, 15, u_min=-10.0, u_max=10.0,
-            x_min=-100.0, x_max=100.0)
-        lops = atm.condensed_operators(
-            mpc.cache, mpc.problem.A, mpc.problem.B, 15, device=dev)
-        lpp = pad_problem(mpc.problem, mpc.cache, lops, device=dev)
-        rng = np.random.default_rng(seed)
-        base = np.asarray([3.0, -2.0, 6.0, 1.0, 0.5, -1.0])
-        xs = torch.as_tensor(base[None] + 0.3 * rng.standard_normal((batch, 6)),
-                             dtype=torch.float32, device=dev)
-        return mpc.problem, mpc.cache, lpp, xs
-
-    tilt = Cone(ball=(0, 1), axis=2, mu=1.0, shift=3.0)    # thrust tilt
-    glide = Cone(ball=(0, 1), axis=2, mu=2.0, shift=0.1)   # glideslope
-    lcones = ConeSet(input_cones=(tilt,), state_cones=(glide,))
+    lcones = lander_cones()
 
     def slack_excess(Z, V, cones, rows=None):
         """Worst cone violation of final slacks ``Z (B, N-1, nu)``,
@@ -746,11 +771,10 @@ def main() -> None:
         return case
 
     cone_cases = []
-    lproblem, lcache, lpp, lx0 = lander(B)
+    lproblem, lcache, lpp, lx0 = lander(B, dev)
     lcold = FusedCarry.zeros(B, lpp, device=dev)
     lcops = pad_cones(lpp, lcones)
-    fixed_kw = dict(max_iter=100, check_termination=0)
-    adapt_kw = dict(max_iter=300, check_termination=2, **LANDER_TOL)
+    fixed_kw, adapt_kw = LANDER_FIXED, LANDER_ADAPTIVE
     for label, kw in (("K1 lander box-only fixed-100", fixed_kw),
                       ("K2 lander box-only adaptive", adapt_kw)):
         cone_cases.append(compare_solve(
@@ -801,7 +825,7 @@ def main() -> None:
     # The coned in-kernel mission against its plain version and against the
     # tick loop of coned solves (one launch per tick).
     lrops = rollout_ops(lproblem, lpp, device=dev)
-    mission_kw = dict(max_iter=100, check_termination=2, **LANDER_TOL)
+    mission_kw = LANDER_MISSION
     got = fused_rollout(lx0, lcold, lpp, lrops, 30, cone_ops=lcops,
                         **mission_kw)
     want, plain_ms = timed(lambda: fused_rollout_plain(
@@ -1156,9 +1180,9 @@ def main() -> None:
     # the comparison with the plain version, and the plain version's time,
     # at the comparison batch (the plain versions are thousands of small
     # launches, seconds at 65,536).
-    small_problem, small_cache, small_pp, xs_s = flagship(KERNEL_BATCH)
+    small_problem, small_cache, small_pp, xs_s = flagship(KERNEL_BATCH, dev)
     cold_s = FusedCarry.zeros(KERNEL_BATCH, pp, device=dev)
-    problem, cache, pp, x0s = flagship(MAIN_BATCH)
+    problem, cache, pp, x0s = flagship(MAIN_BATCH, dev)
     rops = rollout_ops(problem, pp, device=dev)
     cold = FusedCarry.zeros(MAIN_BATCH, pp, device=dev)
     dims = pp.dims
@@ -1201,9 +1225,6 @@ def main() -> None:
             "library_ms": None,
             "iters_mean": float(iters_of(main_out)) / n_solves,
         })
-        if source == "fused_admm.cu":
-            kernels[-1]["tf32x3_ceiling_ms"] = tf32x3_bound(
-                dims, float(iters_of(main_out)))
 
     kw1 = dict(max_iter=100, check_termination=0)
     kernel_row(
@@ -1214,11 +1235,9 @@ def main() -> None:
          lambda: fused_solve_plain(xs_s, cold_s, pp, **kw1)),
         lambda g, w: compare_solve("K1 main shape", g, w, 0, pp.rho_f),
         lambda g: g.stats[:, 0].sum(), MAIN_BATCH)
-    kw2 = dict(max_iter=100, check_termination=1)
-    lead = fused_rollout(x0s, cold, pp, rops, 12, **kw2)
-    x1, warm = lead.x_final, lead.final.carry.reset_duals()
-    lead_s = fused_rollout(xs_s, cold_s, pp, rops, 12, **kw2)
-    x1_s, warm_s = lead_s.x_final, lead_s.final.carry.reset_duals()
+    kw2 = WARM_KW
+    x1, warm = warm_start(problem, pp, x0s, dev)
+    x1_s, warm_s = warm_start(problem, pp, xs_s, dev)
     kernel_row(
         "fused_solve_adaptive",
         "accelerated_tinympc_tpu/ops/fused_admm.py:740",
@@ -1281,7 +1300,7 @@ def main() -> None:
     # K4 (the coned instantiations) at the lander fleet's shapes, and the
     # box-only kernels at the same shapes beside them, for the cones' cost.
     lx0_s, lcold_s = lx0, lcold
-    lproblem, lcache, lpp, lx0 = lander(MAIN_BATCH)
+    lproblem, lcache, lpp, lx0 = lander(MAIN_BATCH, dev)
     lcold = FusedCarry.zeros(MAIN_BATCH, lpp, device=dev)
     lcops = pad_cones(lpp, lcones)
     lrops = rollout_ops(lproblem, lpp, device=dev)

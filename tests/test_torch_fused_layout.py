@@ -1,26 +1,18 @@
-"""PyTorch port, fused kernels' layout and arithmetic on the CPU.
+"""PyTorch port, fused kernels' layout on the CPU.
 
 The fused CUDA kernels (``ops/csrc/admm_iteration.cuh``) keep per-instance
 slots in shared memory and compute their products by FP32 FMA from 8 x 4
-register tiles. The card is needed to run them; here are checked (a) the
-shared-memory layout the wrapper mirrors and the tile it chooses, and (b)
-the split-operand TF32 arithmetic that was measured in the products' place
-(mma.sync m16n8k8, three passes), emulated in torch (round to nearest TF32,
-ties away, by the low 13 mantissa bits): within float32 rounding of a
-float64 product, but swapped into the plain solve it shifts more iteration
-counts than float32 rounding itself does (PERF.md, PR 5). No JAX and no
-Pallas kernel: a few seconds in all."""
+register tiles. The card is needed to run them; here are checked the
+shared-memory layout the wrapper mirrors, the tile it chooses and the launch
+counters' names. No JAX and no Pallas kernel: well under a second."""
 
-import numpy as np
+import pathlib
+import re
+
 import pytest
 import torch
 
-import accelerated_tinympc_tpu_torch as atm
 from accelerated_tinympc_tpu_torch.ops import fused_admm as ft
-from accelerated_tinympc_tpu_torch.ops import (
-    FusedCarry, fused_rollout_plain, fused_solve_plain, pad_problem,
-    rollout_ops,
-)
 
 FLAGSHIP = (12, 4, 10)
 LANDER = (6, 3, 15)
@@ -51,111 +43,31 @@ def test_choose_tile_rounds_to_the_register_tile(dims, fit):
     assert ft.choose_tile((6, 8, 12), 10 ** 6) == 24    # wide operators
 
 
-# ------------------------------------------------- split-TF32 emulation ----
-
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32: round to nearest, ties away from zero, keeping 10
-    mantissa bits (the low 13 of float32's become 0)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _split(x):
-    hi = _tf32(x)
-    return hi, _tf32(x - hi)
+def test_smem_bytes_of_the_lander_layout():
+    # Dx = 90, Du = 42: Du pads to 44 (float4 rows), Dz = 132 does not pad
+    words = (44 * 132 + 132 * 44 + 6 * 132       # Wf, Wb, Wx
+             + 2 * 132 + 36 + 20                  # lo, hi, A (6x6), B (6x3 -> 20)
+             + 2 * 56 * 44 + 5 * 56 * 132         # D, cd; S, YG, ZV x2, Xb
+             + 56 * 6 + 56 * 3 + 56 * 6 + 56 * 4  # x0, u0, stats, residuals
+             + 9 * 56 + 4)                        # per-slot ints, nref
+    assert ft.kernel_smem_bytes(*LANDER, 56) == 4 * words == 224_752
 
 
-def _matmul_3xtf32(a, b, _matmul=torch.matmul):
-    """A B ~ (Alo Bhi + Ahi Blo) + Ahi Bhi, each pass a float32 product of
-    TF32 operands (exact products, float32 sums, as in the tensor cores)."""
-    (ah, al), (bh, bl) = _split(a), _split(b)
-    return (_matmul(al, bh) + _matmul(ah, bl)) + _matmul(ah, bh)
+@pytest.mark.parametrize("batch, tile", [
+    (132 * 8, 8), (132 * 8 + 1, 16), (132 * 40, 40), (10 ** 6, 48)])
+def test_choose_tile_spreads_the_batch_over_the_sms(batch, tile):
+    # the least multiple of the register tile that gives every SM a block,
+    # up to what fits shared memory (48 slots at the flagship)
+    assert ft.choose_tile(FLAGSHIP, batch) == tile
 
 
-@pytest.fixture(scope="module")
-def flagship():
-    problem, cache, x0 = atm.models.quadrotor_hovering_setup(device="cpu")
-    ops = atm.condensed_operators(cache, problem.A, problem.B,
-                                  problem.horizon, device="cpu")
-    pp = pad_problem(problem, cache, ops, device="cpu")
-    return problem, pp, x0
-
-
-def test_tf32_rounding_keeps_ten_mantissa_bits():
-    x = torch.tensor([1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11, -3.0e-5,
-                      1.0 + 2 ** -12], dtype=torch.float32)
-    r = _tf32(x)
-    # ties go away from zero; below the tie rounds down
-    assert r.tolist()[0] == 1.0 + 2 ** -10
-    assert r.tolist()[1] == 1.0 + 2 ** -9
-    assert r.tolist()[3] == 1.0
-    assert bool(((r.view(torch.int32) & 0x1FFF) == 0).all())
-    hi, lo = _split(x)
-    assert bool((hi + lo - x).abs().le(x.abs() * 2.0 ** -21).all())
-
-
-@pytest.mark.parametrize("which", ["forward", "backward"])
-def test_split_product_is_within_float32_rounding(flagship, which):
-    _problem, pp, _x0 = flagship
-    rng = np.random.default_rng(3)
-    W = pp.W_f if which == "forward" else pp.W_b
-    A = torch.as_tensor(rng.standard_normal((256, W.shape[0])) * 3.0,
-                        dtype=torch.float32)
-    exact = A.double() @ W.double()
-    got = _matmul_3xtf32(A, W)
-    # gamma_K bound of a K-term float32 dot product: K eps |A| |B|
-    K = W.shape[0]
-    bound = K * 2.0 ** -24 * (A.double().abs() @ W.double().abs())
-    assert bool(((got.double() - exact).abs() <= bound).all())
-    # and a single TF32 pass would not be (the hazard the split avoids)
-    single = torch.matmul(_tf32(A), _tf32(W))
-    assert not bool(((single.double() - exact).abs() <= bound).all())
-
-
-def test_split_products_shift_more_counts_than_float32_rounding(
-        flagship, monkeypatch):
-    """K2's workload at 256 instances: warm after a 12-tick mission, check
-    every iteration, tol 1e-3, 100 iterations at most. Every product of the
-    plain solve swapped, once for the emulated split-TF32 product and once
-    for an exactly rounded float32 product (float64, then rounded). The
-    values stay within chip_smoke.py's bars on the instances whose counts
-    agree, but the split product's counts agree with the float32 plain
-    version on fewer instances than the exactly rounded product's do (its
-    operands keep 21-22 of float32's 24 bits), and on fewer than the 99 %
-    chip_smoke.py asks of a kernel: the reason, beside its time, why the
-    kernels keep FP32 FMA products."""
-    problem, pp, x0 = flagship
-    B = 256
-    rng = np.random.default_rng(0)
-    xs = torch.as_tensor(x0[None] + 0.05 * rng.standard_normal((B, 12)),
-                         dtype=torch.float32)
-    kw = dict(max_iter=100, check_termination=1)
-    lead = fused_rollout_plain(xs, FusedCarry.zeros(B, pp, device="cpu"),
-                               pp, rollout_ops(problem, pp, device="cpu"),
-                               12, **kw)
-    x1, warm = lead.x_final, lead.final.carry.reset_duals()
-    want = fused_solve_plain(x1, warm, pp, **kw)
-    matmul = torch.matmul
-    runs = {}
-    for name, mm in (
-            ("split", lambda a, b: _matmul_3xtf32(a, b, matmul)),
-            ("rounded", lambda a, b: matmul(a.double(), b.double()).float())):
-        monkeypatch.setattr(torch, "matmul", mm)
-        runs[name] = fused_solve_plain(x1, warm, pp, **kw)
-        monkeypatch.undo()
-    assert 10 < float(want.stats[:, 0].mean()) < 100   # the exit does spread
-    agree = {}
-    for name, got in runs.items():
-        it_g, it_w = got.stats[:, 0], want.stats[:, 0]
-        same = (it_g == it_w) & (got.stats[:, 1] == want.stats[:, 1])
-        agree[name] = float(same.float().mean())
-        assert float((it_g - it_w).abs().max()) <= 1
-        err = lambda a, b: float((a - b)[same].abs().max())
-        assert err(got.U, want.U) <= 1e-4
-        for k in ("D", "Z"):
-            assert err(getattr(got.carry, k), getattr(want.carry, k)) <= 1e-4
-        assert err(got.X, want.X) <= 2e-4
-        for k in ("V", "G", "Y"):
-            assert err(getattr(got.carry, k), getattr(want.carry, k)) <= 2e-4
-    assert agree["rounded"] >= 0.99
-    assert agree["split"] < min(agree["rounded"], 0.99)
+def test_launch_counts_name_every_fused_kernel():
+    # one counter per instantiation in fused_admm.cu, each named after it
+    src = (pathlib.Path(ft.__file__).parent / "csrc" / "fused_admm.cu")
+    kernels = set(re.findall(r"^ATM_KERNEL\((\w+)_kernel,", src.read_text(),
+                             re.M))
+    assert len(kernels) == 8 and set(ft.LAUNCH_COUNTS) == kernels
+    before = dict(ft.LAUNCH_COUNTS)
+    counter = ft.work_counter("cpu")     # zero at every launch
+    assert counter.dtype == torch.int32 and counter.tolist() == [0]
+    assert ft.LAUNCH_COUNTS == before

@@ -76,7 +76,11 @@ def test_rollout_kernel_matches_plain(card, tracking):
         problem, pp, x0s, cs = _tracking()
         kw = dict(max_iter=100, check_termination=1, const_seq=cs[:10])
     rops = rollout_ops(problem, pp)
+    # fixed and adaptive tick solves are two kernels, counted apart
+    name = "fused_rollout" if tracking else "fused_rollout_fixed"
+    before = dict(fused_admm.LAUNCH_COUNTS)
     got = fused_rollout(x0s, cold, pp, rops, 10, **kw)
+    assert fused_admm.LAUNCH_COUNTS == {**before, name: before[name] + 1}
     want = fused_rollout_plain(x0s, cold, pp, rops, 10, **kw)
     # chip_smoke.py's mission bars: counts per instance-tick, values on the
     # instances whose whole schedule agrees, all controls within twice the
@@ -242,7 +246,10 @@ def test_coned_rollout_kernel_matches_plain(lander):
     cold = FusedCarry.zeros(x0s.shape[0], pp)
     rops = rollout_ops(problem, pp)
     kw = dict(max_iter=40, cone_ops=cops)
+    before = dict(fused_admm.LAUNCH_COUNTS)
     got = fused_rollout(x0s, cold, pp, rops, 8, **kw)
+    name = "fused_rollout_fixed_cones"
+    assert fused_admm.LAUNCH_COUNTS == {**before, name: before[name] + 1}
     want = fused_rollout_plain(x0s, cold, pp, rops, 8, **kw)
     assert float((got.us - want.us).abs().max()) <= ATOL
     assert float((got.x_final - want.x_final).abs().max()) <= ATOL

@@ -7,14 +7,18 @@ ROOT is the directory that holds ``accelerated_tinympc_tpu_torch`` (default:
 this checkout), so the same script times an unpacked earlier commit beside
 this one: run it on both in one call, in turns (parent, change, change,
 parent), and compare only within that call. Each checkout builds its kernels
-into a directory of its own under the system's temporary directory.
+into a directory of its own under the system's temporary directory. The
+workloads are this checkout's ``chip_smoke.py`` builders, built against
+ROOT's package.
 
 Prints one JSON line: K1 fixed-100 cold, K2 warm adaptive (check 1, tol
 1e-3, after a 12-tick mission) and K3 (70 ticks adaptive) on the quadrotor
 (nx=12, nu=4, N=10) at batch 65,536, and K4 a/b/c on the powered-descent
 lander with both cones (nx=6, nu=3, N=15) at the same batch, as
-``chip_smoke.py`` runs them; CUDA events after a warm-up. Needs a CUDA
-device and nvcc.
+``chip_smoke.py`` runs them; CUDA events after a warm-up. Beside K1 and
+K4 a, the same fixed solves at 10 iterations (``*_it10_ms``): the two
+lengths split a fixed solve's time into a part per solve (loads, results,
+refills) and a part per iteration. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -27,92 +31,65 @@ import pathlib
 import sys
 import tempfile
 
+HERE = pathlib.Path(__file__).resolve().parents[1]
+
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("root", nargs="?",
-                    default=str(pathlib.Path(__file__).resolve().parents[1]))
+    ap.add_argument("root", nargs="?", default=str(HERE))
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs   # this checkout's workloads and timer
+
     sys.path.insert(0, str(root))
     tag = hashlib.sha256(str(root).encode()).hexdigest()[:8]
     os.environ["ATM_TORCH_BUILD_DIR"] = str(
         pathlib.Path(tempfile.gettempdir()) / f"atm_fused_times_{tag}")
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     import accelerated_tinympc_tpu_torch as atm
     from accelerated_tinympc_tpu_torch.ops import (
-        FusedCarry, fused_rollout, fused_solve, pad_cones, pad_problem,
-        rollout_ops,
+        FusedCarry, fused_rollout, fused_solve, pad_cones, rollout_ops,
     )
-    from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
 
     assert pathlib.Path(atm.__file__).resolve().is_relative_to(root)
+    ms = lambda fn, reps=args.reps: cs.cuda_ms(fn, reps)
 
-    def cuda_ms(fn, reps=args.reps):
-        fn()
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / reps
-
-    B = 65536
-    rng = np.random.default_rng(0)
-    problem, cache, x0 = atm.models.quadrotor_hovering_setup()
-    ops = atm.condensed_operators(cache, problem.A, problem.B,
-                                  problem.horizon)
-    pp = pad_problem(problem, cache, ops)
-    rops = rollout_ops(problem, pp)
-    x0s = torch.as_tensor(x0[None] + 0.05 * rng.standard_normal((B, 12)),
-                          dtype=torch.float32, device="cuda")
-    cold = FusedCarry.zeros(B, pp)
-    kw = dict(max_iter=100, check_termination=1)
-    lead = fused_rollout(x0s, cold, pp, rops, 12, **kw)
-    x1, warm = lead.x_final, lead.final.carry.reset_duals()
+    B, dev = cs.MAIN_BATCH, "cuda"
+    problem, _cache, pp, x0s = cs.flagship(B, dev)
+    rops = rollout_ops(problem, pp, device=dev)
+    cold = FusedCarry.zeros(B, pp, device=dev)
+    x1, warm = cs.warm_start(problem, pp, x0s, dev)
+    kw = cs.WARM_KW
     row = {"root": str(root),
-           "K1_ms": cuda_ms(lambda: fused_solve(x0s, cold, pp, max_iter=100)),
-           "K2_ms": cuda_ms(lambda: fused_solve(x1, warm, pp, **kw)),
+           "K1_ms": ms(lambda: fused_solve(x0s, cold, pp, max_iter=100)),
+           "K1_it10_ms": ms(lambda: fused_solve(x0s, cold, pp, max_iter=10)),
+           "K2_ms": ms(lambda: fused_solve(x1, warm, pp, **kw)),
            "K2_iters_mean": float(
                fused_solve(x1, warm, pp, **kw).stats[:, 0].mean()),
-           "K3_ms": cuda_ms(
+           "K3_ms": ms(
                lambda: fused_rollout(x0s, cold, pp, rops, 70, **kw), reps=1)}
 
-    I3 = np.eye(3)
-    mpc = atm.TinyMPC.setup(
-        np.block([[I3, 0.1 * I3], [0 * I3, I3]]),
-        np.vstack([0.005 * I3, 0.1 * I3]),
-        np.concatenate([np.full(3, 10.0), np.full(3, 1.0)]), np.full(3, 1.0),
-        1.0, 15, u_min=-10.0, u_max=10.0, x_min=-100.0, x_max=100.0)
-    lops = atm.condensed_operators(mpc.cache, mpc.problem.A, mpc.problem.B, 15)
-    lpp = pad_problem(mpc.problem, mpc.cache, lops)
-    lx = torch.as_tensor(
-        np.asarray([3.0, -2.0, 6.0, 1.0, 0.5, -1.0])[None]
-        + 0.3 * rng.standard_normal((B, 6)), dtype=torch.float32,
-        device="cuda")
-    lcold = FusedCarry.zeros(B, lpp)
-    cops = pad_cones(lpp, ConeSet(
-        input_cones=(Cone((0, 1), 2, 1.0, 3.0),),
-        state_cones=(Cone((0, 1), 2, 2.0, 0.1),)))
-    lrops = rollout_ops(mpc.problem, lpp)
-    tol = dict(abs_pri_tol=1e-2, abs_dua_tol=1e-2)
-    row["K4a_ms"] = cuda_ms(
-        lambda: fused_solve(lx, lcold, lpp, max_iter=100, cone_ops=cops))
-    row["K4b_ms"] = cuda_ms(lambda: fused_solve(
-        lx, lcold, lpp, max_iter=300, check_termination=2, cone_ops=cops,
-        **tol))
-    row["K4c_ms"] = cuda_ms(lambda: fused_rollout(
-        lx, lcold, lpp, lrops, 30, max_iter=100, check_termination=2,
-        cone_ops=cops, **tol), reps=1)
+    lproblem, _lcache, lpp, lx = cs.lander(B, dev)
+    lcold = FusedCarry.zeros(B, lpp, device=dev)
+    cops = pad_cones(lpp, cs.lander_cones())
+    lrops = rollout_ops(lproblem, lpp, device=dev)
+    k4a = lambda n: lambda: fused_solve(
+        lx, lcold, lpp, cone_ops=cops, **{**cs.LANDER_FIXED, "max_iter": n})
+    row["K4a_ms"] = ms(k4a(100))
+    row["K4a_it10_ms"] = ms(k4a(10))
+    row["K4b_ms"] = ms(lambda: fused_solve(
+        lx, lcold, lpp, cone_ops=cops, **cs.LANDER_ADAPTIVE))
+    row["K4b_iters_mean"] = float(fused_solve(
+        lx, lcold, lpp, cone_ops=cops, **cs.LANDER_ADAPTIVE).stats[:, 0].mean())
+    row["K4c_ms"] = ms(lambda: fused_rollout(
+        lx, lcold, lpp, lrops, 30, cone_ops=cops, **cs.LANDER_MISSION),
+        reps=1)
     print(json.dumps(row), flush=True)
 
 

@@ -29,29 +29,14 @@ import pathlib
 import subprocess
 import sys
 
-import numpy as np
 import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-import accelerated_tinympc_tpu_torch as atm  # noqa: E402
+import chip_smoke as cs  # noqa: E402  (the workloads and the timer)
 from accelerated_tinympc_tpu_torch.ops import (  # noqa: E402
-    FusedCarry, fused_admm, fused_rollout, fused_solve, pad_problem,
-    rollout_ops,
+    FusedCarry, fused_admm, fused_rollout, fused_solve, rollout_ops,
 )
-
-
-def cuda_ms(fn, reps=3):
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def main():
@@ -67,18 +52,12 @@ def main():
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip())
-    problem, cache, x0 = atm.models.quadrotor_hovering_setup()
-    ops = atm.condensed_operators(cache, problem.A, problem.B, problem.horizon)
-    pp = pad_problem(problem, cache, ops)
-    rops = rollout_ops(problem, pp)
     B = args.batch
-    rng = np.random.default_rng(0)
-    x0s = torch.as_tensor(x0[None] + 0.05 * rng.standard_normal((B, 12)),
-                          dtype=torch.float32, device="cuda")
-    cold = FusedCarry.zeros(B, pp)
-    adaptive = dict(max_iter=100, check_termination=1)
-    lead = fused_rollout(x0s, cold, pp, rops, 12, **adaptive)
-    x1, warm = lead.x_final, lead.final.carry.reset_duals()
+    problem, _cache, pp, x0s = cs.flagship(B, "cuda")
+    rops = rollout_ops(problem, pp, device="cuda")
+    cold = FusedCarry.zeros(B, pp, device="cuda")
+    adaptive = cs.WARM_KW
+    x1, warm = cs.warm_start(problem, pp, x0s, "cuda")
     fit = fused_admm.choose_tile(pp.dims, 10 ** 9, 1)
     its = fused_solve(x1, warm, pp, **adaptive).stats[:, 0]
     tile0 = fused_admm.choose_tile(pp.dims, B)
@@ -100,14 +79,14 @@ def main():
             row = {
                 "tile": tile, "threads": threads,
                 "smem_bytes": fused_admm.kernel_smem_bytes(*pp.dims, tile),
-                "fixed100_ms": cuda_ms(lambda: fused_solve(
+                "fixed100_ms": cs.cuda_ms(lambda: fused_solve(
                     x0s, cold, pp, max_iter=100, **geo)),
-                "adaptive_noexit_ms": cuda_ms(lambda: fused_solve(
+                "adaptive_noexit_ms": cs.cuda_ms(lambda: fused_solve(
                     x0s, cold, pp, max_iter=100, check_termination=1,
                     abs_pri_tol=0.0, abs_dua_tol=0.0, **geo)),
-                "adaptive_warm_ms": cuda_ms(lambda: fused_solve(
+                "adaptive_warm_ms": cs.cuda_ms(lambda: fused_solve(
                     x1, warm, pp, **adaptive, **geo)),
-                "rollout_adaptive_ms": cuda_ms(lambda: fused_rollout(
+                "rollout_adaptive_ms": cs.cuda_ms(lambda: fused_rollout(
                     x0s, cold, pp, rops, args.ticks, **adaptive, **geo),
                     reps=1),
             }
