@@ -26,11 +26,10 @@ of :class:`.solver.TinyMPC`:
 
 ``mesh=`` raises until the multi-GPU slice (ROADMAP.md slice 11).
 
-Caches are built on the device. The routing by plant size is the JAX
-package's own design: the Riccati kernels (:mod:`..ops.riccati_kernel`, K5
-fixed point, K6 Newton-Kleinman) for plants they take (``nx <= 16``,
-``nu <= 8``), the batched tensor builders of :mod:`..precompute` above that
-(on CPU tensors the kernels' plain versions). ``host_precompute=True`` runs
+Caches are built on the device by the Riccati kernels
+(:mod:`..ops.riccati_kernel`, K5 fixed point, K6 Newton-Kleinman) at any
+plant size whose working set fits a block's shared memory (on CPU tensors
+the kernels' plain versions). ``host_precompute=True`` runs
 the reference's float64 host path per instance (reference:
 examples/codegen_cartpole.cpp:9-11). Every tensor lives on ``device``
 (default ``"cuda"``).
@@ -53,10 +52,6 @@ FLEET_TIERS = ("hetero", "instance_ops", "hstream", "block", "scan")
 def _later(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: it comes with "
                                f"{where} of ROADMAP.md")
-
-
-def _fits_kernels(nx: int, nu: int) -> bool:
-    return nx <= rk.MAX_NX and nu <= rk.MAX_NU
 
 
 def _stack_caches(caches) -> Cache:
@@ -188,12 +183,8 @@ class TinyMPCFleet:
                 riccati_cache(A[b], Bm[b], Q[b], R[b], float(rho_b[b]),
                               device=device)
                 for b in range(Bn)])
-        elif _fits_kernels(nx, nu):
-            cache = rk.riccati_cache_kernel(A, Bm, Q, R, rho_b)
         else:
-            from ..precompute import riccati_cache_jax
-
-            cache = riccati_cache_jax(A, Bm, Q, R, rho_b)
+            cache = rk.riccati_cache_kernel(A, Bm, Q, R, rho_b)
         if polish and not host_precompute:
             from ..precompute import riccati_polish_f64
 
@@ -337,15 +328,10 @@ class TinyMPCFleet:
         self._carry = carry
 
     def _fixed_point_cache(self, rho_b) -> Cache:
-        """The warm fixed point from the current caches (K5, or the batched
-        tensor code above its sizes)."""
+        """The warm fixed point from the current caches (K5)."""
         p = self.problem
-        warm = dict(P0=self.cache.Pinf, K0=self.cache.Kinf)
-        if _fits_kernels(*self.dims[:2]):
-            return rk.riccati_cache_kernel(p.A, p.B, p.Q, p.R, rho_b, **warm)
-        from ..precompute import riccati_cache_jax
-
-        return riccati_cache_jax(p.A, p.B, p.Q, p.R, rho_b, **warm)
+        return rk.riccati_cache_kernel(p.A, p.B, p.Q, p.R, rho_b,
+                                       P0=self.cache.Pinf, K0=self.cache.Kinf)
 
     def set_plants(self, A=None, B=None, Q=None, R=None, *,
                    refresh: str = "newton", polish: bool = False) -> None:
@@ -376,14 +362,8 @@ class TinyMPCFleet:
             self.batch).contiguous()
         self.fallback_count = 0
         if refresh == "newton":
-            if _fits_kernels(*self.dims[:2]):
-                cache = rk.riccati_cache_newton(p.A, p.B, p.Q, p.R, rho_b,
-                                                self.cache.Kinf)
-            else:
-                from ..precompute import riccati_newton_jax
-
-                cache = riccati_newton_jax(p.A, p.B, p.Q, p.R, rho_b,
-                                           self.cache.Kinf, tol=1e-6)
+            cache = rk.riccati_cache_newton(p.A, p.B, p.Q, p.R, rho_b,
+                                            self.cache.Kinf)
             bad = _nonfinite_rows(cache)
             self.fallback_count = int(bad.sum())
             if self.fallback_count:

@@ -12,10 +12,19 @@
 // start and one write of the result per *solve*. So the design keeps
 // everything on the SM:
 //
-//   * The operators are staged once per block into dynamic shared memory as
-//     two matrices over z = [x | u] (width Dz = Dx + Du), in float32:
+//   * The operators are two matrices over z = [x | u] (width Dz = Dx + Du),
+//     in float32:
 //       Wf = [W_fd | W_gd] (Du x Dz)  maps D -> [X | U],
 //       Wb = [W_q ; W_r]   (Dz x Du)  maps S -> D.
+//     The wrapper passes them padded with zero rows and columns to
+//     multiples of 4 (DuP x DzP, DzP x DuP, nx x DzP). Two placements
+//     (template parameter GOPS). Where they fit beside one register tile of
+//     slots, they are staged once per block into dynamic shared memory.
+//     Past that (the quadrotor beyond N = 18) the kernels read them in place
+//     from device memory, where they stay resident in the 50 MB L2; shared
+//     memory then holds only the bounds and the per-slot state. Every
+//     product sums in the same order in both placements, so where both fit
+//     they give the same bits (at one launch geometry).
 //   * Persistent blocks of slots. The grid is as many blocks as the SMs hold
 //     at once; a block owns `tile` slots, and a global work counter (one
 //     int, zeroed by the wrapper before each launch) hands each slot the
@@ -89,9 +98,14 @@ constexpr int TJ = 4;  // adjacent columns per register tile (one float4)
 // refill costs two barriers, and on an H100 batching 8 beat refilling at
 // every iteration (PERF.md).
 constexpr int REFILL_MIN = 8;
-
-constexpr int MAX_CONES = 8;  // input cones + state cones of one problem
-constexpr int MAX_BALL = 8;   // ball entries of one cone
+// The backward product's depth (Dz, 636 at N=40) sums in blocks of this many
+// float4 steps of a lane, each block one FMA chain added to the running sum.
+// One chain over a lane's whole depth (318 FMAs at N=40) left the states of
+// a cold 100-iteration solve twice as far from float64 as two BLAS-based
+// float32 versions; blocks of 128 terms bring it under them (PERF.md). At
+// the flagship and the lander a lane's depth is one block, so their sums
+// are unchanged.
+constexpr int BWD_BLOCK = 32;
 
 // Slot states (Smem::done).
 constexpr int LIVE = 0;    // iterating
@@ -113,21 +127,24 @@ struct Dims {
   int tile;         // slots per block
   int ksplit;       // lanes sharing one backward tile's depth (power of 2)
   int ncp;          // cones with per-instance mu/shift rows (0 or all)
+  int gops;         // 1: the operators are read from device memory
 };
 
-// The cones of one problem, input cones first, then state cones: per cone
-// the ball indices and the axis index inside a knot, and the static mu and
-// shift of ||w[ball]|| <= mu * (w[axis] + shift).
+// The cones of one problem, input cones first, then state cones, in device
+// memory (any number of cones, any ball size): idx[c] is the offset in idx
+// of cone c's row [nball, axis, ball[nball]] (indices inside a knot), par
+// holds [mu, shift] per cone, the static values of
+// ||w[ball]|| <= mu * (w[axis] + shift).
 struct ConeTable {
   int nc_u, nc_x;
-  int nball[MAX_CONES], axis[MAX_CONES], ball[MAX_CONES][MAX_BALL];
-  float mu[MAX_CONES], shift[MAX_CONES];
+  const int* idx;
+  const float* par;
 };
 
 __host__ __device__ inline int r4(int n) { return (n + 3) & ~3; }
 
 __host__ __device__ inline Dims make_dims(int nx, int nu, int N, int tile,
-                                          int ncp = 0) {
+                                          int ncp = 0, int gops = 0) {
   Dims d;
   d.nx = nx; d.nu = nu; d.N = N;
   d.Dx = N * nx; d.Du = (N - 1) * nu; d.Dz = d.Dx + d.Du;
@@ -135,6 +152,7 @@ __host__ __device__ inline Dims make_dims(int nx, int nu, int N, int tile,
   d.tile = tile;
   d.ksplit = 1;
   d.ncp = ncp;
+  d.gops = gops;
   return d;
 }
 
@@ -153,9 +171,10 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
   Layout L;
   int o = 0;
   const int t = d.tile;
-  L.Wf = o;   o += d.DuP * d.DzP;   // k rows; rows and columns past Du, Dz 0
-  L.Wb = o;   o += d.DzP * d.DuP;
-  L.Wx = o;   o += d.nx * d.DzP;
+  const int staged = d.gops ? 0 : 1;  // operators in shared memory
+  L.Wf = o;   o += staged * d.DuP * d.DzP;  // k rows; past Du, Dz zero
+  L.Wb = o;   o += staged * d.DzP * d.DuP;
+  L.Wx = o;   o += staged * d.nx * d.DzP;
   L.lo = o;   o += d.DzP;
   L.hi = o;   o += d.DzP;
   L.A = o;    o += r4(d.nx * d.nx);
@@ -191,7 +210,7 @@ struct Args {
   // inputs, (B, .) row-major, unpadded
   const float *x0, *D0, *Y0, *G0, *Z0, *V0;
   // operators and vectors shared by the batch
-  const float *Wf, *Wb, *Wx;    // (Du,Dz), (Dz,Du), (nx,Dz)
+  const float *Wf, *Wb, *Wx;    // (DuP,DzP), (DzP,DuP), (nx,DzP), zero padded
   const float *cd;              // (Du) const_d, or (ticks,Du) when tracking
   const float *lo, *hi;         // (Dz) bounds over z = [x | u]
   const float *A, *Bm;          // plant (nx,nx), (nx,nu); rollout only
@@ -213,17 +232,23 @@ struct Args {
 };
 
 struct Smem {
-  float *Wf, *Wb, *Wx, *lo, *hi, *A, *Bm;
+  const float *Wf, *Wb, *Wx;   // shared memory, or device memory (GOPS)
+  float *lo, *hi, *A, *Bm;
   float *D, *cd, *S, *YG, *ZV, *Xb, *x0, *u0, *stat;
   int *res, *done, *zpar, *viol, *itc, *flags, *inst, *tick, *ret;
   int *list, *nref;
   float *cmu, *csh;
 };
 
-__device__ inline Smem carve(float* base, const Layout& L) {
+template <bool GOPS>
+__device__ inline Smem carve(const Args& a, float* base, const Layout& L) {
   Smem s;
   auto I = [base](int off) { return reinterpret_cast<int*>(base + off); };
-  s.Wf = base + L.Wf; s.Wb = base + L.Wb; s.Wx = base + L.Wx;
+  if (GOPS) {
+    s.Wf = a.Wf; s.Wb = a.Wb; s.Wx = a.Wx;
+  } else {
+    s.Wf = base + L.Wf; s.Wb = base + L.Wb; s.Wx = base + L.Wx;
+  }
   s.lo = base + L.lo;
   s.hi = base + L.hi; s.A = base + L.A; s.Bm = base + L.Bm;
   s.D = base + L.D; s.cd = base + L.cd; s.S = base + L.S;
@@ -240,26 +265,34 @@ __device__ inline Smem carve(float* base, const Layout& L) {
 
 // ---------------------------------------------------------------- staging --
 
-// Zero all per-slot state, then stage the operators (rows and columns
-// beyond Du / Dz stay zero, so the products can run over the padded
-// widths and the padding of every iterate stays zero).
+// Operator loads: from shared memory, or (GOPS) read-only from device
+// memory, where the operators stay resident in L2. The values, and so every
+// product, are the same either way.
+template <bool GOPS>
+__device__ __forceinline__ float4 ldw4(const float* p) {
+  if constexpr (GOPS) return __ldg(reinterpret_cast<const float4*>(p));
+  else return *reinterpret_cast<const float4*>(p);
+}
+template <bool GOPS>
+__device__ __forceinline__ float ldw1(const float* p) {
+  if constexpr (GOPS) return __ldg(p);
+  else return *p;
+}
+
+// Zero all per-slot state, then stage the operators unless they are read
+// from device memory (their zero padding rows and columns let the products
+// run over the padded widths and keep the padding of every iterate zero).
+template <bool GOPS>
 __device__ inline void stage_block(const Args& a, const Layout& L,
                                    float* base, const Smem& s) {
   const Dims& d = a.d;
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int i = tid; i < L.total; i += nt) base[i] = 0.0f;
   __syncthreads();
-  for (int i = tid; i < d.Du * d.Dz; i += nt) {
-    const int k = i / d.Dz, j = i - k * d.Dz;
-    s.Wf[k * d.DzP + j] = a.Wf[i];
-  }
-  for (int i = tid; i < d.Dz * d.Du; i += nt) {
-    const int k = i / d.Du, c = i - k * d.Du;
-    s.Wb[k * d.DuP + c] = a.Wb[i];
-  }
-  for (int i = tid; i < d.nx * d.Dz; i += nt) {
-    const int k = i / d.Dz, j = i - k * d.Dz;
-    s.Wx[k * d.DzP + j] = a.Wx[i];
+  if (!GOPS) {
+    for (int i = tid; i < d.DuP * d.DzP; i += nt) base[L.Wf + i] = a.Wf[i];
+    for (int i = tid; i < d.DzP * d.DuP; i += nt) base[L.Wb + i] = a.Wb[i];
+    for (int i = tid; i < d.nx * d.DzP; i += nt) base[L.Wx + i] = a.Wx[i];
   }
   for (int i = tid; i < d.Dz; i += nt) { s.lo[i] = a.lo[i]; s.hi[i] = a.hi[i]; }
   if (a.A != nullptr) {
@@ -285,7 +318,7 @@ __device__ inline int iteration_flags(const Args& a, int it, bool final_solve) {
 // each sum in k order; emit(j, y[j]) takes the results. A lane runs the
 // columns lane + 32 q, q < 4, of 128 at once: four independent chains hide
 // the latency of the shared-memory loads and of the FMAs.
-template <typename Emit>
+template <bool GOPS, typename Emit>
 __device__ inline void warp_row_product(const float* x, int K, const float* W,
                                         int ldw, int n, Emit&& emit) {
   const int lane = threadIdx.x & 31;
@@ -297,7 +330,7 @@ __device__ inline void warp_row_product(const float* x, int K, const float* W,
 #pragma unroll
       for (int q = 0; q < 4; ++q)
         if (j0 + 32 * q < n)
-          acc[q] = fmaf(xk, W[k * ldw + j0 + 32 * q], acc[q]);
+          acc[q] = fmaf(xk, ldw1<GOPS>(W + k * ldw + j0 + 32 * q), acc[q]);
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q)
@@ -307,10 +340,11 @@ __device__ inline void warp_row_product(const float* x, int K, const float* W,
 
 // Hoisted x0 terms of slot i, by one warp: Xb[i][j] = sum_k x0[i][k] Wx[k][j]
 // (Wx = [W_fx | W_gx]).
+template <bool GOPS>
 __device__ inline void slot_xbub(const Args& a, const Smem& s, int i) {
   const Dims& d = a.d;
   float* xb = s.Xb + i * d.DzP;
-  warp_row_product(s.x0 + i * d.nx, d.nx, s.Wx, d.DzP, d.Dz,
+  warp_row_product<GOPS>(s.x0 + i * d.nx, d.nx, s.Wx, d.DzP, d.Dz,
                    [&](int j, float v) { xb[j] = v; });
 }
 
@@ -329,7 +363,7 @@ __device__ inline void slot_xbub(const Args& a, const Smem& s, int i) {
 // pre-projection iterate in S (and in u0, U, X where asked), t = relaxed
 // iterate + old dual in YG and the clipped slack in the new slack buffer,
 // for cone_stage and finish_stage.
-template <bool CONES, bool KEEP_U0>
+template <bool CONES, bool KEEP_U0, bool GOPS>
 __device__ inline void forward_stage(const Args& a, const Smem& s) {
   const Dims& d = a.d;
   const int lane = threadIdx.x & 31;
@@ -368,8 +402,7 @@ __device__ inline void forward_stage(const Args& a, const Smem& s) {
         float w[4][TJ];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          const float4 wv =
-              *reinterpret_cast<const float4*>(Wc + (k + kk) * d.DzP);
+          const float4 wv = ldw4<GOPS>(Wc + (k + kk) * d.DzP);
           w[kk][0] = wv.x; w[kk][1] = wv.y; w[kk][2] = wv.z; w[kk][3] = wv.w;
         }
 #pragma unroll
@@ -506,7 +539,8 @@ __device__ inline void forward_stage(const Args& a, const Smem& s) {
 // shift) onto ||v|| <= mu s: inside -> unchanged, polar -> 0, else the
 // boundary point; a == 0 guarded). mu and shift come from the per-slot
 // rows when given (d.ncp > 0), else from the table: the arithmetic is the
-// same either way.
+// same either way. The table is read from device memory (a few hundred
+// bytes that stay in L1).
 __device__ inline void cone_stage(const Args& a, const Smem& s) {
   const Dims& d = a.d;
   const ConeTable& ct = a.cones;
@@ -524,14 +558,18 @@ __device__ inline void cone_stage(const Args& a, const Smem& s) {
     const int c0 = is_x ? ct.nc_u : 0;
     const int c1 = is_x ? ct.nc_u + ct.nc_x : ct.nc_u;
     for (int q = c0; q < c1; ++q) {
-      const float mu = d.ncp ? s.cmu[q * d.tile + i] : ct.mu[q];
-      const float shift = d.ncp ? s.csh[q * d.tile + i] : ct.shift[q];
+      const float mu = d.ncp ? s.cmu[q * d.tile + i] : __ldg(ct.par + 2 * q);
+      const float shift =
+          d.ncp ? s.csh[q * d.tile + i] : __ldg(ct.par + 2 * q + 1);
+      const int* row = ct.idx + __ldg(ct.idx + q);
+      const int nball = __ldg(row), axis = __ldg(row + 1);
+      const int* ball = row + 2;
       float a2 = 0.0f;
-      for (int b = 0; b < ct.nball[q]; ++b) {
-        const float v = zn[ct.ball[q][b]];
+      for (int b = 0; b < nball; ++b) {
+        const float v = zn[__ldg(ball + b)];
         a2 = fmaf(v, v, a2);
       }
-      const float sv = zn[ct.axis[q]] + shift;
+      const float sv = zn[axis] + shift;
       const float an = sqrtf(a2);
       const bool inside = an <= mu * sv;
       const bool polar = mu * an <= -sv;
@@ -539,8 +577,8 @@ __device__ inline void cone_stage(const Args& a, const Smem& s) {
       const float safe_a = a2 == 0.0f ? 1.0f : an;
       const float scale = polar ? 0.0f : (inside ? 1.0f : mu * cc / safe_a);
       const float s_new = inside ? sv : (polar ? 0.0f : cc);
-      for (int b = 0; b < ct.nball[q]; ++b) zn[ct.ball[q][b]] *= scale;
-      zn[ct.axis[q]] = s_new - shift;
+      for (int b = 0; b < nball; ++b) zn[__ldg(ball + b)] *= scale;
+      zn[axis] = s_new - shift;
     }
   }
 }
@@ -673,7 +711,9 @@ __device__ inline int decide_stage(const Args& a, const Smem& s) {
 // the slot's row (the tick's row when tracking). A register tile is RI slots
 // x TJ adjacent columns; its depth Dz is split over ksplit adjacent lanes
 // (k-steps h, h + ksplit, ...), whose partial sums meet in a butterfly of
-// shuffles (a fixed order). Frozen slots keep their D.
+// shuffles (a fixed order). A lane sums its k-steps in blocks of BWD_BLOCK
+// (see there). Frozen slots keep their D.
+template <bool GOPS>
 __device__ inline void backward_stage(const Args& a, const Smem& s) {
   const Dims& d = a.d;
   const int H = d.ksplit;
@@ -704,26 +744,47 @@ __device__ inline void backward_stage(const Args& a, const Smem& s) {
     if (live) {
       const float* Sg = s.S + i0 * d.DzP;
       const float* Wc = s.Wb + c0;
-      for (int q = h; q < nq; q += H) {
-        const int k = q << 2;
-        float w[4][TJ];
+      // FMA chains into dst over the lane's float4 steps q0, q0 + H, ...
+      // below q1.
+      auto chain = [&](float (&dst)[RI][TJ], int q0, int q1) {
+        for (int q = q0; q < q1; q += H) {
+          const int k = q << 2;
+          float w[4][TJ];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const float4 wv =
-              *reinterpret_cast<const float4*>(Wc + (k + kk) * d.DuP);
-          w[kk][0] = wv.x; w[kk][1] = wv.y; w[kk][2] = wv.z; w[kk][3] = wv.w;
-        }
-#pragma unroll
-        for (int r = 0; r < RI; ++r) {
-          const float4 sv =
-              *reinterpret_cast<const float4*>(Sg + r * d.DzP + k);
-#pragma unroll
-          for (int c = 0; c < TJ; ++c) {
-            acc[r][c] = fmaf(sv.x, w[0][c], acc[r][c]);
-            acc[r][c] = fmaf(sv.y, w[1][c], acc[r][c]);
-            acc[r][c] = fmaf(sv.z, w[2][c], acc[r][c]);
-            acc[r][c] = fmaf(sv.w, w[3][c], acc[r][c]);
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 wv = ldw4<GOPS>(Wc + (k + kk) * d.DuP);
+            w[kk][0] = wv.x; w[kk][1] = wv.y; w[kk][2] = wv.z; w[kk][3] = wv.w;
           }
+#pragma unroll
+          for (int r = 0; r < RI; ++r) {
+            const float4 sv =
+                *reinterpret_cast<const float4*>(Sg + r * d.DzP + k);
+#pragma unroll
+            for (int c = 0; c < TJ; ++c) {
+              dst[r][c] = fmaf(sv.x, w[0][c], dst[r][c]);
+              dst[r][c] = fmaf(sv.y, w[1][c], dst[r][c]);
+              dst[r][c] = fmaf(sv.z, w[2][c], dst[r][c]);
+              dst[r][c] = fmaf(sv.w, w[3][c], dst[r][c]);
+            }
+          }
+        }
+      };
+      if (nq <= H * BWD_BLOCK) {
+        chain(acc, h, nq);   // at most one block a lane: one chain
+      } else {
+        // Blocks of BWD_BLOCK steps, each a fresh chain added to acc.
+        for (int q0 = h; q0 < nq; q0 += H * BWD_BLOCK) {
+          float part[RI][TJ];
+#pragma unroll
+          for (int r = 0; r < RI; ++r)
+#pragma unroll
+            for (int c = 0; c < TJ; ++c) part[r][c] = 0.0f;
+          chain(part, q0, min(nq, q0 + H * BWD_BLOCK));
+#pragma unroll
+          for (int r = 0; r < RI; ++r)
+#pragma unroll
+            for (int c = 0; c < TJ; ++c)
+              acc[r][c] = q0 == h ? part[r][c] : acc[r][c] + part[r][c];
         }
       }
     }
@@ -763,7 +824,7 @@ __device__ inline void backward_stage(const Args& a, const Smem& s) {
 // count) and the plant step x+ = A x + B u0 into x0 (and x_final after the
 // last tick). For a solve, and for the last tick of a mission, the carry
 // (D; duals; the slack buffer zpar points at) and the statistics.
-template <bool ROLLOUT>
+template <bool ROLLOUT, bool GOPS>
 __device__ inline void retire_slot(const Args& a, const Smem& s, int i) {
   const Dims& d = a.d;
   const int lane = threadIdx.x & 31;
@@ -773,7 +834,7 @@ __device__ inline void retire_slot(const Args& a, const Smem& s, int i) {
   const bool final_solve = !ROLLOUT || s.tick[i] == a.ticks - 1;
   if (s.ret[i] == R_RETIRE_EMIT) {   // warp-uniform
     int mx[4] = {0, 0, 0, 0};  // pri_x, dua_x, pri_u, dua_u as int views
-    warp_row_product(s.D + i * d.DuP, d.Du, s.Wf, d.DzP, d.Dz,
+    warp_row_product<GOPS>(s.D + i * d.DuP, d.Du, s.Wf, d.DzP, d.Dz,
                      [&](int j, float acc) {
       const int idx = i * d.DzP + j;
       const float xu = s.Xb[idx] + acc;
@@ -840,7 +901,7 @@ __device__ inline void retire_slot(const Args& a, const Smem& s, int i) {
 // to its next tick resets its duals only (D and the slacks warm-start it);
 // both clear the solve's bookkeeping and compute Xb. An idle slot (no
 // instance left) is marked DONE.
-template <bool ADAPTIVE, bool ROLLOUT>
+template <bool ADAPTIVE, bool ROLLOUT, bool GOPS>
 __device__ inline void load_slot(const Args& a, const Smem& s, int i) {
   const Dims& d = a.d;
   const int lane = threadIdx.x & 31;
@@ -908,7 +969,7 @@ __device__ inline void load_slot(const Args& a, const Smem& s, int i) {
     s.done[i] = LIVE;
   }
   __syncwarp();
-  slot_xbub(a, s, i);
+  slot_xbub<GOPS>(a, s, i);
 }
 
 // The next work of slot i, by lane 0 of the warp that retired it: in a
@@ -932,18 +993,18 @@ __device__ inline void claim_slot(const Args& a, const Smem& s, int i,
 // all). Only the slot's own rows are touched, so a warp goes from retiring
 // to loading without a barrier. Ends with a barrier. Returns,
 // block-uniformly, the number of LIVE slots afterwards.
-template <bool ADAPTIVE, bool ROLLOUT>
+template <bool ADAPTIVE, bool ROLLOUT, bool GOPS>
 __device__ inline int refill_stage(const Args& a, const Smem& s, int n,
                                    bool initial) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   for (int e = warp; e < n; e += nwarps) {
     const int i = s.list[e];
-    if (!initial) retire_slot<ROLLOUT>(a, s, i);
+    if (!initial) retire_slot<ROLLOUT, GOPS>(a, s, i);
     __syncwarp();   // every lane is done with the slot's old state
     if (lane == 0) claim_slot<ROLLOUT>(a, s, i, initial);
     __syncwarp();
-    load_slot<ADAPTIVE, ROLLOUT>(a, s, i);
+    load_slot<ADAPTIVE, ROLLOUT, GOPS>(a, s, i);
   }
   __syncthreads();   // the loads' done flags, before they are counted
   if (threadIdx.x == 0) *s.nref = 0;
@@ -965,18 +1026,19 @@ __device__ inline int refill_stage(const Args& a, const Smem& s, int n,
 // CONES = true splits the slack stage (forward product and clip, barrier,
 // cone_stage, barrier, finish_stage); the frozen slots' U and X
 // (retire_slot) need no cone code, since the new slacks they read are the
-// projected ones.
-template <bool ADAPTIVE, bool CONES, bool ROLLOUT>
+// projected ones. GOPS: the operators are read from device memory (the
+// caller's padded copies) instead of being staged.
+template <bool ADAPTIVE, bool CONES, bool ROLLOUT, bool GOPS>
 __device__ inline void run_block(const Args& a, float* base) {
   const Layout L = make_layout(a.d);
-  const Smem s = carve(base, L);
-  stage_block(a, L, base, s);
+  const Smem s = carve<GOPS>(a, base, L);
+  stage_block<GOPS>(a, L, base, s);
   __syncthreads();
   if (threadIdx.x < a.d.tile) s.list[threadIdx.x] = threadIdx.x;
   __syncthreads();
-  int live = refill_stage<ADAPTIVE, ROLLOUT>(a, s, a.d.tile, true);
+  int live = refill_stage<ADAPTIVE, ROLLOUT, GOPS>(a, s, a.d.tile, true);
   while (live > 0) {
-    forward_stage<CONES, ROLLOUT>(a, s);
+    forward_stage<CONES, ROLLOUT, GOPS>(a, s);
     __syncthreads();
     if constexpr (CONES) {
       cone_stage(a, s);
@@ -990,15 +1052,15 @@ __device__ inline void run_block(const Args& a, float* base) {
     live = decide_stage<ADAPTIVE, ROLLOUT>(a, s);
     if (ADAPTIVE) {
       live = __syncthreads_count(live);
-      backward_stage(a, s);
+      backward_stage<GOPS>(a, s);
       __syncthreads();
     } else {
-      backward_stage(a, s);
+      backward_stage<GOPS>(a, s);
       live = __syncthreads_count(live);
     }
     const int nret = *s.nref;   // slots waiting to be retired
     if (nret >= REFILL_MIN || (live == 0 && nret > 0)) {
-      live = refill_stage<ADAPTIVE, ROLLOUT>(a, s, nret, false);
+      live = refill_stage<ADAPTIVE, ROLLOUT, GOPS>(a, s, nret, false);
     } else if (threadIdx.x < a.d.tile && s.done[threadIdx.x] == CAPPED) {
       s.done[threadIdx.x] = DONE;   // it waits for a refill; the next
     }                               // forward stage's barrier orders this

@@ -14,7 +14,10 @@
 // Each has a second instantiation with second-order cones in the slack stage
 // (template parameter CONES; replaces fused_admm.py _cone_apply, which the
 // TPU kernels close over when cone operands are given). The box-only
-// instantiations contain no cone code.
+// instantiations contain no cone code. Every kernel is a template over the
+// operators' placement (GOPS: staged in shared memory, or read from device
+// memory where they do not fit beside one register tile of slots); both
+// placements of a kernel share its name and its launch counter.
 //
 // All are bound by operations (FP32 FMA), not bytes: global memory is read
 // once and written once per solve; the rollout writes one u0/iteration trace
@@ -35,8 +38,9 @@ namespace atm {
 extern __shared__ float4 smem4[];
 
 #define ATM_KERNEL(name, ADAPTIVE, CONES, ROLLOUT)                  \
+  template <bool GOPS>                                              \
   __global__ void __launch_bounds__(256, 1) name(Args a) {          \
-    run_block<ADAPTIVE, CONES, ROLLOUT>(                            \
+    run_block<ADAPTIVE, CONES, ROLLOUT, GOPS>(                      \
         a, reinterpret_cast<float*>(smem4));                        \
   }
 
@@ -55,39 +59,28 @@ ATM_KERNEL(fused_rollout_fixed_cones_kernel, false, true, true)
 
 #undef ATM_KERNEL
 
-// Fill the cone table from the host arrays of the C interface: cone_idx =
-// [nc_u, nc_x, then per cone nball, axis, ball[MAX_BALL]], cone_par = per
-// cone [mu, shift]. Returns false if a count or an index is out of range.
+// The cone table: device arrays cone_idx (per cone the offset of its row,
+// then the rows [nball, axis, ball[nball]]) and cone_par ([mu, shift] per
+// cone), built and validated by the wrapper (ops/fused_admm.py pad_cones).
+// Returns false if a count or a pointer is missing.
 static bool fill_cones(Args& a, const int* cone_idx, const float* cone_par,
-                       const float* cone_mu, const float* cone_shift) {
-  ConeTable& ct = a.cones;
-  ct.nc_u = cone_idx[0];
-  ct.nc_x = cone_idx[1];
-  const int nc = ct.nc_u + ct.nc_x;
-  if (ct.nc_u < 0 || ct.nc_x < 0 || nc < 1 || nc > MAX_CONES) return false;
+                       int nc_u, int nc_x, const float* cone_mu,
+                       const float* cone_shift) {
+  if (nc_u < 0 || nc_x < 0 || nc_u + nc_x < 1 || cone_par == nullptr)
+    return false;
   if ((cone_mu == nullptr) != (cone_shift == nullptr)) return false;
-  for (int c = 0; c < nc; ++c) {
-    const int* row = cone_idx + 2 + c * (2 + MAX_BALL);
-    const int dim = c < ct.nc_u ? a.d.nu : a.d.nx;
-    ct.nball[c] = row[0];
-    ct.axis[c] = row[1];
-    if (row[0] < 0 || row[0] > MAX_BALL || row[1] < 0 || row[1] >= dim)
-      return false;
-    for (int b = 0; b < MAX_BALL; ++b) {
-      ct.ball[c][b] = b < row[0] ? row[2 + b] : 0;
-      if (ct.ball[c][b] < 0 || ct.ball[c][b] >= dim) return false;
-    }
-    ct.mu[c] = cone_par[2 * c];
-    ct.shift[c] = cone_par[2 * c + 1];
-  }
+  a.cones = {nc_u, nc_x, cone_idx, cone_par};
   a.cone_mu = cone_mu;
   a.cone_shift = cone_shift;
   return true;
 }
 
+// The kernel of the operators' placement: GOPS when they are read from
+// device memory.
 template <typename K>
-static int launch(K kernel, Args a, int threads, int smem_bytes,
-                  cudaStream_t stream) {
+static int launch(K kernel_smem, K kernel_gops, Args a, int threads,
+                  int smem_bytes, cudaStream_t stream) {
+  const K kernel = a.d.gops ? kernel_gops : kernel_smem;
   const Layout L = make_layout(a.d);
   if (smem_bytes != L.total * 4 || a.d.tile <= 0 || a.d.tile % RI != 0 ||
       threads < a.d.tile || threads % 32 != 0 || threads > 256 || a.B <= 0 ||
@@ -120,20 +113,30 @@ static int launch(K kernel, Args a, int threads, int smem_bytes,
 
 }  // namespace atm
 
+// Both placements of one kernel, launched with the caller's geometry.
+#define ATM_LAUNCH(k) \
+  atm::launch(atm::k<false>, atm::k<true>, a, threads, smem_bytes, st)
+
 extern "C" {
 
 // Bytes of dynamic shared memory one block needs (the layout's own count).
 // ncp: cones with per-instance mu/shift rows (0 when the values are static).
-int atm_fused_smem_bytes(int nx, int nu, int N, int tile, int ncp) {
-  return atm::make_layout(atm::make_dims(nx, nu, N, tile, ncp)).total * 4;
+// ops_global: the operators are read from device memory (not staged).
+int atm_fused_smem_bytes(int nx, int nu, int N, int tile, int ncp,
+                         int ops_global) {
+  return atm::make_layout(
+      atm::make_dims(nx, nu, N, tile, ncp, ops_global != 0)).total * 4;
 }
 
 
 // One batched solve. check_every == 0: fixed max_iter iterations; > 0: the
 // adaptive kernel with a check every check_every iterations after warmup.
 // cone_idx != nullptr selects the coned instantiation: cone_idx and cone_par
-// are host arrays (see fill_cones), cone_mu / cone_shift device arrays
-// (nc, B) of per-instance values, or both nullptr for the static ones.
+// are the device table (see fill_cones) of nc_u input and nc_x state cones,
+// cone_mu / cone_shift device arrays (nc, B) of per-instance values, or both
+// nullptr for the static ones. Wf, Wb and Wx come padded with zeros (DuP x
+// DzP, DzP x DuP, nx x DzP); ops_global != 0: the kernel reads them in place
+// in device memory, else it stages them per block in shared memory.
 int atm_fused_solve(
     const float* x0, const float* D0, const float* Y0, const float* G0,
     const float* Z0, const float* V0,
@@ -141,11 +144,11 @@ int atm_fused_solve(
     const float* lo, const float* hi,
     float* U, float* X, float* D, float* Y, float* G, float* Z, float* V,
     float* stats,
-    const int* cone_idx, const float* cone_par,
+    const int* cone_idx, const float* cone_par, int nc_u, int nc_x,
     const float* cone_mu, const float* cone_shift, int* counter,
     int B, int nx, int nu, int N, int max_iter, int check_every, int warmup,
     float rho, float alpha, float pri_tol, float dua_tol,
-    int tile, int threads, int smem_bytes, void* stream) {
+    int tile, int threads, int smem_bytes, int ops_global, void* stream) {
   atm::Args a = {};
   a.x0 = x0; a.D0 = D0; a.Y0 = Y0; a.G0 = G0; a.Z0 = Z0; a.V0 = V0;
   a.Wf = Wf; a.Wb = Wb; a.Wx = Wx; a.cd = cd; a.lo = lo; a.hi = hi;
@@ -158,27 +161,24 @@ int atm_fused_solve(
   a.rho = rho; a.alpha = alpha; a.pri_tol = pri_tol; a.dua_tol = dua_tol;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cone_idx != nullptr) {
-    const int nc = cone_idx[0] + cone_idx[1];
-    a.d = atm::make_dims(nx, nu, N, tile, cone_mu != nullptr ? nc : 0);
-    if (!atm::fill_cones(a, cone_idx, cone_par, cone_mu, cone_shift))
+    a.d = atm::make_dims(nx, nu, N, tile,
+                         cone_mu != nullptr ? nc_u + nc_x : 0, ops_global);
+    if (!atm::fill_cones(a, cone_idx, cone_par, nc_u, nc_x, cone_mu,
+                         cone_shift))
       return -1;
     if (check_every > 0)
-      return atm::launch(atm::fused_solve_adaptive_cones_kernel, a, threads,
-                         smem_bytes, st);
-    return atm::launch(atm::fused_solve_fixed_cones_kernel, a, threads,
-                       smem_bytes, st);
+      return ATM_LAUNCH(fused_solve_adaptive_cones_kernel);
+    return ATM_LAUNCH(fused_solve_fixed_cones_kernel);
   }
-  a.d = atm::make_dims(nx, nu, N, tile);
+  a.d = atm::make_dims(nx, nu, N, tile, 0, ops_global);
   if (check_every > 0)
-    return atm::launch(atm::fused_solve_adaptive_kernel, a, threads,
-                       smem_bytes, st);
-  return atm::launch(atm::fused_solve_fixed_kernel, a, threads, smem_bytes,
-                     st);
+    return ATM_LAUNCH(fused_solve_adaptive_kernel);
+  return ATM_LAUNCH(fused_solve_fixed_kernel);
 }
 
 // One mission of `ticks` receding-horizon ticks. tracking != 0: cd is
-// (ticks, Du), one row per tick; else (Du). cone_idx / cone_par as in
-// atm_fused_solve (static cone parameters only).
+// (ticks, Du), one row per tick; else (Du). cone_idx / cone_par / nc_u /
+// nc_x and ops_global as in atm_fused_solve (static cone parameters only).
 int atm_fused_rollout(
     const float* x0, const float* D0, const float* Z0, const float* V0,
     const float* Wf, const float* Wb, const float* Wx, const float* cd,
@@ -186,11 +186,12 @@ int atm_fused_rollout(
     float* us, int* iters, float* x_final,
     float* U, float* X, float* D, float* Y, float* G, float* Z, float* V,
     float* stats,
-    const int* cone_idx, const float* cone_par, int* counter,
+    const int* cone_idx, const float* cone_par, int nc_u, int nc_x,
+    int* counter,
     int B, int nx, int nu, int N, int ticks, int tracking,
     int max_iter, int check_every, int warmup,
     float rho, float alpha, float pri_tol, float dua_tol,
-    int tile, int threads, int smem_bytes, void* stream) {
+    int tile, int threads, int smem_bytes, int ops_global, void* stream) {
   if (ticks < 1) return -1;
   atm::Args a = {};
   a.x0 = x0; a.D0 = D0; a.Y0 = nullptr; a.G0 = nullptr; a.Z0 = Z0; a.V0 = V0;
@@ -203,21 +204,22 @@ int atm_fused_rollout(
   a.B = B; a.ticks = ticks; a.tracking = tracking;
   a.max_iter = max_iter; a.check_every = check_every; a.warmup = warmup;
   a.rho = rho; a.alpha = alpha; a.pri_tol = pri_tol; a.dua_tol = dua_tol;
-  a.d = atm::make_dims(nx, nu, N, tile);
+  a.d = atm::make_dims(nx, nu, N, tile, 0, ops_global);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool adaptive = check_every > 0;
   if (cone_idx != nullptr) {
-    if (!atm::fill_cones(a, cone_idx, cone_par, nullptr, nullptr)) return -1;
+    if (!atm::fill_cones(a, cone_idx, cone_par, nc_u, nc_x, nullptr,
+                         nullptr))
+      return -1;
     return adaptive
-        ? atm::launch(atm::fused_rollout_cones_kernel, a, threads, smem_bytes,
-                      st)
-        : atm::launch(atm::fused_rollout_fixed_cones_kernel, a, threads,
-                      smem_bytes, st);
+        ? ATM_LAUNCH(fused_rollout_cones_kernel)
+        : ATM_LAUNCH(fused_rollout_fixed_cones_kernel);
   }
   return adaptive
-      ? atm::launch(atm::fused_rollout_kernel, a, threads, smem_bytes, st)
-      : atm::launch(atm::fused_rollout_fixed_kernel, a, threads, smem_bytes,
-                    st);
+      ? ATM_LAUNCH(fused_rollout_kernel)
+      : ATM_LAUNCH(fused_rollout_fixed_kernel);
 }
 
 }  // extern "C"
+
+#undef ATM_LAUNCH

@@ -8,7 +8,11 @@ iteration. Here the whole solve loop runs inside one kernel
 (``csrc/fused_admm.cu``): the operators and the iterates of one slot per
 instance in flight stay in a block's shared memory for all iterations (a
 slot takes the next instance from a work counter when its own one is done),
-so device memory is read once and written once per *solve*.
+so device memory is read once and written once per *solve*. Where the
+operators do not fit beside one register tile of slots (the quadrotor past
+N=18), the kernels read them from device memory instead, in the padded
+layout of :func:`pad_problem` (:func:`choose_placement`); the sums run in
+the same order, so both placements give the same bits.
 
 Semantics: stage for stage the reference iteration (reference:
 src/tinympc/admm.cpp:111-152) in a fixed-iteration mode and an adaptive mode
@@ -76,9 +80,8 @@ MAX_TILE = 64
 MAX_THREADS = 256
 THREADS_PER_INSTANCE = 16
 SMEM_LIMIT_BYTES = 232_448
-# Limits of the kernels' cone table (csrc/admm_iteration.cuh).
-MAX_CONES = 8
-MAX_BALL = 8
+# Where the kernels keep the condensed operators (choose_placement).
+PLACEMENTS = ("shared", "device")
 
 
 def reset_launch_counts() -> None:
@@ -88,14 +91,15 @@ def reset_launch_counts() -> None:
 
 @dataclasses.dataclass(frozen=True)
 class PaddedProblem(_Struct):
-    """Condensed operators + problem vectors, kernel-ready. (The name is the
-    JAX counterpart's; nothing here is padded.)
+    """Condensed operators + problem vectors, kernel-ready.
 
     All ``W_*`` are stored transposed, ``(in, out)``, so every contraction is
     ``Y = X @ W``. ``W_eq_u``/``W_ep_u`` are used only outside the kernel to
     fold the reference vectors into ``const_d``. ``W_x``, ``W_f``, ``W_b``,
     ``lo``, ``hi`` are the kernel's operands: the same data concatenated over
-    ``z = [x | u]``.
+    ``z = [x | u]``, the three matrices padded with zero rows and columns to
+    multiples of 4 (``DuP = r4(Du)``, ``DzP = r4(Dz)``: the float4 rows the
+    kernels read, in shared memory or in place in device memory).
     """
 
     W_fx: torch.Tensor    # (nx, Dx)  x0 -> X
@@ -113,9 +117,9 @@ class PaddedProblem(_Struct):
     x_min: torch.Tensor   # (1, Dx)
     x_max: torch.Tensor
     rho: torch.Tensor     # scalar
-    W_x: torch.Tensor     # (nx, Dz) = [W_fx | W_gx]
-    W_f: torch.Tensor     # (Du, Dz) = [W_fd | W_gd]
-    W_b: torch.Tensor     # (Dz, Du) = [W_q ; W_r]
+    W_x: torch.Tensor     # (nx, DzP) = [W_fx | W_gx], zero padded
+    W_f: torch.Tensor     # (DuP, DzP) = [W_fd | W_gd], zero padded
+    W_b: torch.Tensor     # (DzP, DuP) = [W_q ; W_r], zero padded
     lo: torch.Tensor      # (Dz,)    = [x_min | u_min]
     hi: torch.Tensor      # (Dz,)
     dims: tuple = ()      # (nx, nu, horizon)
@@ -167,6 +171,13 @@ def pad_problem(
 
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a)).to(
         device=device, dtype=dtype)
+    r4 = lambda n: (n + 3) & ~3
+
+    def padded(W, rows):   # zero rows and columns up to (rows, r4(cols))
+        out = np.zeros((rows, r4(W.shape[1])))
+        out[:W.shape[0], :W.shape[1]] = W
+        return out
+
     return PaddedProblem(
         W_fx=t(W_fx), W_fd=t(W_fd), W_gx=t(W_gx), W_gd=t(W_gd),
         W_q=t(W_q), W_r=t(W_r), W_eq_u=t(W_eq_u), W_ep_u=t(W_ep_u),
@@ -174,9 +185,9 @@ def pad_problem(
         pterm_c=t(pterm.reshape(1, -1)),
         u_min=t(u_min), u_max=t(u_max), x_min=t(x_min), x_max=t(x_max),
         rho=t(rho_f),
-        W_x=t(np.hstack([W_fx, W_gx])),
-        W_f=t(np.hstack([W_fd, W_gd])),
-        W_b=t(np.vstack([W_q, W_r])),
+        W_x=t(padded(np.hstack([W_fx, W_gx]), nx)),
+        W_f=t(padded(np.hstack([W_fd, W_gd]), r4(W_fd.shape[0]))),
+        W_b=t(padded(np.vstack([W_q, W_r]), r4(Dx + W_r.shape[0]))),
         lo=t(np.hstack([x_min, u_min]).reshape(-1)),
         hi=t(np.hstack([x_max, u_max]).reshape(-1)),
         dims=(nx, nu, N),
@@ -221,13 +232,17 @@ class FusedConeOps(_Struct):
     :func:`pad_cones`; see :mod:`..solver.cones` for the cone model and the
     closed-form projection). Per cone the kernel needs the ball indices and
     the axis index inside a knot, ``mu`` and ``shift``: input cones first,
-    then state cones. ``idx``/``par`` are the host arrays the C entry takes
-    (``[nc_u, nc_x, then per cone nball, axis, ball[MAX_BALL]]`` and
-    ``[mu, shift]`` per cone); ``mu``/``shift`` are the same values on the
-    device, the defaults of the per-instance rows."""
+    then state cones, any number of each with balls of any size. ``idx`` /
+    ``par`` are the host values (``[nc_u, nc_x, then per cone nball, axis,
+    ball[nball]]`` and ``[mu, shift]`` per cone); ``table`` / ``params`` the
+    kernels' copy on the device (per cone the offset of its row, then the
+    rows ``[nball, axis, ball]``; ``par``); ``mu``/``shift`` the same values
+    on the device, the defaults of the per-instance rows."""
 
     mu: torch.Tensor      # (nc_u + nc_x,)
     shift: torch.Tensor   # (nc_u + nc_x,)
+    table: torch.Tensor = None   # int32, see above
+    params: torch.Tensor = None  # (2 (nc_u + nc_x),) float32
     cones: Any = None     # the ConeSet
     idx: tuple = ()
     par: tuple = ()
@@ -237,36 +252,36 @@ class FusedConeOps(_Struct):
 
 def pad_cones(pp: PaddedProblem, cones) -> FusedConeOps:
     """Build :class:`FusedConeOps` for a :class:`..solver.cones.ConeSet` on
-    ``pp``'s problem. Raises if a cone indexes outside its knot, if ball and
-    axis overlap, or beyond the kernels' limits (``MAX_CONES`` cones in all,
-    ``MAX_BALL`` ball entries each)."""
+    ``pp``'s problem. Raises if a cone indexes outside its knot or if ball
+    and axis overlap; the number of cones and of ball entries is free."""
     nx, nu, _N = pp.dims
     ucones, xcones = tuple(cones.input_cones), tuple(cones.state_cones)
-    if len(ucones) + len(xcones) > MAX_CONES:
-        raise ValueError(
-            f"the fused tier takes at most {MAX_CONES} cones in all, got "
-            f"{len(ucones)} input + {len(xcones)} state cones")
     idx = [len(ucones), len(xcones)]
-    par = []
+    rows, par = [], []
     for kind, dim, group in (("input", nu, ucones), ("state", nx, xcones)):
         for c, cone in enumerate(group):
             ball = [int(b) for b in cone.ball]
             axis = int(cone.axis)
-            if len(ball) > MAX_BALL:
-                raise ValueError(
-                    f"{kind} cone {c}: at most {MAX_BALL} ball entries")
             if any(not 0 <= b < dim for b in ball + [axis]):
                 raise ValueError(
                     f"{kind} cone {c}: indices must be in [0, {dim})")
             if axis in ball:
                 raise ValueError(f"{kind} cone {c}: axis is in the ball")
-            idx += [len(ball), axis] + ball + [0] * (MAX_BALL - len(ball))
+            rows.append([len(ball), axis] + ball)
             par += [float(cone.mu), float(cone.shift)]
+    idx += [v for row in rows for v in row]
+    table, off = [], len(rows)
+    for row in rows:
+        table.append(off)
+        off += len(row)
+    table += idx[2:]
     dtype, device = pp.lo.dtype, pp.lo.device
     vals = torch.tensor(par, dtype=torch.float64).reshape(-1, 2)
     return FusedConeOps(
         mu=vals[:, 0].to(device=device, dtype=dtype),
         shift=vals[:, 1].to(device=device, dtype=dtype),
+        table=torch.tensor(table, dtype=torch.int32, device=device),
+        params=torch.tensor(par, dtype=torch.float32, device=device),
         cones=cones, idx=tuple(idx), par=tuple(par),
         nc_u=len(ucones), nc_x=len(xcones),
     )
@@ -508,17 +523,23 @@ def fused_solve_plain(
 # ------------------------------------------------------------------ kernel --
 
 def kernel_smem_bytes(nx: int, nu: int, horizon: int, tile: int,
-                      ncp: int = 0) -> int:
+                      ncp: int = 0, placement: str = "shared") -> int:
     """Dynamic shared memory one block needs: mirrors ``make_layout`` in
     ``csrc/admm_iteration.cuh`` (the C entry refuses a launch when the two
     disagree). ``ncp`` is the number of cones with per-instance mu/shift
     rows (0 for static cone parameters and for box-only solves): the coned
-    kernels need nothing else beyond the box layout."""
+    kernels need nothing else beyond the box layout. ``placement="device"``
+    leaves the operators Wf, Wb, Wx out (the kernels read them from device
+    memory)."""
+    if placement not in PLACEMENTS:
+        raise ValueError(f"placement must be one of {PLACEMENTS}")
     r4 = lambda n: (n + 3) & ~3
     Dx, Du = horizon * nx, (horizon - 1) * nu
     DuP, DzP = r4(Du), r4(Dx + Du)
+    operators = DuP * DzP + DzP * DuP + nx * DzP    # Wf, Wb, Wx
     words = (
-        DuP * DzP + DzP * DuP + nx * DzP + 2 * DzP   # Wf, Wb, Wx, lo, hi
+        (operators if placement == "shared" else 0)
+        + 2 * DzP                                  # lo, hi
         + r4(nx * nx) + r4(nx * nu)
         + 2 * tile * DuP + 5 * tile * DzP          # D, cd; S, YG, ZV x2, Xb
         + r4(tile * nx) + r4(tile * nu) + r4(tile * 6) + r4(tile * 4)
@@ -528,21 +549,75 @@ def kernel_smem_bytes(nx: int, nu: int, horizon: int, tile: int,
     return 4 * words
 
 
-def choose_tile(dims: tuple, batch: int, n_sm: int = 132,
-                limit: int = SMEM_LIMIT_BYTES, ncp: int = 0) -> int:
-    """Slots per block: the largest multiple of the register tile that fits
-    shared memory, not more than spreads the batch over all SMs. Raises if
-    even one register tile does not fit beside the operators."""
+def _tpu_fits(nx: int, nu: int, horizon: int) -> bool:
+    """Whether the JAX package's fused tier takes this horizon: its sizing
+    (``accelerated_tinympc_tpu/ops/fused_admm.py`` ``fused_solve``) keeps
+    the packed operators and 8 rows of its blocks inside a 12 MB VMEM budget.
+    A copy of that arithmetic, used only to name the boundary in an error."""
+    lanes, stats, max_pack = 128, 128, 8
+    pad = lambda n: -(-n // lanes) * lanes
+    Dx, Du = horizon * nx, (horizon - 1) * nu
+    g = 1 if 2 * Du > lanes else max(1, min(max_pack, lanes // Du))
+    Dug, gDxp, nxg = pad(g * Du), g * pad(Dx), pad(g * nx)
+    w = 4 * (nxg * gDxp + Dug * gDxp + nxg * Dug + 2 * Dug * Dug
+             + gDxp * Dug)
+    per_row = 4 * (2 * (nxg + 3 * Dug + 2 * gDxp)
+                   + 2 * (4 * Dug + 3 * gDxp + g * stats)
+                   + 10 * gDxp + 6 * Dug)
+    return w + 8 * per_row <= 12 * 1024 * 1024
+
+
+def tpu_horizon_limit(nx: int, nu: int) -> int:
+    """The longest horizon the JAX package's fused tier takes for these
+    widths (N=129 for the quadrotor, 213 for the lander)."""
+    N = 2
+    while _tpu_fits(nx, nu, N + 1):
+        N += 1
+    return N
+
+
+def choose_placement(dims: tuple, limit: int = SMEM_LIMIT_BYTES,
+                     ncp: int = 0) -> str:
+    """Where the kernels keep the condensed operators: ``"shared"`` wherever
+    they fit beside one register tile of slots (every shape that ran before
+    the device placement keeps its kernel), else ``"device"`` (read from
+    device memory, resident in L2) while one register tile of per-slot state
+    fits. Raises past that, with the bytes needed."""
     nx, nu, N = dims
-    if kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp) > limit:
+    if kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp) <= limit:
+        return "shared"
+    need = kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp, "device")
+    if need <= limit:
+        return "device"
+    raise ValueError(
+        f"the fused tier's per-slot state for nx={nx}, nu={nu}, horizon={N} "
+        f"needs {need} bytes of shared memory per block with the condensed "
+        f"operators in device memory (limit {limit}); the JAX package's "
+        f"fused tier takes these widths up to N={tpu_horizon_limit(nx, nu)}"
+        " (a TPU's 12 MB VMEM budget); longer horizons belong to the "
+        "stream tier")
+
+
+def choose_tile(dims: tuple, batch: int, n_sm: int = 132,
+                limit: int = SMEM_LIMIT_BYTES, ncp: int = 0,
+                placement: str | None = None) -> int:
+    """Slots per block: the largest multiple of the register tile that fits
+    shared memory, not more than spreads the batch over all SMs, at
+    ``placement`` (default: :func:`choose_placement`, which raises if even
+    one register tile does not fit)."""
+    nx, nu, N = dims
+    if placement is None:
+        placement = choose_placement(dims, limit, ncp)
+    elif kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp, placement) > limit:
         raise ValueError(
-            f"the condensed operators for nx={nx}, nu={nu}, horizon={N} need "
-            f"{kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp)} bytes of shared "
-            f"memory per block (limit {limit}): the fused tier holds them "
-            "on the SM; long horizons belong to the stream tier")
+            f"one register tile at nx={nx}, nu={nu}, horizon={N} needs "
+            f"{kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp, placement)} "
+            f"bytes of shared memory with the operators in {placement} "
+            f"memory (limit {limit})")
     fit = REGISTER_TILE
     while (fit + REGISTER_TILE <= MAX_TILE and
-           kernel_smem_bytes(nx, nu, N, fit + REGISTER_TILE, ncp) <= limit):
+           kernel_smem_bytes(nx, nu, N, fit + REGISTER_TILE, ncp,
+                             placement) <= limit):
         fit += REGISTER_TILE
     per_sm = -(-batch // n_sm)
     want = -(-per_sm // REGISTER_TILE) * REGISTER_TILE
@@ -559,13 +634,15 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("fused_admm")
     if not getattr(lib, "_atm_declared", False):
-        lib.atm_fused_smem_bytes.argtypes = [_I] * 5
+        lib.atm_fused_smem_bytes.argtypes = [_I] * 6
         lib.atm_fused_smem_bytes.restype = _I
         lib.atm_fused_solve.argtypes = (
-            [_P] * 25 + [_I] * 7 + [_F] * 4 + [_I] * 3 + [_P])
+            [_P] * 22 + [_I] * 2 + [_P] * 3 + [_I] * 7 + [_F] * 4 + [_I] * 4
+            + [_P])
         lib.atm_fused_solve.restype = _I
         lib.atm_fused_rollout.argtypes = (
-            [_P] * 26 + [_I] * 9 + [_F] * 4 + [_I] * 3 + [_P])
+            [_P] * 25 + [_I] * 2 + [_P] + [_I] * 9 + [_F] * 4 + [_I] * 4
+            + [_P])
         lib.atm_fused_rollout.restype = _I
         lib._atm_declared = True
     return lib
@@ -586,33 +663,42 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Tensor:
 
 
 def _kernel_operands(pp: PaddedProblem, device) -> tuple:
+    """Wf, Wb, Wx (padded, :class:`PaddedProblem`), lo, hi, checked."""
     nx, nu, N = pp.dims
-    Dx, Du = pp.Dx, pp.Du
-    Dz = Dx + Du
+    r4 = lambda n: (n + 3) & ~3
+    Du, Dz = pp.Du, pp.Dx + pp.Du
+    DuP, DzP = r4(Du), r4(Dz)
     return (
-        _check("pp.W_f", pp.W_f, (Du, Dz), device),
-        _check("pp.W_b", pp.W_b, (Dz, Du), device),
-        _check("pp.W_x", pp.W_x, (nx, Dz), device),
+        _check("pp.W_f", pp.W_f, (DuP, DzP), device),
+        _check("pp.W_b", pp.W_b, (DzP, DuP), device),
+        _check("pp.W_x", pp.W_x, (nx, DzP), device),
         _check("pp.lo", pp.lo, (Dz,), device),
         _check("pp.hi", pp.hi, (Dz,), device),
     )
 
 
 def _geometry(pp: PaddedProblem, B: int, device, batch_tile, threads,
-              ncp: int = 0):
+              ncp: int = 0, placement: str | None = None):
+    """``(tile, threads, smem bytes, placement)`` of one launch; the
+    placement is :func:`choose_placement`'s unless given."""
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
     nx, nu, N = pp.dims
+    if placement is None:
+        placement = choose_placement(pp.dims, limit, ncp)
     if batch_tile is None:
-        tile = choose_tile(pp.dims, B, props.multi_processor_count, limit, ncp)
+        tile = choose_tile(pp.dims, B, props.multi_processor_count, limit, ncp,
+                           placement)
     else:
         tile = max(REGISTER_TILE,
                    -(-int(batch_tile) // REGISTER_TILE) * REGISTER_TILE)
-        tile = min(tile, choose_tile(pp.dims, 10 ** 9, 1, limit, ncp))
+        tile = min(tile, choose_tile(pp.dims, 10 ** 9, 1, limit, ncp,
+                                     placement))
     if threads is None:
         threads = min(MAX_THREADS, THREADS_PER_INSTANCE * tile)
     threads = max(int(threads), -(-tile // 32) * 32)
-    return tile, threads, kernel_smem_bytes(nx, nu, N, tile, ncp)
+    return (tile, threads, kernel_smem_bytes(nx, nu, N, tile, ncp, placement),
+            placement)
 
 
 def work_counter(device) -> torch.Tensor:
@@ -621,16 +707,17 @@ def work_counter(device) -> torch.Tensor:
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
-def _cone_table(cone_ops: FusedConeOps | None):
-    """The host arrays of the C entries' cone table as ``(idx, par)``
-    pointers (``None, None`` without cones) plus the ctypes arrays that must
-    outlive the call."""
+def _cone_table(cone_ops: FusedConeOps | None, device):
+    """The C entries' cone arguments ``(idx, par, nc_u, nc_x)``: pointers to
+    the device table of :func:`pad_cones` (``None, None, 0, 0`` without
+    cones), plus the tensors that must outlive the call."""
     if cone_ops is None or not (cone_ops.nc_u or cone_ops.nc_x):
-        return None, None, ()
-    idx = (ctypes.c_int * len(cone_ops.idx))(*cone_ops.idx)
-    par = (ctypes.c_float * len(cone_ops.par))(*cone_ops.par)
-    return (ctypes.cast(idx, ctypes.c_void_p),
-            ctypes.cast(par, ctypes.c_void_p), (idx, par))
+        return None, None, 0, 0, ()
+    table = cone_ops.table.to(device=device, dtype=torch.int32).contiguous()
+    params = cone_ops.params.to(device=device,
+                                dtype=torch.float32).contiguous()
+    return (table.data_ptr(), params.data_ptr(), cone_ops.nc_u,
+            cone_ops.nc_x, (table, params))
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -674,6 +761,7 @@ def fused_solve(
     cone_shift_x=None,
     alpha: float = 1.0,
     threads: int | None = None,
+    placement: str | None = None,
 ) -> FusedResult:
     """Run the fused whole-solve over a batch.
 
@@ -695,7 +783,9 @@ def fused_solve(
     mode -- build them with :func:`ref_vectors`). ``warmup_iters`` (adaptive
     mode only) runs that many iterations without convergence checks first.
     ``batch_tile`` (slots per block) and ``threads`` override the
-    kernel's launch geometry.
+    kernel's launch geometry, ``placement`` (``"shared"``/``"device"``)
+    where it keeps the operators (default :func:`choose_placement`; both
+    give the same bits where both fit).
 
     Tensors on the CPU go through :func:`fused_solve_plain`; tensors on a
     CUDA device launch the kernel (float32 only) or raise. ``algo='bf16x3'``
@@ -723,7 +813,7 @@ def fused_solve(
     dev = x0.device
     mu_rows, shift_rows = _cone_rows(
         cone_ops, cone_mu_u, cone_shift_u, cone_mu_x, cone_shift_x, B)
-    cone_idx, cone_par, _alive = _cone_table(cone_ops)
+    cone_idx, cone_par, nc_u, nc_x, _alive = _cone_table(cone_ops, dev)
     coned = cone_idx is not None
     ncp = 0
     if mu_rows is not None:
@@ -736,11 +826,12 @@ def fused_solve(
     G0 = _check("carry.G", carry.G, (B, Dx), dev)
     Z0 = _check("carry.Z", carry.Z, (B, Du), dev)
     V0 = _check("carry.V", carry.V, (B, Dx), dev)
-    W_f, W_b, W_x, lo, hi = _kernel_operands(pp, dev)
     with torch.no_grad():
         const_d = _check("const_d", fold_const_d(pp, xref_q, pterm_c),
                          (1, Du), dev)
-    tile, threads, smem = _geometry(pp, B, dev, batch_tile, threads, ncp)
+    tile, threads, smem, placement = _geometry(
+        pp, B, dev, batch_tile, threads, ncp, placement)
+    W_f, W_b, W_x, lo, hi = _kernel_operands(pp, dev)
 
     new = lambda w: torch.empty((B, w), dtype=torch.float32, device=dev)
     U, X, D, Y, G, Z, V = (new(Du), new(Dx), new(Du), new(Du), new(Dx),
@@ -758,7 +849,7 @@ def fused_solve(
             const_d.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             U.data_ptr(), X.data_ptr(), D.data_ptr(), Y.data_ptr(),
             G.data_ptr(), Z.data_ptr(), V.data_ptr(), stats.data_ptr(),
-            cone_idx, cone_par,
+            cone_idx, cone_par, nc_u, nc_x,
             mu_rows.data_ptr() if ncp else None,
             shift_rows.data_ptr() if ncp else None,
             counter.data_ptr(),
@@ -767,7 +858,7 @@ def fused_solve(
             min(int(warmup_iters), int(max_iter) - 1) if adaptive else 0,
             float(pp.rho_f), float(alpha),
             float(abs_pri_tol), float(abs_dua_tol),
-            tile, threads, smem, stream,
+            tile, threads, smem, int(placement == "device"), stream,
         )
     _raise_on(err, "fused_solve")
     LAUNCH_COUNTS[

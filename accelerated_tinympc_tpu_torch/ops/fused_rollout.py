@@ -164,6 +164,7 @@ def fused_rollout(
     cone_ops: FusedConeOps | None = None,
     alpha: float = 1.0,
     threads: int | None = None,
+    placement: str | None = None,
 ) -> RolloutResult:
     """Run ``n_ticks`` receding-horizon MPC ticks in one kernel launch.
 
@@ -179,6 +180,9 @@ def fused_rollout(
     missions in one launch).
     Semantics per tick match :func:`..api.mpc.fused_mpc_rollout` (the
     loop-of-kernels implementation of the same loop).
+
+    ``batch_tile``, ``threads`` and ``placement`` are the launch geometry
+    and operator placement of :func:`.fused_admm.fused_solve`.
 
     Tensors on the CPU go through :func:`fused_rollout_plain`; tensors on a
     CUDA device launch the kernel (float32 only) or raise.
@@ -207,6 +211,8 @@ def fused_rollout(
     D0 = _check("carry.D", carry.D, (B, Du), dev)
     Z0 = _check("carry.Z", carry.Z, (B, Du), dev)
     V0 = _check("carry.V", carry.V, (B, Dx), dev)
+    tile, threads, smem, placement = _geometry(
+        pp, B, dev, batch_tile, threads, placement=placement)
     W_f, W_b, W_x, lo, hi = _kernel_operands(pp, dev)
     A = _check("rops.A", rops.A, (nx, nx), dev)
     Bm = _check("rops.B", rops.B, (nx, nu), dev)
@@ -215,8 +221,7 @@ def fused_rollout(
             cd = _check("const_d", fold_const_d(pp), (1, Du), dev)
     else:
         cd = _check("const_seq", const_seq, (T, Du), dev)
-    tile, threads, smem = _geometry(pp, B, dev, batch_tile, threads)
-    cone_idx, cone_par, _alive = _cone_table(cone_ops)
+    cone_idx, cone_par, nc_u, nc_x, _alive = _cone_table(cone_ops, dev)
 
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     us = new(T, B, nu)
@@ -237,13 +242,13 @@ def fused_rollout(
             us.data_ptr(), iters.data_ptr(), x_final.data_ptr(),
             U.data_ptr(), X.data_ptr(), D.data_ptr(), Y.data_ptr(),
             G.data_ptr(), Z.data_ptr(), V.data_ptr(), stats.data_ptr(),
-            cone_idx, cone_par, counter.data_ptr(),
+            cone_idx, cone_par, nc_u, nc_x, counter.data_ptr(),
             B, nx, nu, N, T, 0 if const_seq is None else 1,
             int(max_iter), int(check_termination) if adaptive else 0,
             min(int(warmup_iters), int(max_iter) - 1) if adaptive else 0,
             float(pp.rho_f), float(alpha),
             float(abs_pri_tol), float(abs_dua_tol),
-            tile, threads, smem, stream,
+            tile, threads, smem, int(placement == "device"), stream,
         )
     _raise_on(err, "fused_rollout")
     LAUNCH_COUNTS["fused_rollout" + ("" if adaptive else "_fixed")

@@ -202,19 +202,17 @@ def pad_hetero_from_plants(
 
     ``riccati`` routes the caches as the JAX package does: the fixed-point
     kernel K5 (:func:`.riccati_kernel.riccati_cache_kernel`) for
-    ``"kernel"``, and for ``"auto"`` on CUDA tensors when the plant fits it
-    (``nx <= 16``, ``nu <= 8``); the batched tensor code
-    :func:`..precompute.riccati_cache_jax` otherwise (``"vmap"``, the CPU,
-    larger plants)."""
+    ``"kernel"``, and for ``"auto"`` on CUDA tensors (any plant whose
+    working set fits a block's shared memory; larger ones raise there); the
+    batched tensor code :func:`..precompute.riccati_cache_jax` for
+    ``"vmap"`` and for ``"auto"`` on the CPU."""
     from . import riccati_kernel as rk
     from ..precompute import riccati_cache_jax
 
     if riccati not in ("auto", "kernel", "vmap"):
         raise ValueError(f"riccati must be 'auto', 'kernel' or 'vmap', "
                          f"got {riccati!r}")
-    nx, nu = A.shape[-1], B.shape[-1]
-    if riccati == "kernel" or (riccati == "auto" and A.is_cuda
-                               and nx <= rk.MAX_NX and nu <= rk.MAX_NU):
+    if riccati == "kernel" or (riccati == "auto" and A.is_cuda):
         caches = rk.riccati_cache_kernel(A, B, Q, R, rho)
     else:
         caches = riccati_cache_jax(A, B, Q, R, rho)

@@ -8,8 +8,11 @@ build_instance_ops_from_plants`) and the adaptive-rho exact refresh
 (:func:`..solver.batched_ops.solve_adaptive_rho_batched`) build thousands of
 caches at once. As batched tensor code (:func:`..precompute.
 riccati_cache_jax`) every step is a dozen launches of 12x12-class products;
-the kernels (``csrc/riccati.cu``) give each instance one warp and keep its
-matrices in shared memory for the whole iteration.
+the kernels (``csrc/riccati.cu``) keep each instance's matrices on the SM
+for the whole iteration: for the sizes in :data:`GROUP_SHAPES` a group of
+lanes owns an instance's columns in registers, every other size runs the
+general kernel (one warp per instance) as far as shared memory takes it
+(:func:`kernel_plan`).
 
 Semantics match :func:`..precompute.riccati_cache_jax` per instance: P0 =
 rho*I (or a warm ``P0``/``K0``), iterate Kinf/Pinf until ``max|dKinf| < tol``
@@ -29,6 +32,7 @@ instance's step count (the TPU kernels compute it and drop it):
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -38,9 +42,51 @@ from ..types import Cache
 # Launches per kernel, counted where (and only where) a wrapper launches it.
 LAUNCH_COUNTS = {"riccati_fixed_point": 0, "riccati_newton": 0}
 
-# Compile-time limits of csrc/riccati.cu (sizes themselves are runtime).
-MAX_NX = 16
-MAX_NU = 8
+# The lane-group instantiations of csrc/riccati.cu (ATM_RIC_SHAPES): lanes
+# per instance for each (nx, nu). Every other size runs the general kernel.
+GROUP_SHAPES = {(12, 4): 4, (6, 3): 2, (8, 3): 4, (6, 8): 2, (5, 2): 1}
+THREADS = 128                 # per block, both designs
+SMEM_LIMIT_BYTES = 232_448    # what a Hopper block may take
+
+
+class KernelPlan(NamedTuple):
+    """How one launch runs: ``group`` lanes per instance (0: the general
+    kernel, one warp per instance), ``per_block`` instances per block and
+    the block's dynamic shared memory."""
+
+    group: int
+    per_block: int
+    smem_bytes: int
+
+
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def kernel_plan(nx: int, nu: int, newton: bool = False,
+                limit: int = SMEM_LIMIT_BYTES) -> KernelPlan:
+    """Mirrors ``ric_plan`` in ``csrc/riccati.cu`` (the C entry refuses a
+    launch whose bytes differ). The lane-group kernel for the shapes of
+    :data:`GROUP_SHAPES`: per instance P, A and an exchange buffer by
+    columns, B by rows and B'P by columns (Newton also M_j and K), each slice
+    4 mod 32 floats long. Else the general kernel with as many warps (at
+    most 4) as fit ``limit``. Raises with the bytes one instance needs when
+    not even one fits."""
+    G = GROUP_SHAPES.get((nx, nu))
+    if G is not None:
+        mats = (4 if newton else 3) * nx * _r4(nx) + (
+            3 if newton else 2) * nx * _r4(nu)
+        stride = mats + (36 - mats % 32) % 32
+        return KernelPlan(G, THREADS // G, THREADS // G * stride * 4)
+    per_warp = 4 * (5 * nx * nx + 5 * nu * nx + 2 * nu * nu + nx + nu)
+    warps = min(THREADS // 32, limit // per_warp)
+    if warps < 1:
+        raise ValueError(
+            f"the Riccati kernels need {per_warp} bytes of shared memory for "
+            f"one instance at nx={nx}, nu={nu} (limit {limit}); use "
+            "precompute.riccati_cache_jax (riccati='vmap' in "
+            "solver.batched_ops)")
+    return KernelPlan(0, warps, warps * per_warp)
 
 
 def reset_launch_counts() -> None:
@@ -57,10 +103,10 @@ def _library() -> ctypes.CDLL:
     lib = load_library("riccati")
     if not getattr(lib, "_atm_declared", False):
         lib.atm_riccati_fixed_point.argtypes = (
-            [_P] * 13 + [_I] * 4 + [_F] + [_P])
+            [_P] * 13 + [_I] * 4 + [_F] + [_I] * 2 + [_P])
         lib.atm_riccati_fixed_point.restype = _I
         lib.atm_riccati_newton.argtypes = (
-            [_P] * 12 + [_I] * 5 + [_F] + [_P])
+            [_P] * 12 + [_I] * 5 + [_F] + [_I] * 2 + [_P])
         lib.atm_riccati_newton.restype = _I
         lib._atm_declared = True
     return lib
@@ -72,11 +118,6 @@ def _prepare(A, B, Q, R, rho):
         raise ValueError("A must be (B, nx, nx) and B (B, nx, nu)")
     Bn, nx, _ = A.shape
     nu = B.shape[-1]
-    if nx > MAX_NX or nu > MAX_NU:
-        raise ValueError(
-            f"the Riccati kernels take nx <= {MAX_NX} and nu <= {MAX_NU}, "
-            f"got nx={nx}, nu={nu}; use precompute.riccati_cache_jax "
-            "(riccati='vmap' in solver.batched_ops)")
     dev = A.device
     f = lambda a, shape, name: _shaped(a, shape, name, dev)
     A = f(A, (Bn, nx, nx), "A")
@@ -106,9 +147,17 @@ def _outputs(Bn, nx, nu, dev):
             torch.empty((Bn,), dtype=torch.int32, device=dev))
 
 
+def _launch_plan(dev, nx: int, nu: int, newton: bool):
+    """``(plan, limit)`` on this device; raises where nothing fits."""
+    props = torch.cuda.get_device_properties(dev)
+    limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
+    return kernel_plan(nx, nu, newton, limit), limit
+
+
 def _raise_on(err: int, what: str) -> None:
     if err == -1:
-        raise RuntimeError(f"{what}: sizes refused by the kernel entry")
+        raise RuntimeError(f"{what}: sizes or shared-memory plan refused by "
+                           "the kernel entry")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
@@ -146,8 +195,9 @@ def riccati_fixed_point_kernel(A, B, Q, R, rho, *, max_iters: int = 1000,
     :class:`..types.Cache` matching :func:`..precompute.riccati_cache_jax`
     per instance (same initialisation, stopping rule and per-instance freeze
     at convergence), and the steps each instance took, ``(B,)`` int32.
-    ``P0``/``K0`` (both or neither) warm-start the fixed point. ``nx <= 16``
-    and ``nu <= 8``; larger sizes raise.
+    ``P0``/``K0`` (both or neither) warm-start the fixed point. Any size
+    whose one-instance working set fits a block's shared memory
+    (:func:`kernel_plan`); larger sizes raise.
     """
     if (P0 is None) != (K0 is None):
         raise ValueError("warm start needs both P0 and K0")
@@ -158,6 +208,7 @@ def riccati_fixed_point_kernel(A, B, Q, R, rho, *, max_iters: int = 1000,
     if P0 is not None:
         P0 = _shaped(P0, (Bn, nx, nx), "P0", dev)
         K0 = _shaped(K0, (Bn, nu, nx), "K0", dev)
+    plan, limit = _launch_plan(dev, nx, nu, False)
     Kinf, Pinf, Quu, AmBKt, coeff, iters = _outputs(Bn, nx, nu, dev)
     lib = _library()
     with torch.cuda.device(dev):
@@ -168,7 +219,7 @@ def riccati_fixed_point_kernel(A, B, Q, R, rho, *, max_iters: int = 1000,
             None if K0 is None else K0.data_ptr(),
             Kinf.data_ptr(), Pinf.data_ptr(), Quu.data_ptr(),
             AmBKt.data_ptr(), coeff.data_ptr(), iters.data_ptr(),
-            Bn, nx, nu, int(max_iters), float(tol),
+            Bn, nx, nu, int(max_iters), float(tol), plan.smem_bytes, limit,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "riccati_cache_kernel")
     LAUNCH_COUNTS["riccati_fixed_point"] += 1
@@ -229,6 +280,7 @@ def riccati_newton_kernel(A, B, Q, R, rho, K0, *, max_outer: int = 12,
     A, B, Q, R, rho, Bn, nx, nu = _prepare(A, B, Q, R, rho)
     dev = A.device
     K0 = _shaped(K0, (Bn, nu, nx), "K0", dev)
+    plan, limit = _launch_plan(dev, nx, nu, True)
     Kinf, Pinf, Quu, AmBKt, coeff, iters = _outputs(Bn, nx, nu, dev)
     lib = _library()
     with torch.cuda.device(dev):
@@ -238,7 +290,7 @@ def riccati_newton_kernel(A, B, Q, R, rho, K0, *, max_outer: int = 12,
             Kinf.data_ptr(), Pinf.data_ptr(), Quu.data_ptr(),
             AmBKt.data_ptr(), coeff.data_ptr(), iters.data_ptr(),
             Bn, nx, nu, int(max_outer), int(inner_iters), float(tol),
-            torch.cuda.current_stream().cuda_stream)
+            plan.smem_bytes, limit, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "riccati_cache_newton")
     LAUNCH_COUNTS["riccati_newton"] += 1
     return Cache(rho=rho, Kinf=Kinf, Pinf=Pinf, Quu_inv=Quu, AmBKt=AmBKt,

@@ -77,15 +77,14 @@ def solve_adaptive_rho_hetero(
     Xref); ``cones`` with hetero-layout ``cone_params``/``cone_masks`` add
     the kernels' cone projections.
 
-    ``riccati`` routes the Riccati builds as the JAX package does: for
-    plants the Riccati kernels take (``nx <= 16``, ``nu <= 8``),
-    ``"kernel"`` is the fixed-point kernel K5 (warm refreshes from the
-    previous caches), ``"newton"`` and ``"auto"`` (on CUDA tensors) the K5
-    initial build and Newton-Kleinman refreshes K6; otherwise, and for
-    ``"vmap"`` and ``"auto"`` on the CPU, the batched tensor code of
-    :mod:`..precompute` (``"newton"`` then refreshes with its Newton
-    solve)."""
-    from ..precompute import riccati_cache_jax, riccati_newton_jax
+    ``riccati`` routes the Riccati builds: ``"kernel"`` is the fixed-point
+    kernel K5 (warm refreshes from the previous caches), ``"newton"`` and
+    ``"auto"`` (on CUDA tensors) the K5 initial build and Newton-Kleinman
+    refreshes K6, at any plant size whose working set fits a block's shared
+    memory (larger ones raise; on CPU tensors the kernels' plain versions
+    run); ``"vmap"`` and ``"auto"`` on the CPU the batched tensor code of
+    :mod:`..precompute`."""
+    from ..precompute import riccati_cache_jax
 
     if getattr(settings, "alpha", 1.0) != 1.0:
         raise ValueError(
@@ -97,13 +96,10 @@ def solve_adaptive_rho_hetero(
     batch = x0.shape[0]
     nx, nu = A.shape[-1], B.shape[-1]
     check_every = max(1, settings.check_termination)
-    fits = nx <= rk.MAX_NX and nu <= rk.MAX_NU
-    use_kernel = (riccati in ("kernel", "newton") and fits) or (
-        riccati == "auto" and fits and A.is_cuda)
+    use_kernel = riccati in ("kernel", "newton") or (
+        riccati == "auto" and A.is_cuda)
 
     def build_caches(rho, warm=None):
-        if riccati == "newton" and not fits and warm is not None:
-            return riccati_newton_jax(A, B, Q, R, rho, warm.Kinf, tol=1e-6)
         if use_kernel:
             if riccati in ("newton", "auto") and warm is not None:
                 return rk.riccati_cache_newton(A, B, Q, R, rho, warm.Kinf)

@@ -437,8 +437,9 @@ def solve_adaptive_rho_batched(
     ``"vmap"`` (:func:`..precompute.riccati_cache_jax`, batched tensor
     code, on request only), or ``"auto"`` (the kernel for tensors on a CUDA
     device, batched tensor code for tensors on the CPU). The kernels take
-    ``nx <= 16`` and ``nu <= 8`` and raise above that, under ``"auto"``
-    too: pass ``riccati="vmap"`` for larger plants. On CPU tensors
+    any plant whose one-instance working set fits a block's shared memory
+    (:func:`..ops.riccati_kernel.kernel_plan`) and raise above that, under
+    ``"auto"`` too: pass ``riccati="vmap"`` for larger plants. On CPU tensors
     ``"kernel"``/``"newton"`` run the kernels' plain versions.
     """
     if getattr(settings, "alpha", 1.0) != 1.0:

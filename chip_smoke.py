@@ -14,7 +14,12 @@ at batch 65,536, and checks two batch-1 missions against the golden
 trajectories of the compiled C++ reference. The ``slots`` phase holds the
 fused kernels' per-instance slots to position independence: a permuted
 batch, a batch smaller than one block's slots and two launches back to back
-give the same instance the same bits. Then the second path, again
+give the same instance the same bits. The ``operators`` phase holds the two
+placements of the condensed operators (shared memory, device memory) to the
+same bits where both fit, and runs the quadrotor at N=20 and N=40 (past
+shared memory) through ``TinyMPC(tier="fused")``. The Riccati kernels are
+held at the port's sizes and at (17, 9), (24, 10), (32, 12). Then the
+second path, again
 through ``TinyMPC`` at batch 65,536: second-order cones inside the fused
 kernels (the powered-descent lander, nx=6, nu=3, N=15), the compaction
 cascade, and per-instance adaptive rho with the Riccati kernels. Then the
@@ -248,13 +253,14 @@ LANDER_ADAPTIVE = dict(max_iter=300, check_termination=2, **LANDER_TOL)  # K4 b
 LANDER_MISSION = dict(max_iter=100, check_termination=2, **LANDER_TOL)   # K4 c
 
 
-def flagship(batch, dev, seed=0, spread=0.05):
-    """The quadrotor (nx=12, nu=4, N=10): ``(problem, cache, padded
-    operators, batch x0 spread around its nominal x0)``."""
+def flagship(batch, dev, seed=0, spread=0.05, horizon=10):
+    """The quadrotor (nx=12, nu=4, N=10, or ``horizon``): ``(problem, cache,
+    padded operators, batch x0 spread around its nominal x0)``."""
     import accelerated_tinympc_tpu_torch as atm
     from accelerated_tinympc_tpu_torch.ops import pad_problem
 
-    problem, cache, x0 = atm.models.quadrotor_hovering_setup(device=dev)
+    problem, cache, x0 = atm.models.quadrotor_hovering_setup(
+        horizon=horizon, device=dev)
     ops = atm.condensed_operators(
         cache, problem.A, problem.B, problem.horizon, device=dev)
     pp = pad_problem(problem, cache, ops, device=dev)
@@ -364,8 +370,12 @@ def ptxas_per_kernel(log: str) -> list:
                       r" '?(\w+)'?", ln)
         if m and "Compiling" in ln:
             name = m.group(1)
-            short = re.search(r"atm\d+(\w+?_kernel)", name)
-            cur = {"kernel": short.group(1) if short else name}
+            short = re.search(r"atm\d+(\w+?_kernel)(I\w*E)?", name)
+            label = name
+            if short:   # template arguments (placement, shape) as <...>
+                args = re.findall(r"L[ib](\d+)E", short.group(2) or "")
+                label = short.group(1) + (f"<{','.join(args)}>" if args else "")
+            cur = {"kernel": label}
             rows.append(cur)
         if cur is None:
             continue
@@ -562,9 +572,10 @@ def main() -> None:
     ptxas = {
         name: [ln.strip() for ln in _build.build_log(name).splitlines()
                if "registers" in ln or "spill" in ln]
-        for name in ("riccati", "hetero_admm", "stream_admm")}
+        for name in ("hetero_admm", "stream_admm")}
     emit("build", seconds=round(_build.last_build_seconds, 2), ptxas=ptxas,
-         fused_kernels=ptxas_per_kernel(_build.build_log("fused_admm")))
+         fused_kernels=ptxas_per_kernel(_build.build_log("fused_admm")),
+         riccati_kernels=ptxas_per_kernel(_build.build_log("riccati")))
 
     # -------------------------------------------------------------- kernels
     cases = []
@@ -684,7 +695,8 @@ def main() -> None:
     # slot); batches smaller than one block's slots; two launches back to
     # back (the work counter starts at 0 in each). All at one launch
     # geometry (the backward product's depth split follows slots and threads).
-    tile_, threads_, _smem = fused_admm._geometry(pp, B, dev, None, None)
+    tile_, threads_, _smem, _placement = fused_admm._geometry(
+        pp, B, dev, None, None)
     geo = dict(batch_tile=tile_, threads=threads_)
     perm = torch.as_tensor(np.random.default_rng(7).permutation(B),
                            device=dev)
@@ -735,6 +747,123 @@ def main() -> None:
     raise_failures(small_cases + [{"failures": [
         f"slots: {k} is not bit-exact" for k, v in slot_cases.items()
         if not v]}])
+
+    # ---------------------------------------------------------- operators
+    # The fused kernels keep the condensed operators in shared memory where
+    # they fit beside one register tile of slots, else read them from
+    # device memory (resident in L2). Both placements sum in the same
+    # order: where both fit they give the same bits at one launch geometry
+    # (K1 fixed-100 cold, K2 warm, K3 12 ticks at the flagship N=10 and at
+    # N=18, the longest horizon that still fits shared memory, both at the
+    # shared placement's slots and threads; the backward product's depth
+    # split follows them). Past N=18 the quadrotor runs
+    # only with the operators in device memory: N=20 and N=40 through
+    # TinyMPC(tier="fused") -- a fixed-100 and an adaptive solve and a
+    # 20-tick in-kernel mission, each against the plain version (the
+    # float64 plain version arbitrates, as for the fleets, where two
+    # float32 versions stray further than the bars), and the entry point's
+    # results equal to the kernel's called directly. Then the N=18 solve's
+    # milliseconds in both placements at batch 65,536, and where
+    # choose_tile refuses.
+    def placement_fields(kind, run):
+        out = run("shared"), run("device")
+        f = solve_fields if kind == "solve" else mission_fields
+        return all(torch.equal(a, b) for a, b in zip(f(out[0]), f(out[1])))
+
+    def cuda_result(r):
+        return FusedResult(U=r.U.to(dev), X=r.X.to(dev), stats=r.stats.to(dev),
+                           carry=FusedCarry(*(a.to(dev) for a in r.carry)))
+
+    op_exact, op_cases, op_ms = {}, [], {}
+    for N in (10, 18):
+        oprob, _oc, opp, ox = flagship(B, dev, horizon=N)
+        ocold = FusedCarry.zeros(B, opp, device=dev)
+        orops = rollout_ops(oprob, opp, device=dev)
+        ox1, owarm = warm_start(oprob, opp, ox, dev)
+        assert fused_admm.choose_placement(opp.dims) == "shared", N
+        tile_o, threads_o = fused_admm._geometry(opp, B, dev, None, None)[:2]
+        ogeo = dict(batch_tile=tile_o, threads=threads_o)
+        op_exact[f"K1 N={N}"] = placement_fields("solve", lambda pl: fused_solve(
+            ox, ocold, opp, max_iter=100, placement=pl, **ogeo))
+        op_exact[f"K2 warm N={N}"] = placement_fields(
+            "solve", lambda pl: fused_solve(ox1, owarm, opp, placement=pl,
+                                            **ogeo, **WARM_KW))
+        op_exact[f"K3 12 ticks N={N}"] = placement_fields(
+            "mission", lambda pl: fused_rollout(ox, ocold, opp, orops, 12,
+                                                placement=pl, **ogeo,
+                                                **WARM_KW))
+    for N in (20, 40):
+        oprob, ocache, ox = atm.models.quadrotor_hovering_setup(
+            horizon=N, device=dev)
+        rng = np.random.default_rng(N)
+        ox = torch.as_tensor(ox[None] + 0.05 * rng.standard_normal((B, 12)),
+                             dtype=torch.float32, device=dev)
+        opp64 = pad_problem(oprob.to(dtype=f64), ocache.to(dtype=f64),
+                            atm.condensed_operators(
+                                ocache, oprob.A, oprob.B, N, dtype=f64,
+                                device=dev), dtype=f64, device=dev)
+        for label, settings in (
+                ("fixed-100", atm.Settings(max_iter=100, check_termination=0)),
+                ("adaptive", atm.Settings(max_iter=100, check_termination=1))):
+            mpc = atm.TinyMPC.from_parts(oprob, ocache, tier="fused",
+                                         batch=B, settings=settings)
+            mpc.set_x0(ox)
+            mpc.solve()
+            opp = mpc._pp
+            assert fused_admm.choose_placement(opp.dims) == "device", N
+            ocold = FusedCarry.zeros(B, opp, device=dev)
+            kw = dict(max_iter=100,
+                      check_termination=settings.check_termination)
+            got = mpc._fused_result
+            direct = fused_solve(ox, ocold, opp, **kw)
+            op_exact[f"TinyMPC {label} N={N} is the kernel"] = all(
+                torch.equal(a, b) for a, b in zip(solve_fields(got),
+                                                  solve_fields(direct)))
+            cpu_pp = opp.to(device="cpu")
+            op_cases.append(arbitrated(
+                f"TinyMPC fused {label} N={N}", got,
+                fused_solve_plain(ox, ocold, opp, **kw),
+                fused_solve_plain(ox.double(), FusedCarry.zeros(
+                    B, opp64, f64, dev), opp64, **kw),
+                kw["check_termination"], opp.rho_f,
+                lambda: cuda_result(fused_solve_plain(
+                    ox.cpu(), FusedCarry.zeros(B, cpu_pp, device="cpu"),
+                    cpu_pp, **kw))))
+        orops = rollout_ops(oprob, opp, device=dev)
+        mpc = atm.TinyMPC.from_parts(oprob, ocache, tier="fused", batch=B,
+                                     settings=atm.Settings(
+                                         max_iter=100, check_termination=1))
+        mpc.set_x0(ox)
+        xf_m, us_m = mpc.rollout(20, in_kernel=True)
+        got = fused_rollout(ox, ocold, opp, orops, 20, **WARM_KW)
+        op_exact[f"TinyMPC 20 ticks N={N} is the kernel"] = bool(
+            torch.equal(us_m, got.us) and torch.equal(xf_m, got.x_final))
+        op_cases.append(compare_rollout(
+            f"K3 20 ticks N={N}", got,
+            fused_rollout_plain(ox, ocold, opp, orops, 20, **WARM_KW), 1))
+    raises_at = []
+    for N in range(2, 80):
+        try:
+            fused_admm.choose_tile((12, 4, N), MAIN_BATCH)
+        except ValueError:
+            raises_at.append(N)
+    for N in (18, 20):
+        _p, _c, opp, oxm = flagship(MAIN_BATCH, dev, horizon=N)
+        ocold = FusedCarry.zeros(MAIN_BATCH, opp, device=dev)
+        for pl in ("shared", "device") if N == 18 else ("device",):
+            op_ms[f"N={N} fixed-100 {pl}"] = {
+                "ms": cuda_ms(lambda: fused_solve(oxm, ocold, opp,
+                                                  max_iter=100, placement=pl)),
+                "tile_threads": fused_admm._geometry(
+                    opp, MAIN_BATCH, dev, None, None, 0, pl)[:2]}
+    del oxm, ocold, opp, mpc, got, direct
+    torch.cuda.synchronize()
+    emit("operators", batch=B, bit_exact=op_exact, cases=op_cases,
+         choose_tile_raises_at=raises_at, ms_at_main_batch=op_ms)
+    raise_failures(op_cases + [{"failures": [
+        f"operators: {k} is not bit-exact" for k, v in op_exact.items()
+        if not v]}])
+    assert raises_at == [79], raises_at
 
     # ------------------------------------------- cones in the fused kernels
     # The powered-descent lander of examples/torch_soc_landing.py: nx=6,
@@ -918,13 +1047,19 @@ def main() -> None:
     def newton_plain(*a, tol=1e-5):
         return riccati_newton(*a, tol=tol, max_outer=12, inner_iters=13)
 
+    # Flagship sizes and a random_lti shape (lane-group instantiations),
+    # then sizes past the lane-group list (the general kernel, any size
+    # shared memory takes).
     ric_cases = []
-    for shape in ((12, 4), (6, 8)):       # flagship sizes; a random_lti shape
+    for shape in ((12, 4), (6, 8), (17, 9), (24, 10), (32, 12)):
         P = plants(B, *shape, seed=shape[0])
         got, it_g = rk.riccati_fixed_point_kernel(*P)
         want, it_w = fixed_point_plain(*P)
         ric_cases.append(compare_cache(
             f"K5 fixed point cold {shape}", got, want, it_g, it_w))
+        ric_cases[-1]["plan"] = rk.kernel_plan(*shape)._asdict()
+        ric_cases[-1]["kernel_ms"] = cuda_ms(
+            lambda: rk.riccati_fixed_point_kernel(*P))
         # warm start at a rho five times larger, as an adaptive-rho refresh
         rho2 = P[4] * 5.0
         warm, it_g = rk.riccati_fixed_point_kernel(
@@ -1698,6 +1833,7 @@ def main() -> None:
         if "cones" in row["name"] or row["name"].startswith("riccati"):
             row["launches"] = counts2[row["name"]]
     emit("second_path", batch=MAIN_BATCH, steps=steps2, launches=counts2,
+         quad_solve_adaptive_rho_kernel_ms=adaptive["kernel"]["ms"],
          cone_excess={"solve": fleet_excess, "mission": mission_excess2},
          mission_mean_distance={"start": d0, "end": d1},
          cascade=cascade, adaptive_rho=adaptive)

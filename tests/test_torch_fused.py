@@ -236,8 +236,11 @@ def test_kernel_geometry():
         or tile == ft.MAX_TILE
     assert ft.choose_tile((12, 4, 10), 1) == 8          # one block, one tile
     assert ft.choose_tile((12, 4, 10), 132 * 16) == 16  # spread over the SMs
+    # N=64 runs with the operators in device memory; past N=78 even one
+    # register tile of per-slot state outgrows shared memory
+    assert ft.choose_tile((12, 4, 64), 1024) == 8
     with pytest.raises(ValueError, match="stream tier"):
-        ft.choose_tile((12, 4, 64), 1024)               # long horizon
+        ft.choose_tile((12, 4, 79), 1024)               # long horizon
 
 
 def test_what_raises_for_now(quad):

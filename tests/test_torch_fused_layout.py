@@ -71,3 +71,60 @@ def test_launch_counts_name_every_fused_kernel():
     counter = ft.work_counter("cpu")     # zero at every launch
     assert counter.dtype == torch.int32 and counter.tolist() == [0]
     assert ft.LAUNCH_COUNTS == before
+
+
+@pytest.mark.parametrize("N, placement, tile", [
+    (10, "shared", 48), (18, "shared", 8), (20, "device", 32),
+    (64, "device", 8), (78, "device", 8)])
+def test_operators_stay_in_shared_memory_where_they_fit(N, placement, tile):
+    # the quadrotor: its operators fit beside one register tile up to N=18;
+    # past that the kernels read them from device memory and shared memory
+    # holds the bounds and the per-slot state alone
+    dims = (12, 4, N)
+    assert ft.choose_placement(dims) == placement
+    assert ft.choose_tile(dims, 65536) == tile
+    Dz, Du = N * 12 + (N - 1) * 4, (N - 1) * 4
+    r4 = lambda n: (n + 3) & ~3
+    operators = 4 * (2 * r4(Du) * r4(Dz) + 12 * r4(Dz))   # Wf, Wb, Wx
+    for t in (8, tile):
+        assert (ft.kernel_smem_bytes(*dims, t) - operators
+                == ft.kernel_smem_bytes(*dims, t, placement="device"))
+        assert ft.kernel_smem_bytes(*dims, t, placement=placement) \
+            <= ft.SMEM_LIMIT_BYTES
+    assert (ft.kernel_smem_bytes(*dims, 8) <= ft.SMEM_LIMIT_BYTES) == (N <= 18)
+
+
+def test_past_one_register_tile_of_state_the_fused_tier_refuses():
+    # N=79: 8 slots of per-slot state alone exceed a block's shared memory;
+    # the message gives the bytes and the JAX package's boundary (its 12 MB
+    # VMEM sizing takes the quadrotor to N=129, the lander to N=213)
+    need = ft.kernel_smem_bytes(12, 4, 79, 8, placement="device")
+    assert need == 233_552 > ft.SMEM_LIMIT_BYTES
+    with pytest.raises(ValueError, match=f"needs {need} bytes.*N=129"):
+        ft.choose_tile((12, 4, 79), 65536)
+    assert ft.tpu_horizon_limit(12, 4) == 129
+    assert ft.tpu_horizon_limit(6, 3) == 213
+    assert ft.choose_placement((6, 3, 135)) == "device"    # the lander
+    with pytest.raises(ValueError, match="N=213"):
+        ft.choose_placement((6, 3, 136))
+    with pytest.raises(ValueError, match="operators in shared memory"):
+        ft.choose_tile((12, 4, 20), 65536, placement="shared")
+
+
+def test_kernel_operands_come_padded_to_float4_rows():
+    # Wf, Wb, Wx as the kernels read them, staged or in place: zero rows
+    # and columns up to multiples of 4 (nx=6, nu=3, N=15: Du = 42 -> 44)
+    import accelerated_tinympc_tpu_torch as atm
+
+    prob, rho = atm.models.random_lti_problem(3, 6, 3, 15, device="cpu")
+    cache = atm.riccati_cache(prob.A, prob.B, prob.Q, prob.R, rho,
+                              device="cpu")
+    ops = atm.condensed_operators(cache, prob.A, prob.B, 15, device="cpu")
+    pp = ft.pad_problem(prob, cache, ops, device="cpu")
+    assert (pp.Du, pp.Dx) == (42, 90)
+    assert pp.W_f.shape == (44, 132) and pp.W_b.shape == (132, 44)
+    assert pp.W_x.shape == (6, 132)
+    assert torch.equal(pp.W_f[:42, :90], pp.W_fd)
+    assert torch.equal(pp.W_f[:42, 90:], pp.W_gd)
+    assert torch.equal(pp.W_b[:, :42], torch.cat([pp.W_q, pp.W_r]))
+    assert not pp.W_f[42:].any() and not pp.W_b[:, 42:].any()

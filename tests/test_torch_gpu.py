@@ -143,6 +143,85 @@ def test_float64_on_the_card_raises(card):
         fused_solve(x0s.double(), cold, pp, max_iter=5)
 
 
+# ------------------------------------------ operator placements ----
+
+def _quadrotor(horizon, batch=133):
+    problem, cache, x0 = atm.models.quadrotor_hovering_setup(horizon=horizon)
+    ops = atm.condensed_operators(cache, problem.A, problem.B, horizon)
+    pp = pad_problem(problem, cache, ops)
+    rng = np.random.default_rng(horizon)
+    x0s = torch.as_tensor(x0[None] + 0.05 * rng.standard_normal((batch, 12)),
+                          dtype=torch.float32, device="cuda")
+    return problem, cache, pp, x0s
+
+
+@pytest.mark.parametrize("N", [10, 18])
+def test_operator_placements_are_bit_identical(card, N):
+    """Where the operators fit shared memory, reading them from device
+    memory instead changes no bit at one launch geometry (every product
+    sums in the same order; the backward product's depth split follows
+    slots and threads)."""
+    problem, _cache, pp, x0s = _quadrotor(N)
+    assert fused_admm.choose_placement(pp.dims) == "shared"
+    cold = FusedCarry.zeros(x0s.shape[0], pp)
+    geo = dict(batch_tile=8, threads=128)
+    for kw in (dict(max_iter=50), dict(max_iter=100, check_termination=1)):
+        a, b = (fused_solve(x0s, cold, pp, placement=pl, **geo, **kw)
+                for pl in ("shared", "device"))
+        assert all(torch.equal(x, y)
+                   for x, y in zip(_solve_fields(a), _solve_fields(b)))
+    rops = rollout_ops(problem, pp)
+    a, b = (fused_rollout(x0s, cold, pp, rops, 6, placement=pl, max_iter=30,
+                          **geo) for pl in ("shared", "device"))
+    assert all(torch.equal(x, y)
+               for x, y in zip(_mission_fields(a), _mission_fields(b)))
+
+
+def test_tinympc_fused_past_shared_memory_matches_the_plain_tiers(card):
+    """N=20: the quadrotor's operators no longer fit shared memory; the
+    fused tier reads them from device memory. Controls within 1e-4 of the
+    fused plain version and of the scan and condensed tiers; states within
+    2e-4 of the fused plain version (chip_smoke.py's bars)."""
+    problem, cache, pp, x0s = _quadrotor(20)
+    assert fused_admm.choose_placement(pp.dims) == "device"
+    settings = atm.Settings(max_iter=100, check_termination=0)
+    res = {}
+    for tier in ("fused", "condensed", "scan"):
+        mpc = atm.TinyMPC.from_parts(problem, cache, tier=tier,
+                                     batch=x0s.shape[0], settings=settings)
+        mpc.set_x0(x0s)
+        mpc.solve()
+        res[tier] = (mpc.get_u(), mpc.get_x())
+    want = fused_solve_plain(x0s, FusedCarry.zeros(x0s.shape[0], pp), pp,
+                             max_iter=100)
+    u, x = res["fused"]
+    assert np.abs(u.reshape(u.shape[0], -1) - want.U.cpu().numpy()).max() <= ATOL
+    assert np.abs(x.reshape(x.shape[0], -1) - want.X.cpu().numpy()).max() <= 2 * ATOL
+    for tier in ("condensed", "scan"):
+        assert np.abs(u - res[tier][0]).max() <= ATOL, tier
+
+
+def test_coned_kernel_takes_any_number_of_cones(card):
+    """Ten cones, one with a ten-entry ball (the kernels read a cone table
+    sized at run time)."""
+    from accelerated_tinympc_tpu_torch.ops import pad_cones
+    from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
+
+    _problem, pp, x0s, cold = card
+    cones = ConeSet(
+        input_cones=tuple(Cone((i,), (i + 1) % 4, 2.0, 1.0) for i in range(4)),
+        state_cones=(Cone(tuple(range(10)), 10, 5.0, 1.0),)
+        + tuple(Cone((k,), k + 1, 3.0, 2.0) for k in range(5)))
+    cops = pad_cones(pp, cones)
+    before = fused_admm.LAUNCH_COUNTS["fused_solve_fixed_cones"]
+    for kw in (dict(max_iter=50), dict(max_iter=100, check_termination=1,
+                                       abs_pri_tol=1e-2, abs_dua_tol=1e-2)):
+        _assert_solve_close(fused_solve(x0s, cold, pp, cone_ops=cops, **kw),
+                            fused_solve_plain(x0s, cold, pp, cone_ops=cops,
+                                              **kw))
+    assert fused_admm.LAUNCH_COUNTS["fused_solve_fixed_cones"] == before + 1
+
+
 # ------------------------------------------- cones in the fused kernels ----
 
 def _lander(horizon=15, batch=133):
@@ -278,7 +357,8 @@ def _ric_tol(cache, field, rows=slice(None)):
     return 1e-4 * max(1.0, float(ref[rows].abs().max()))
 
 
-@pytest.mark.parametrize("dims", [(12, 4), (6, 8), (16, 8), (1, 1)])
+@pytest.mark.parametrize("dims", [(12, 4), (6, 8), (6, 3), (8, 3), (5, 2),
+                                  (16, 8), (1, 1)])
 def test_riccati_fixed_point_kernel_matches_plain(card, dims):
     from accelerated_tinympc_tpu_torch.ops import riccati_kernel as rk
 
@@ -318,19 +398,42 @@ def test_riccati_newton_kernel_matches_plain_and_flags_bad_gain(card):
     assert float((got.Kinf - truth.Kinf)[ok].abs().max()) <= 1e-3
 
 
-def test_riccati_kernel_refuses_large_sizes(card):
+@pytest.mark.parametrize("dims", [(17, 9), (24, 10), (32, 12)])
+def test_riccati_kernel_refuses_large_sizes(card, dims):
+    """Sizes past the lane-group list run the general kernel (both entry
+    points, launches counted) and agree with the plain versions; only a
+    plant whose working set outgrows a block's shared memory is refused."""
     from accelerated_tinympc_tpu_torch.ops import riccati_kernel as rk
+    from accelerated_tinympc_tpu_torch.precompute import riccati_fixed_point
 
-    A, B, Q, R, rho = _plants(3, 4, 2)
-    big = torch.zeros((3, 17, 17), device="cuda")
-    with pytest.raises(ValueError, match="nx <= 16"):
-        rk.riccati_cache_kernel(big, torch.zeros((3, 17, 2), device="cuda"),
-                                torch.ones((3, 17), device="cuda"), R, rho)
+    A, B, Q, R, rho = _plants(67, *dims, seed=dims[0])
+    assert rk.kernel_plan(*dims).group == 0
+    before = dict(rk.LAUNCH_COUNTS)
+    got, it_g = rk.riccati_fixed_point_kernel(A, B, Q, R, rho)
+    want, it_w = riccati_fixed_point(A, B, Q, R, rho, max_iters=1000,
+                                     tol=1e-5)
+    assert float((it_g - it_w).abs().float().max()) <= 1
+    for k, v in want.tensors().items():
+        assert float((getattr(got, k) - v).abs().max()) <= _ric_tol(want, k), k
+    rho2 = rho * 5.0
+    newt = rk.riccati_cache_newton(A, B, Q, R, rho2, got.Kinf)
+    wantn = rk.riccati_cache_newton_plain(A, B, Q, R, rho2, got.Kinf)
+    for k, v in wantn.tensors().items():
+        assert float((getattr(newt, k) - v).abs().max()) <= _ric_tol(wantn, k), k
+    assert rk.LAUNCH_COUNTS["riccati_fixed_point"] == \
+        before["riccati_fixed_point"] + 1
+    assert rk.LAUNCH_COUNTS["riccati_newton"] == before["riccati_newton"] + 1
+    big = torch.zeros((3, 110, 110), device="cuda")
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        rk.riccati_cache_kernel(big, torch.zeros((3, 110, 2), device="cuda"),
+                                torch.ones((3, 110), device="cuda"),
+                                R[:3, :2], rho[:3])
 
 
 def test_auto_riccati_on_the_card_is_the_kernel_and_refuses_large_sizes(card):
-    """``riccati="auto"`` on CUDA tensors launches the kernel; above the
-    kernels' sizes it raises and does not take the batched tensor code."""
+    """``riccati="auto"`` on CUDA tensors launches the kernel at every size
+    shared memory takes (17 states too); past that it raises and does not
+    take the batched tensor code."""
     from accelerated_tinympc_tpu_torch.ops import riccati_kernel as rk
     from accelerated_tinympc_tpu_torch.solver.batched_ops import (
         build_instance_ops_from_plants,
@@ -354,6 +457,13 @@ def test_auto_riccati_on_the_card_is_the_kernel_and_refuses_large_sizes(card):
     assert float((caches.Kinf - want.Kinf).abs().max()) <= ATOL
     assert bool(torch.isfinite(ops.W_q).all())
     A, B, Q, R, rho = _plants(3, 17, 2)
+    before = rk.LAUNCH_COUNTS["riccati_fixed_point"]
+    ops, caches = build_instance_ops_from_plants(
+        A, B, Q, R, rho, bounds(A, B, Q, R))
+    assert rk.LAUNCH_COUNTS["riccati_fixed_point"] == before + 1
+    want = rk.riccati_cache_kernel_plain(A, B, Q, R, rho)
+    assert float((caches.Kinf - want.Kinf).abs().max()) <= _ric_tol(want, "Kinf")
+    A, B, Q, R, rho = _plants(2, 110, 2)
     with pytest.raises(ValueError, match="riccati='vmap'"):
         build_instance_ops_from_plants(A, B, Q, R, rho, bounds(A, B, Q, R))
     ops, _ = build_instance_ops_from_plants(

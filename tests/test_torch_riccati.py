@@ -81,6 +81,46 @@ def test_fixed_point_matches_jax_vmap(dims):
     close(got, truth64(*P), 2e-3, names=("Kinf", "Pinf"))
 
 
+@pytest.mark.parametrize("dims", [(17, 9), (24, 10)])
+def test_plain_versions_past_the_lane_group_sizes_match_jax_vmap(dims):
+    """Sizes the general kernel takes on the card: its plain version (the
+    CPU's path) against the JAX package's vmapped fixed point, 1e-4
+    relative to each field's largest entry; the Newton plain version from
+    that gain lands on the same fixed point (2e-4: the fixed point stops
+    within its tolerance of it)."""
+    P = plants(3, *dims, seed=dims[0])
+    want = jax.jit(jax.vmap(pj.riccati_cache_jax))(*jj(P))
+    got, iters = rk.riccati_fixed_point_kernel(*tt(P))   # CPU tensors: plain
+    close(got, want, 1e-4)
+    assert iters.shape == (3,) and int(iters.min()) > 1
+    newton = rk.riccati_cache_newton(*tt(P), got.Kinf)
+    close(newton, got, 2e-4, names=("Kinf", "Pinf"))
+
+
+def test_kernel_plan_picks_the_instantiation_and_counts_bytes():
+    """The host's mirror of csrc/riccati.cu ric_plan: the lane-group kernel
+    for the listed shapes (per instance P, A, an exchange buffer by columns
+    of r4(nx) floats, B and B'P by rows of r4(nu); Newton also M_j and K; a
+    slice rounded to 4 mod 32 floats), the general one (a warp per
+    instance, at most 4 a block) for the rest, refused past one block."""
+    assert rk.kernel_plan(12, 4) == (4, 32, 32 * 548 * 4)
+    assert rk.kernel_plan(12, 4, newton=True) == (4, 32, 32 * 740 * 4)
+    assert rk.kernel_plan(6, 3) == (2, 64, 64 * 196 * 4)
+    assert rk.kernel_plan(5, 2) == (1, 128, 128 * 164 * 4)
+    for (nx, nu), G in rk.GROUP_SHAPES.items():
+        plan = rk.kernel_plan(nx, nu)
+        assert plan.group == G and nx % G == 0 and plan.per_block * G == 128
+        assert (plan.smem_bytes // plan.per_block // 4) % 32 == 4
+    # general: 5 nx^2 + 5 nu nx + 2 nu^2 + nx + nu floats a warp
+    per_warp = 4 * (5 * 289 + 5 * 153 + 2 * 81 + 26)
+    assert rk.kernel_plan(17, 9) == (0, 4, 4 * per_warp)
+    assert rk.kernel_plan(17, 9, newton=True) == rk.kernel_plan(17, 9)
+    assert rk.kernel_plan(100, 4) == (0, 1, 208_544)   # one warp a block
+    with pytest.raises(ValueError, match="need 251384 bytes"):
+        rk.kernel_plan(110, 4)
+    assert rk.kernel_plan(110, 4, limit=300_000).per_block == 1
+
+
 def test_fixed_point_float64_exact_counts_and_freeze():
     with jax.enable_x64(True):
         P = plants(B, 6, 2, seed=1, dtype=np.float64)
@@ -187,9 +227,11 @@ def test_kernel_wrappers_validate_on_any_device():
     A, Bm, Q, R, rho = tt(plants(3, 4, 2))
     with pytest.raises(ValueError, match="both P0 and K0"):
         rk.riccati_cache_kernel(A, Bm, Q, R, rho, P0=torch.zeros(3, 4, 4))
-    with pytest.raises(ValueError, match="nx <= 16"):
-        rk._prepare(torch.zeros(3, 17, 17), torch.zeros(3, 17, 2),
-                    torch.ones(3, 17), R, rho)
+    # any size shared memory takes: 17 passes, past one block's bytes raises
+    assert rk._prepare(torch.zeros(3, 17, 17), torch.zeros(3, 17, 2),
+                       torch.ones(3, 17), R, rho)[-2:] == (17, 2)
+    with pytest.raises(ValueError, match="251384 bytes"):
+        rk.kernel_plan(110, 4)
     with pytest.raises(ValueError, match="shape"):
         rk._prepare(A, Bm, Q[:, :3], R, rho)
     assert set(rk.LAUNCH_COUNTS) == {"riccati_fixed_point", "riccati_newton"}

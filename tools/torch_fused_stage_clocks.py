@@ -16,7 +16,8 @@ bookkeeping with the backward product, and (slot kernels) the refill check
 and refill; per retired slot, the cycles its warp spent retiring it and
 loading the next. Two kernel layouts are known: the lockstep blocks of the
 first port (``solve_core``) and the slot kernels (``run_block``); the
-script stops if ROOT's source matches neither. The counters cost one
+script stops if ROOT's source matches neither (the slot kernels templated
+over the operators' placement count as the second). The counters cost one
 global atomic per stage and block-iteration, so the times printed beside
 them are a little above the uninstrumented kernels'.
 
@@ -142,6 +143,18 @@ SLOTS = [
 ]
 
 
+# The slot kernels templated over the operators' placement name the
+# template parameter in every stage call.
+PLACED = ("refill_stage<ADAPTIVE, ROLLOUT", "forward_stage<CONES, ROLLOUT",
+          "retire_slot<ROLLOUT", "load_slot<ADAPTIVE, ROLLOUT")
+
+
+def _placed(text: str) -> str:
+    for call in PLACED:
+        text = text.replace(call + ">", call + ", GOPS>")
+    return text
+
+
 def instrumented_copy(root: pathlib.Path, dst: pathlib.Path) -> str:
     pkg = dst / "accelerated_tinympc_tpu_torch"
     shutil.copytree(root / "accelerated_tinympc_tpu_torch", pkg,
@@ -150,6 +163,9 @@ def instrumented_copy(root: pathlib.Path, dst: pathlib.Path) -> str:
     src = cuh.read_text()
     layout, edits = ("slots", SLOTS) if "run_block" in src else (
         "lockstep", LOCKSTEP)
+    if "bool GOPS" in src:
+        layout = "slots over two placements"
+        edits = [(_placed(old), _placed(new)) for old, new in SLOTS]
     src = src.replace("namespace atm {\n", "namespace atm {\n" + COUNTERS, 1)
     for old, new in edits:
         if src.count(old) != 1:
