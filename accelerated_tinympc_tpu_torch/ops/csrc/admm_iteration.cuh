@@ -40,9 +40,14 @@
 //     the FMA rate alone but the 128 B/clk an SM can return from shared
 //     memory to registers. So each thread owns a register tile of RI = 8
 //     slots x TJ = 4 adjacent columns: per step of four k it loads 8 + 4
-//     float4 and does 128 FMAs (1.5 B/FMA). The backward product has few
-//     columns (Du/4 column groups), so its depth Dz is split over H adjacent
-//     lanes whose partial sums meet in a shuffle reduction. (A split-operand
+//     float4 and does 128 FMAs (1.5 B/FMA). Where one tile of 8 slots'
+//     state does not fit shared memory even with the operators in device
+//     memory (the quadrotor past N = 78), the kernels take RI = 4 (template
+//     parameter): 4 + 4 float4 for 64 FMAs. A slot's arithmetic does not
+//     depend on RI, so both give the same bits at one launch geometry. The
+//     backward product has few columns (Du/4 column groups), so its depth
+//     Dz is split over H adjacent lanes whose partial sums meet in a shuffle
+//     reduction. (A split-operand
 //     TF32 product on the tensor cores, mma.sync m16n8k8 in three passes,
 //     was measured on an H100 in this design's place and lost: PERF.md.)
 //   * Position independence: a slot row's arithmetic depends only on its own
@@ -92,12 +97,18 @@
 
 namespace atm {
 
-constexpr int RI = 8;  // slots per register tile; tile % RI == 0
-constexpr int TJ = 4;  // adjacent columns per register tile (one float4)
+// Slots per register tile (RI, a template parameter: 8, or 4 where 8 do
+// not fit; tile % RI == 0) and adjacent columns per register tile.
+constexpr int TJ = 4;  // one float4
 // Retire and refill once this many slots wait (or no slot is live): a
 // refill costs two barriers, and on an H100 batching 8 beat refilling at
-// every iteration (PERF.md).
-constexpr int REFILL_MIN = 8;
+// every iteration (PERF.md). The 4-slot tile runs only past N = 78 on the
+// quadrotor, where one iteration's products take far longer than a refill
+// (a refill loads one slot and forms its Xb, nx x Dz FMAs by one warp,
+// against tile x Du x Dz FMAs by the block for the forward product alone),
+// and a waiting slot is a quarter of the block idle: it refills at once.
+template <int RI>
+__host__ __device__ constexpr int refill_min() { return RI == 8 ? 8 : 1; }
 // The backward product's depth (Dz, 636 at N=40) sums in blocks of this many
 // float4 steps of a lane, each block one FMA chain added to the running sum.
 // One chain over a lane's whole depth (318 FMAs at N=40) left the states of
@@ -106,6 +117,17 @@ constexpr int REFILL_MIN = 8;
 // the flagship and the lander a lane's depth is one block, so their sums
 // are unchanged.
 constexpr int BWD_BLOCK = 32;
+constexpr int BWD_FINE = 4;
+// On register tiles of 4 slots (the horizons past one tile of 8, the
+// quadrotor past N=78) long depths sum in blocks: the forward product's
+// past FWD_CHAIN float4 steps in blocks of BWD_BLOCK (like the backward
+// product), the backward product's past 4 blocks a lane in blocks of
+// BWD_FINE. At N=129, blocks of 32 in the backward product left the states
+// 2.1e-4 from float64 where two BLAS-based float32 versions sat at 1.1e-4;
+// blocks of 4 reach a BLAS's level (PERF.md). The 8-slot kernels keep their
+// sums; where both tiles run (at N <= 64 for the forward product, a lane's
+// backward depth up to 4 blocks) the two give the same bits.
+constexpr int FWD_CHAIN = 64;
 
 // Slot states (Smem::done).
 constexpr int LIVE = 0;    // iterating
@@ -128,6 +150,7 @@ struct Dims {
   int ksplit;       // lanes sharing one backward tile's depth (power of 2)
   int ncp;          // cones with per-instance mu/shift rows (0 or all)
   int gops;         // 1: the operators are read from device memory
+  int ri;           // slots per register tile (8 or 4)
 };
 
 // The cones of one problem, input cones first, then state cones, in device
@@ -144,7 +167,8 @@ struct ConeTable {
 __host__ __device__ inline int r4(int n) { return (n + 3) & ~3; }
 
 __host__ __device__ inline Dims make_dims(int nx, int nu, int N, int tile,
-                                          int ncp = 0, int gops = 0) {
+                                          int ncp = 0, int gops = 0,
+                                          int ri = 8) {
   Dims d;
   d.nx = nx; d.nu = nu; d.N = N;
   d.Dx = N * nx; d.Du = (N - 1) * nu; d.Dz = d.Dx + d.Du;
@@ -153,6 +177,7 @@ __host__ __device__ inline Dims make_dims(int nx, int nu, int N, int tile,
   d.ksplit = 1;
   d.ncp = ncp;
   d.gops = gops;
+  d.ri = ri;
   return d;
 }
 
@@ -315,22 +340,49 @@ __device__ inline int iteration_flags(const Args& a, int it, bool final_solve) {
 }
 
 // y[j] = sum_k x[k] W[k][j] for j < n (W's rows ldw apart), by one warp,
-// each sum in k order; emit(j, y[j]) takes the results. A lane runs the
-// columns lane + 32 q, q < 4, of 128 at once: four independent chains hide
-// the latency of the shared-memory loads and of the FMAs.
-template <bool GOPS, typename Emit>
+// each sum in k order (LONG: in blocks of 4 BWD_BLOCK terms, each a fresh
+// chain added to the running sum, where K exceeds 4 FWD_CHAIN: the 4-slot
+// forward product's order); emit(j, y[j]) takes the results. A lane runs
+// the columns lane + 32 q, q < 4, of 128 at once: four independent chains
+// hide the latency of the shared-memory loads and of the FMAs.
+template <bool GOPS, bool LONG = false, typename Emit>
 __device__ inline void warp_row_product(const float* x, int K, const float* W,
                                         int ldw, int n, Emit&& emit) {
   const int lane = threadIdx.x & 31;
-  for (int j0 = lane; j0 < n; j0 += 128) {
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if constexpr (!LONG) {
+    for (int j0 = lane; j0 < n; j0 += 128) {
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float xk = x[k];
+      for (int k = 0; k < K; ++k) {
+        const float xk = x[k];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (j0 + 32 * q < n)
+            acc[q] = fmaf(xk, ldw1<GOPS>(W + k * ldw + j0 + 32 * q), acc[q]);
+      }
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        if (j0 + 32 * q < n)
-          acc[q] = fmaf(xk, ldw1<GOPS>(W + k * ldw + j0 + 32 * q), acc[q]);
+        if (j0 + 32 * q < n) emit(j0 + 32 * q, acc[q]);
+    }
+    return;
+  }
+  const int blk = (K + 3) / 4 > FWD_CHAIN ? 4 * BWD_BLOCK : K;
+  for (int j0 = lane; j0 < n; j0 += 128) {
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k0 = 0; k0 < K; k0 += blk) {
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const int k1 = min(K, k0 + blk);
+#pragma unroll 4
+      for (int k = k0; k < k1; ++k) {
+        const float xk = x[k];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (j0 + 32 * q < n)
+            part[q] = fmaf(xk, ldw1<GOPS>(W + k * ldw + j0 + 32 * q),
+                           part[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q] = k0 == 0 ? part[q] : acc[q] + part[q];
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q)
@@ -363,7 +415,7 @@ __device__ inline void slot_xbub(const Args& a, const Smem& s, int i) {
 // pre-projection iterate in S (and in u0, U, X where asked), t = relaxed
 // iterate + old dual in YG and the clipped slack in the new slack buffer,
 // for cone_stage and finish_stage.
-template <bool CONES, bool KEEP_U0, bool GOPS>
+template <int RI, bool CONES, bool KEEP_U0, bool GOPS>
 __device__ inline void forward_stage(const Args& a, const Smem& s) {
   const Dims& d = a.d;
   const int lane = threadIdx.x & 31;
@@ -398,23 +450,63 @@ __device__ inline void forward_stage(const Args& a, const Smem& s) {
     if (live) {
       const float* Dg = s.D + i0 * d.DuP;
       const float* Wc = s.Wf + j0;
-      for (int k = 0; k < d.DuP; k += 4) {
-        float w[4][TJ];
+      if constexpr (RI == 4) {
+        // Blocks of BWD_BLOCK float4 steps past FWD_CHAIN, else one chain
+        // (warp_row_product<GOPS, true> sums a frozen slot's U, X alike).
+        const int blk = (d.DuP >> 2) > FWD_CHAIN ? 4 * BWD_BLOCK : d.DuP;
+        for (int k0 = 0; k0 < d.DuP; k0 += blk) {
+          float part[RI][TJ];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const float4 wv = ldw4<GOPS>(Wc + (k + kk) * d.DzP);
-          w[kk][0] = wv.x; w[kk][1] = wv.y; w[kk][2] = wv.z; w[kk][3] = wv.w;
+          for (int r = 0; r < RI; ++r)
+#pragma unroll
+            for (int c = 0; c < TJ; ++c) part[r][c] = 0.0f;
+          const int k1 = min(d.DuP, k0 + blk);
+          for (int k = k0; k < k1; k += 4) {
+            float w[4][TJ];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const float4 wv = ldw4<GOPS>(Wc + (k + kk) * d.DzP);
+              w[kk][0] = wv.x; w[kk][1] = wv.y; w[kk][2] = wv.z;
+              w[kk][3] = wv.w;
+            }
+#pragma unroll
+            for (int r = 0; r < RI; ++r) {
+              const float4 dv =
+                  *reinterpret_cast<const float4*>(Dg + r * d.DuP + k);
+#pragma unroll
+              for (int c = 0; c < TJ; ++c) {
+                part[r][c] = fmaf(dv.x, w[0][c], part[r][c]);
+                part[r][c] = fmaf(dv.y, w[1][c], part[r][c]);
+                part[r][c] = fmaf(dv.z, w[2][c], part[r][c]);
+                part[r][c] = fmaf(dv.w, w[3][c], part[r][c]);
+              }
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < RI; ++r)
+#pragma unroll
+            for (int c = 0; c < TJ; ++c)
+              acc[r][c] = k0 == 0 ? part[r][c] : acc[r][c] + part[r][c];
         }
+      } else {   // one chain over the depth
+        for (int k = 0; k < d.DuP; k += 4) {
+          float w[4][TJ];
 #pragma unroll
-        for (int r = 0; r < RI; ++r) {
-          const float4 dv =
-              *reinterpret_cast<const float4*>(Dg + r * d.DuP + k);
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 wv = ldw4<GOPS>(Wc + (k + kk) * d.DzP);
+            w[kk][0] = wv.x; w[kk][1] = wv.y; w[kk][2] = wv.z; w[kk][3] = wv.w;
+          }
 #pragma unroll
-          for (int c = 0; c < TJ; ++c) {
-            acc[r][c] = fmaf(dv.x, w[0][c], acc[r][c]);
-            acc[r][c] = fmaf(dv.y, w[1][c], acc[r][c]);
-            acc[r][c] = fmaf(dv.z, w[2][c], acc[r][c]);
-            acc[r][c] = fmaf(dv.w, w[3][c], acc[r][c]);
+          for (int r = 0; r < RI; ++r) {
+            const float4 dv =
+                *reinterpret_cast<const float4*>(Dg + r * d.DuP + k);
+#pragma unroll
+            for (int c = 0; c < TJ; ++c) {
+              acc[r][c] = fmaf(dv.x, w[0][c], acc[r][c]);
+              acc[r][c] = fmaf(dv.y, w[1][c], acc[r][c]);
+              acc[r][c] = fmaf(dv.z, w[2][c], acc[r][c]);
+              acc[r][c] = fmaf(dv.w, w[3][c], acc[r][c]);
+            }
           }
         }
       }
@@ -713,7 +805,7 @@ __device__ inline int decide_stage(const Args& a, const Smem& s) {
 // (k-steps h, h + ksplit, ...), whose partial sums meet in a butterfly of
 // shuffles (a fixed order). A lane sums its k-steps in blocks of BWD_BLOCK
 // (see there). Frozen slots keep their D.
-template <bool GOPS>
+template <int RI, bool GOPS>
 __device__ inline void backward_stage(const Args& a, const Smem& s) {
   const Dims& d = a.d;
   const int H = d.ksplit;
@@ -772,14 +864,17 @@ __device__ inline void backward_stage(const Args& a, const Smem& s) {
       if (nq <= H * BWD_BLOCK) {
         chain(acc, h, nq);   // at most one block a lane: one chain
       } else {
-        // Blocks of BWD_BLOCK steps, each a fresh chain added to acc.
-        for (int q0 = h; q0 < nq; q0 += H * BWD_BLOCK) {
+        // Blocks of BWD_BLOCK (or BWD_FINE) steps, each a fresh chain added
+        // to acc.
+        const int step =
+            H * (RI == 4 && nq > 4 * H * BWD_BLOCK ? BWD_FINE : BWD_BLOCK);
+        for (int q0 = h; q0 < nq; q0 += step) {
           float part[RI][TJ];
 #pragma unroll
           for (int r = 0; r < RI; ++r)
 #pragma unroll
             for (int c = 0; c < TJ; ++c) part[r][c] = 0.0f;
-          chain(part, q0, min(nq, q0 + H * BWD_BLOCK));
+          chain(part, q0, min(nq, q0 + step));
 #pragma unroll
           for (int r = 0; r < RI; ++r)
 #pragma unroll
@@ -824,7 +919,7 @@ __device__ inline void backward_stage(const Args& a, const Smem& s) {
 // count) and the plant step x+ = A x + B u0 into x0 (and x_final after the
 // last tick). For a solve, and for the last tick of a mission, the carry
 // (D; duals; the slack buffer zpar points at) and the statistics.
-template <bool ROLLOUT, bool GOPS>
+template <bool ROLLOUT, bool GOPS, bool LONG>
 __device__ inline void retire_slot(const Args& a, const Smem& s, int i) {
   const Dims& d = a.d;
   const int lane = threadIdx.x & 31;
@@ -834,7 +929,7 @@ __device__ inline void retire_slot(const Args& a, const Smem& s, int i) {
   const bool final_solve = !ROLLOUT || s.tick[i] == a.ticks - 1;
   if (s.ret[i] == R_RETIRE_EMIT) {   // warp-uniform
     int mx[4] = {0, 0, 0, 0};  // pri_x, dua_x, pri_u, dua_u as int views
-    warp_row_product<GOPS>(s.D + i * d.DuP, d.Du, s.Wf, d.DzP, d.Dz,
+    warp_row_product<GOPS, LONG>(s.D + i * d.DuP, d.Du, s.Wf, d.DzP, d.Dz,
                      [&](int j, float acc) {
       const int idx = i * d.DzP + j;
       const float xu = s.Xb[idx] + acc;
@@ -993,14 +1088,14 @@ __device__ inline void claim_slot(const Args& a, const Smem& s, int i,
 // all). Only the slot's own rows are touched, so a warp goes from retiring
 // to loading without a barrier. Ends with a barrier. Returns,
 // block-uniformly, the number of LIVE slots afterwards.
-template <bool ADAPTIVE, bool ROLLOUT, bool GOPS>
+template <bool ADAPTIVE, bool ROLLOUT, bool GOPS, bool LONG>
 __device__ inline int refill_stage(const Args& a, const Smem& s, int n,
                                    bool initial) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   for (int e = warp; e < n; e += nwarps) {
     const int i = s.list[e];
-    if (!initial) retire_slot<ROLLOUT, GOPS>(a, s, i);
+    if (!initial) retire_slot<ROLLOUT, GOPS, LONG>(a, s, i);
     __syncwarp();   // every lane is done with the slot's old state
     if (lane == 0) claim_slot<ROLLOUT>(a, s, i, initial);
     __syncwarp();
@@ -1027,8 +1122,9 @@ __device__ inline int refill_stage(const Args& a, const Smem& s, int n,
 // cone_stage, barrier, finish_stage); the frozen slots' U and X
 // (retire_slot) need no cone code, since the new slacks they read are the
 // projected ones. GOPS: the operators are read from device memory (the
-// caller's padded copies) instead of being staged.
-template <bool ADAPTIVE, bool CONES, bool ROLLOUT, bool GOPS>
+// caller's padded copies) instead of being staged. RI: slots per register
+// tile.
+template <int RI, bool ADAPTIVE, bool CONES, bool ROLLOUT, bool GOPS>
 __device__ inline void run_block(const Args& a, float* base) {
   const Layout L = make_layout(a.d);
   const Smem s = carve<GOPS>(a, base, L);
@@ -1036,9 +1132,11 @@ __device__ inline void run_block(const Args& a, float* base) {
   __syncthreads();
   if (threadIdx.x < a.d.tile) s.list[threadIdx.x] = threadIdx.x;
   __syncthreads();
-  int live = refill_stage<ADAPTIVE, ROLLOUT, GOPS>(a, s, a.d.tile, true);
+  constexpr bool LONG = RI == 4;   // long-depth sums (FWD_CHAIN)
+  int live =
+      refill_stage<ADAPTIVE, ROLLOUT, GOPS, LONG>(a, s, a.d.tile, true);
   while (live > 0) {
-    forward_stage<CONES, ROLLOUT, GOPS>(a, s);
+    forward_stage<RI, CONES, ROLLOUT, GOPS>(a, s);
     __syncthreads();
     if constexpr (CONES) {
       cone_stage(a, s);
@@ -1052,15 +1150,15 @@ __device__ inline void run_block(const Args& a, float* base) {
     live = decide_stage<ADAPTIVE, ROLLOUT>(a, s);
     if (ADAPTIVE) {
       live = __syncthreads_count(live);
-      backward_stage<GOPS>(a, s);
+      backward_stage<RI, GOPS>(a, s);
       __syncthreads();
     } else {
-      backward_stage<GOPS>(a, s);
+      backward_stage<RI, GOPS>(a, s);
       live = __syncthreads_count(live);
     }
     const int nret = *s.nref;   // slots waiting to be retired
-    if (nret >= REFILL_MIN || (live == 0 && nret > 0)) {
-      live = refill_stage<ADAPTIVE, ROLLOUT, GOPS>(a, s, nret, false);
+    if (nret >= refill_min<RI>() || (live == 0 && nret > 0)) {
+      live = refill_stage<ADAPTIVE, ROLLOUT, GOPS, LONG>(a, s, nret, false);
     } else if (threadIdx.x < a.d.tile && s.done[threadIdx.x] == CAPPED) {
       s.done[threadIdx.x] = DONE;   // it waits for a refill; the next
     }                               // forward stage's barrier orders this

@@ -17,7 +17,10 @@
 // instantiations contain no cone code. Every kernel is a template over the
 // operators' placement (GOPS: staged in shared memory, or read from device
 // memory where they do not fit beside one register tile of slots); both
-// placements of a kernel share its name and its launch counter.
+// placements of a kernel share its name and its launch counter. A third
+// instantiation, with the operators in device memory and register tiles of
+// 4 slots (RI = 4), takes the horizons where one tile of 8 slots' state does
+// not fit shared memory; it counts under the same name too.
 //
 // All are bound by operations (FP32 FMA), not bytes: global memory is read
 // once and written once per solve; the rollout writes one u0/iteration trace
@@ -38,9 +41,9 @@ namespace atm {
 extern __shared__ float4 smem4[];
 
 #define ATM_KERNEL(name, ADAPTIVE, CONES, ROLLOUT)                  \
-  template <bool GOPS>                                              \
+  template <bool GOPS, int RI>                                      \
   __global__ void __launch_bounds__(256, 1) name(Args a) {          \
-    run_block<ADAPTIVE, CONES, ROLLOUT, GOPS>(                      \
+    run_block<RI, ADAPTIVE, CONES, ROLLOUT, GOPS>(                  \
         a, reinterpret_cast<float*>(smem4));                        \
   }
 
@@ -75,12 +78,15 @@ static bool fill_cones(Args& a, const int* cone_idx, const float* cone_par,
   return true;
 }
 
-// The kernel of the operators' placement: GOPS when they are read from
-// device memory.
+// The kernel of the operators' placement (GOPS when they are read from
+// device memory) and register tile: 8 slots, or 4 with GOPS only.
 template <typename K>
-static int launch(K kernel_smem, K kernel_gops, Args a, int threads,
-                  int smem_bytes, cudaStream_t stream) {
-  const K kernel = a.d.gops ? kernel_gops : kernel_smem;
+static int launch(K kernel_smem, K kernel_gops, K kernel_gops4, Args a,
+                  int threads, int smem_bytes, cudaStream_t stream) {
+  if (a.d.ri != 8 && !(a.d.ri == 4 && a.d.gops)) return -1;
+  const K kernel = a.d.ri == 4 ? kernel_gops4
+                               : (a.d.gops ? kernel_gops : kernel_smem);
+  const int RI = a.d.ri;
   const Layout L = make_layout(a.d);
   if (smem_bytes != L.total * 4 || a.d.tile <= 0 || a.d.tile % RI != 0 ||
       threads < a.d.tile || threads % 32 != 0 || threads > 256 || a.B <= 0 ||
@@ -113,9 +119,10 @@ static int launch(K kernel_smem, K kernel_gops, Args a, int threads,
 
 }  // namespace atm
 
-// Both placements of one kernel, launched with the caller's geometry.
-#define ATM_LAUNCH(k) \
-  atm::launch(atm::k<false>, atm::k<true>, a, threads, smem_bytes, st)
+// The instantiations of one kernel, launched with the caller's geometry.
+#define ATM_LAUNCH(k)                                                  \
+  atm::launch(atm::k<false, 8>, atm::k<true, 8>, atm::k<true, 4>, a,   \
+              threads, smem_bytes, st)
 
 extern "C" {
 
@@ -136,7 +143,8 @@ int atm_fused_smem_bytes(int nx, int nu, int N, int tile, int ncp,
 // cone_mu / cone_shift device arrays (nc, B) of per-instance values, or both
 // nullptr for the static ones. Wf, Wb and Wx come padded with zeros (DuP x
 // DzP, DzP x DuP, nx x DzP); ops_global != 0: the kernel reads them in place
-// in device memory, else it stages them per block in shared memory.
+// in device memory, else it stages them per block in shared memory. ri: slots
+// per register tile (8; 4 only with ops_global).
 int atm_fused_solve(
     const float* x0, const float* D0, const float* Y0, const float* G0,
     const float* Z0, const float* V0,
@@ -148,7 +156,8 @@ int atm_fused_solve(
     const float* cone_mu, const float* cone_shift, int* counter,
     int B, int nx, int nu, int N, int max_iter, int check_every, int warmup,
     float rho, float alpha, float pri_tol, float dua_tol,
-    int tile, int threads, int smem_bytes, int ops_global, void* stream) {
+    int tile, int threads, int smem_bytes, int ops_global, int ri,
+    void* stream) {
   atm::Args a = {};
   a.x0 = x0; a.D0 = D0; a.Y0 = Y0; a.G0 = G0; a.Z0 = Z0; a.V0 = V0;
   a.Wf = Wf; a.Wb = Wb; a.Wx = Wx; a.cd = cd; a.lo = lo; a.hi = hi;
@@ -162,7 +171,7 @@ int atm_fused_solve(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cone_idx != nullptr) {
     a.d = atm::make_dims(nx, nu, N, tile,
-                         cone_mu != nullptr ? nc_u + nc_x : 0, ops_global);
+                         cone_mu != nullptr ? nc_u + nc_x : 0, ops_global, ri);
     if (!atm::fill_cones(a, cone_idx, cone_par, nc_u, nc_x, cone_mu,
                          cone_shift))
       return -1;
@@ -170,7 +179,7 @@ int atm_fused_solve(
       return ATM_LAUNCH(fused_solve_adaptive_cones_kernel);
     return ATM_LAUNCH(fused_solve_fixed_cones_kernel);
   }
-  a.d = atm::make_dims(nx, nu, N, tile, 0, ops_global);
+  a.d = atm::make_dims(nx, nu, N, tile, 0, ops_global, ri);
   if (check_every > 0)
     return ATM_LAUNCH(fused_solve_adaptive_kernel);
   return ATM_LAUNCH(fused_solve_fixed_kernel);
@@ -178,7 +187,8 @@ int atm_fused_solve(
 
 // One mission of `ticks` receding-horizon ticks. tracking != 0: cd is
 // (ticks, Du), one row per tick; else (Du). cone_idx / cone_par / nc_u /
-// nc_x and ops_global as in atm_fused_solve (static cone parameters only).
+// nc_x, ops_global and ri as in atm_fused_solve (static cone parameters
+// only).
 int atm_fused_rollout(
     const float* x0, const float* D0, const float* Z0, const float* V0,
     const float* Wf, const float* Wb, const float* Wx, const float* cd,
@@ -191,7 +201,8 @@ int atm_fused_rollout(
     int B, int nx, int nu, int N, int ticks, int tracking,
     int max_iter, int check_every, int warmup,
     float rho, float alpha, float pri_tol, float dua_tol,
-    int tile, int threads, int smem_bytes, int ops_global, void* stream) {
+    int tile, int threads, int smem_bytes, int ops_global, int ri,
+    void* stream) {
   if (ticks < 1) return -1;
   atm::Args a = {};
   a.x0 = x0; a.D0 = D0; a.Y0 = nullptr; a.G0 = nullptr; a.Z0 = Z0; a.V0 = V0;
@@ -204,7 +215,7 @@ int atm_fused_rollout(
   a.B = B; a.ticks = ticks; a.tracking = tracking;
   a.max_iter = max_iter; a.check_every = check_every; a.warmup = warmup;
   a.rho = rho; a.alpha = alpha; a.pri_tol = pri_tol; a.dua_tol = dua_tol;
-  a.d = atm::make_dims(nx, nu, N, tile, 0, ops_global);
+  a.d = atm::make_dims(nx, nu, N, tile, 0, ops_global, ri);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool adaptive = check_every > 0;
   if (cone_idx != nullptr) {

@@ -59,13 +59,16 @@ __device__ inline float dot(const float (&row)[G], float vec) {
 }
 
 // Cones c0 .. c0+nc-1 in order on this knot's slack (one component per
-// lane): the exact SOC projection of solver/cones.py, with ball and axis
-// membership from the lane's bits and mu/shift from shared memory.
+// lane): the exact SOC projection of solver/cones.py. cr holds each cone's
+// role of every lane of the group (cr[c * G + lane]: 1 in the ball, 2 the
+// axis, 0 neither) and cp [mu, shift] per cone, both in shared memory and
+// sized at run time (any number of cones).
 template <int G>
-__device__ inline float cones(float w, int c0, int nc, unsigned bbits,
-                              unsigned abits, const float* cp) {
+__device__ inline float cones(float w, int c0, int nc, const float* cr,
+                              const float* cp, int lane) {
   for (int c = c0; c < c0 + nc; ++c) {
-    const bool inb = (bbits >> c) & 1u, isax = (abits >> c) & 1u;
+    const float role = cr[c * G + lane];
+    const bool inb = role == 1.0f, isax = role == 2.0f;
     const float mu = cp[2 * c], sh = cp[2 * c + 1];
     const float bw = inb ? w : 0.0f;
     const float a2 = gsum<G>(bw * bw);
@@ -80,6 +83,43 @@ __device__ inline float cones(float w, int c0, int nc, unsigned bbits,
     w = inb ? w * scale : (isax ? s_new : w);
   }
   return w;
+}
+
+// This group's cone operands into shared memory: cp [mu, shift] per cone and
+// cr the role of each lane (see cones), from the static table tab (per cone
+// a row of 2 + tw floats: mu, shift, then the role of each component) or,
+// where given, from the instance's rows of cparams (Bn, nc, 2) and cmasks
+// (Bn, MR: per cone the ball flags, then the axis flags, over its knot's
+// components; input cones first).
+template <int G>
+__device__ inline void load_cones(const float* tab, int tw, int nc_u,
+                                  int nc_x, int nx, int nu,
+                                  const float* cparams, const float* cmasks,
+                                  size_t inst, int lane, float* cp,
+                                  float* cr) {
+  const int nc = nc_u + nc_x;
+  const int MR = 2 * nu * nc_u + 2 * nx * nc_x;
+  for (int c = lane; c < nc; c += G) {
+    cp[2 * c] = cparams ? cparams[(inst * nc + c) * 2] : tab[c * (2 + tw)];
+    cp[2 * c + 1] = cparams ? cparams[(inst * nc + c) * 2 + 1]
+                            : tab[c * (2 + tw) + 1];
+  }
+  for (int c = 0; c < nc; ++c) {
+    const bool in_u = c < nc_u;
+    const int dim = in_u ? nu : nx;
+    float role = 0.0f;
+    if (lane < dim) {
+      if (cmasks) {
+        const int off =
+            in_u ? 2 * nu * c : 2 * nu * nc_u + 2 * nx * (c - nc_u);
+        role = cmasks[inst * MR + off + lane] != 0.0f ? 1.0f
+               : (cmasks[inst * MR + off + dim + lane] != 0.0f ? 2.0f : 0.0f);
+      } else {
+        role = tab[c * (2 + tw) + 2 + lane];
+      }
+    }
+    cr[c * G + lane] = role;
+  }
 }
 
 }  // namespace atm_group

@@ -1,12 +1,14 @@
 // Heterogeneous-plant ADMM kernels for Hopper (sm_90a): a distinct plant and
 // Riccati cache per instance, FP32.
 //
-//   hetero_kernel<G, false>  replaces accelerated_tinympc_tpu/ops/
-//                            hetero_admm.py _kernel (fixed iterations; its
-//                            _make_iteration, _dotb, _apply_cones and
-//                            _project_soc_seg[_masked] helpers)
-//   hetero_kernel<G, true>   replaces hetero_admm.py _kernel_adaptive
-//                            (per-instance early exit, snapshot semantics)
+//   hetero_kernel<G, false, *>  replaces accelerated_tinympc_tpu/ops/
+//                               hetero_admm.py _kernel (fixed iterations;
+//                               its _make_iteration, _dotb, _apply_cones and
+//                               _project_soc_seg[_masked] helpers)
+//   hetero_kernel<G, true, *>   replaces hetero_admm.py _kernel_adaptive
+//                               (per-instance early exit, snapshot
+//                               semantics)
+// (the third parameter: with cone code, or none at all)
 //
 // What bounds it: operations. One iteration is a pair of dependent
 // recurrences of small matrix-vector products per instance, 2 m (2 nx nu +
@@ -25,13 +27,15 @@
 //    with v_k broadcast from lane k of the group (__shfl_sync, width G).
 //  * Iterates per knot in shared memory, each lane touching its own
 //    component only: X, V (two buffers), G, qc, state bounds; U, Z (two
-//    buffers), Y, D, input bounds; and mu/shift per cone. The forward
+//    buffers), Y, D, input bounds; mu/shift and each lane's role per cone.
+//    The forward
 //    rollout is fused with the slack projection, cones and dual update knot
 //    by knot; the backward pass rebuilds r and q from the post-update slacks
 //    (reference admm.cpp:77-85 before :15-22).
-//  * Cones: ball sums and the axis value are group reductions (xor shuffles
-//    inside the group). Membership is a bit per cone per lane, from the
-//    static indices or from the per-instance masks.
+//  * Cones (any number): ball sums and the axis value are group reductions
+//    (xor shuffles inside the group). Each lane's role per cone (ball, axis
+//    or neither) sits in the instance's shared memory, from the static cone
+//    table or from the per-instance masks.
 //  * Adaptive mode: the new slacks go to the other buffer; an instance that
 //    converges at a check keeps the old slacks (pre-save Z, V), skips the
 //    backward pass (pre-backward D) and keeps Y, G, U, X of that iteration.
@@ -51,7 +55,6 @@ namespace atm_hetero {
 
 using namespace atm_group;
 
-constexpr int MAXC = 8;
 constexpr int MAXDIM = 32;
 constexpr int THREADS = 128;
 
@@ -61,18 +64,23 @@ struct Args {
   const float *d0, *y0, *g0, *z0, *v0;
   float *U, *X, *d, *y, *g, *z, *v, *stats;
   const float *cparams, *cmasks;  // (Bn, nc, 2), (Bn, MR) or null
+  const float* ctab;              // static cone table (group_ops.cuh)
   int Bn, nx, nu, N, max_iter, check_every, en_ib, en_sb;
   float pri_tol, dua_tol;
   int ipb;                        // instances per block
   int nc_u, nc_x;
-  unsigned ball[MAXC];            // static ball indices as bits
-  int axis[MAXC];
-  float mu[MAXC], shift[MAXC];
 };
 
-// Shared-memory floats one instance needs.
+__host__ __device__ inline int group_of(int nx, int nu) {
+  int G = 4;
+  while (G < nx || G < nu) G *= 2;
+  return G;
+}
+
+// Shared-memory floats one instance needs: its knots and, per cone, mu,
+// shift and a role per lane.
 __host__ __device__ inline int inst_floats(int nx, int nu, int N, int nc) {
-  return 7 * N * nx + 7 * (N - 1) * nu + 2 * nc;
+  return 7 * N * nx + 7 * (N - 1) * nu + (2 + group_of(nx, nu)) * nc;
 }
 
 // One instance's registers and shared-memory slice.
@@ -81,16 +89,15 @@ struct Inst {
   float Ar[G], Mr[G], Br[G], Ktr[G];  // lane < nx: rows of A, AmBKt, B, Kinf'
   float Kr[G], Btr[G], Qr[G];         // lane < nu: rows of Kinf, B', Quu_inv
   float x0, pt, rho;
-  unsigned bbits, abits;
   float *X, *V0, *V1, *Gd, *Qc, *XL, *XH;  // buffers 0/1 selected by ternaries
-  float *U, *Z0, *Z1, *Y, *D, *UL, *UH, *CP;
+  float *U, *Z0, *Z1, *Y, *D, *UL, *UH, *CP;  // CP: then the roles
 };
 
 // Forward rollout fused with the slack projection, cones and dual update,
 // knot by knot; new slacks into buffer `wn`, old ones read from `ro`. With
 // `res` the residual maxima of this iteration (reference admm.cpp:95-98,
 // dual ones without rho) come back group-reduced. Stores only with `wr`.
-template <int G>
+template <int G, bool CONES>
 __device__ inline void forward(const Args& a, Inst<G>& s, int lane, int ro,
                                int wn, bool res, bool wr, float r[4]) {
   const int nx = a.nx, nu = a.nu, m = a.N - 1;
@@ -105,8 +112,9 @@ __device__ inline void forward(const Args& a, Inst<G>& s, int lane, int ro,
     const int ex = i * nx + lane;
     const float tx = xi + (lx ? s.Gd[ex] : 0.0f);
     float vn = (a.en_sb && lx) ? clip(tx, s.XL[ex], s.XH[ex]) : tx;
-    if (a.nc_x) vn = cones<G>(lx ? vn : 0.0f, a.nc_u, a.nc_x, s.bbits, s.abits,
-                              s.CP);
+    if (CONES && a.nc_x)
+      vn = cones<G>(lx ? vn : 0.0f, a.nc_u, a.nc_x,
+                    s.CP + 2 * (a.nc_u + a.nc_x), s.CP, lane);
     if (lx) {
       if (res) {
         ps = nanmax(ps, fabsf(xi - vn));
@@ -123,8 +131,9 @@ __device__ inline void forward(const Args& a, Inst<G>& s, int lane, int ro,
     const float u = -dot<G>(s.Kr, xi) - (lu ? s.D[eu] : 0.0f);
     const float su = u + (lu ? s.Y[eu] : 0.0f);
     float zn = (a.en_ib && lu) ? clip(su, s.UL[eu], s.UH[eu]) : su;
-    if (a.nc_u) zn = cones<G>(lu ? zn : 0.0f, 0, a.nc_u, s.bbits, s.abits,
-                              s.CP);
+    if (CONES && a.nc_u)
+      zn = cones<G>(lu ? zn : 0.0f, 0, a.nc_u, s.CP + 2 * (a.nc_u + a.nc_x),
+                    s.CP, lane);
     if (lu) {
       if (res) {
         pu = nanmax(pu, fabsf(u - zn));
@@ -178,8 +187,12 @@ __device__ inline void backward(const Args& a, Inst<G>& s, int lane, int wn,
 
 extern __shared__ float hetero_smem[];
 
-template <int G, bool ADAPTIVE>
-__global__ void __launch_bounds__(THREADS) hetero_kernel(Args a) {
+// Up to 16 lanes a group the block keeps to 168 registers a thread, so
+// that three blocks share an SM (without cone code the adaptive kernel
+// would take 212 and lose 13 % at 12/4: PERF.md).
+template <int G, bool ADAPTIVE, bool CONES>
+__global__ void __launch_bounds__(THREADS, G <= 16 ? 3 : 1)
+    hetero_kernel(Args a) {
   const int lane = threadIdx.x & (G - 1);
   const int grp = threadIdx.x / G;
   const int b = blockIdx.x * a.ipb + grp;
@@ -216,10 +229,9 @@ __global__ void __launch_bounds__(THREADS) hetero_kernel(Args a) {
     s.Y[e] = a.y0[o]; s.D[e] = a.d0[o];
     s.UL[e] = a.umin[o]; s.UH[e] = a.umax[o];
   }
-  for (int c = lane; c < nc; c += G) {
-    s.CP[2 * c] = a.cparams ? a.cparams[(bl * nc + c) * 2] : a.mu[c];
-    s.CP[2 * c + 1] = a.cparams ? a.cparams[(bl * nc + c) * 2 + 1] : a.shift[c];
-  }
+  if (CONES)
+    load_cones<G>(a.ctab, a.nx > a.nu ? a.nx : a.nu, a.nc_u, a.nc_x, nx, nu,
+                a.cparams, a.cmasks, bl, lane, s.CP, s.CP + 2 * nc);
   // Matrix rows into registers.
 #pragma unroll
   for (int k = 0; k < G; ++k) {
@@ -234,26 +246,6 @@ __global__ void __launch_bounds__(THREADS) hetero_kernel(Args a) {
   s.x0 = lx ? a.x0[bl * nx + lane] : 0.0f;
   s.pt = lx ? a.pterm[bl * nx + lane] : 0.0f;
   s.rho = a.rho[bl];
-  // Cone membership bits of this lane.
-  s.bbits = 0u;
-  s.abits = 0u;
-  const int MR = 2 * nu * a.nc_u + 2 * nx * a.nc_x;
-  for (int c = 0; c < nc; ++c) {
-    const bool in_u = c < a.nc_u;
-    const int dim = in_u ? nu : nx;
-    if (lane >= dim) continue;
-    bool inb, isax;
-    if (a.cmasks) {
-      const int off = in_u ? 2 * nu * c : 2 * nu * a.nc_u + 2 * nx * (c - a.nc_u);
-      inb = a.cmasks[bl * MR + off + lane] != 0.0f;
-      isax = a.cmasks[bl * MR + off + dim + lane] != 0.0f;
-    } else {
-      inb = (a.ball[c] >> lane) & 1u;
-      isax = lane == a.axis[c];
-    }
-    if (inb) s.bbits |= 1u << c;
-    if (isax) s.abits |= 1u << c;
-  }
   __syncwarp();
 
   float r[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -263,7 +255,7 @@ __global__ void __launch_bounds__(THREADS) hetero_kernel(Args a) {
     // Fixed: max_iter iterations, slacks in place; the last one's residuals
     // compare the final slacks with the penultimate ones.
     for (int it = 0; it < a.max_iter; ++it) {
-      forward<G>(a, s, lane, 0, 0, it == a.max_iter - 1, valid, r);
+      forward<G, CONES>(a, s, lane, 0, 0, it == a.max_iter - 1, valid, r);
       backward<G>(a, s, lane, 0, valid);
     }
     if (a.max_iter <= 0) {  // U = X = 0 against the carried slacks
@@ -284,7 +276,7 @@ __global__ void __launch_bounds__(THREADS) hetero_kernel(Args a) {
       const bool chk = kc % a.check_every == 0;
       const bool live = !done;
       float rr[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      forward<G>(a, s, lane, par, par ^ 1, chk, live, rr);
+      forward<G, CONES>(a, s, lane, par, par ^ 1, chk, live, rr);
       bool newly = false;
       if (chk && live) {
         r[0] = rr[0];
@@ -328,24 +320,21 @@ __global__ void __launch_bounds__(THREADS) hetero_kernel(Args a) {
   }
 }
 
+// The kernel of the mode (fixed, adaptive) and of the cones (none: no cone
+// code at all).
 template <int G>
 static int launch_g(const Args& a, int smem_bytes, cudaStream_t stream) {
   const int threads = a.ipb * G;
   const int blocks = (a.Bn + a.ipb - 1) / a.ipb;
-  cudaError_t err;
-  if (a.check_every > 0) {
-    err = cudaFuncSetAttribute(hetero_kernel<G, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    hetero_kernel<G, true><<<blocks, threads, smem_bytes, stream>>>(a);
-  } else {
-    err = cudaFuncSetAttribute(hetero_kernel<G, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    hetero_kernel<G, false><<<blocks, threads, smem_bytes, stream>>>(a);
-  }
+  const bool coned = a.nc_u + a.nc_x > 0;
+  auto kernel = a.check_every > 0
+      ? (coned ? hetero_kernel<G, true, true> : hetero_kernel<G, true, false>)
+      : (coned ? hetero_kernel<G, false, true>
+               : hetero_kernel<G, false, false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, threads, smem_bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -354,10 +343,11 @@ static int launch_g(const Args& a, int smem_bytes, cudaStream_t stream) {
 extern "C" {
 
 // One batched solve. check_every == 0: fixed max_iter iterations (K7); > 0:
-// the adaptive kernel (K8). cone_idx == nullptr: no cones; otherwise host
-// arrays cone_idx = [nc_u, nc_x, then per cone ball bit mask, axis] and
-// cone_par = per cone [mu, shift]; cparams (Bn, nc, 2) and cmasks (Bn, MR)
-// are device arrays of per-instance values or nullptr. ipb instances per
+// the adaptive kernel (K8). cone_tab == nullptr: no cones; otherwise the
+// device table of nc_u input and nc_x state cones (per cone a row of 2 +
+// max(nx, nu) floats: mu, shift, then each component's role, 1 in the ball,
+// 2 the axis, 0 neither); cparams (Bn, nc, 2) and cmasks (Bn, MR) are device
+// arrays of per-instance values or nullptr. ipb instances per
 // block (ipb * G a multiple of 32, at most 128 threads) with smem_bytes of
 // dynamic shared memory, which must equal ipb * inst_floats * 4.
 int atm_hetero_solve(
@@ -368,7 +358,7 @@ int atm_hetero_solve(
     const float* z0, const float* v0,
     float* U, float* X, float* d, float* y, float* g, float* z, float* v,
     float* stats,
-    const int* cone_idx, const float* cone_par, const float* cparams,
+    const float* cone_tab, int nc_u, int nc_x, const float* cparams,
     const float* cmasks,
     int Bn, int nx, int nu, int N, int max_iter, int check_every, int en_ib,
     int en_sb, float pri_tol, float dua_tol, int ipb, int smem_bytes,
@@ -389,25 +379,15 @@ int atm_hetero_solve(
   a.Bn = Bn; a.nx = nx; a.nu = nu; a.N = N; a.max_iter = max_iter;
   a.check_every = check_every; a.en_ib = en_ib; a.en_sb = en_sb;
   a.pri_tol = pri_tol; a.dua_tol = dua_tol; a.ipb = ipb;
-  if (cone_idx != nullptr) {
-    a.nc_u = cone_idx[0];
-    a.nc_x = cone_idx[1];
-    const int nc = a.nc_u + a.nc_x;
-    if (a.nc_u < 0 || a.nc_x < 0 || nc < 1 || nc > MAXC) return -1;
-    for (int c = 0; c < nc; ++c) {
-      const int dim = c < a.nc_u ? nu : nx;
-      a.ball[c] = (unsigned)cone_idx[2 + 2 * c];
-      a.axis[c] = cone_idx[3 + 2 * c];
-      if (a.axis[c] < 0 || a.axis[c] >= dim) return -1;
-      if (dim < 32 && (a.ball[c] >> dim) != 0u) return -1;
-      a.mu[c] = cone_par[2 * c];
-      a.shift[c] = cone_par[2 * c + 1];
-    }
+  if (cone_tab != nullptr) {
+    if (nc_u < 0 || nc_x < 0 || nc_u + nc_x < 1) return -1;
+    a.ctab = cone_tab;
+    a.nc_u = nc_u;
+    a.nc_x = nc_x;
   } else if (cparams != nullptr || cmasks != nullptr) {
     return -1;
   }
-  int G = 4;
-  while (G < nx || G < nu) G *= 2;
+  const int G = group_of(nx, nu);
   if ((ipb * G) % 32 != 0 || ipb * G > THREADS) return -1;
   if (smem_bytes != ipb * inst_floats(nx, nu, N, a.nc_u + a.nc_x) * 4)
     return -1;

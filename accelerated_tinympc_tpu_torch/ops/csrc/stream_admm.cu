@@ -1,16 +1,13 @@
-// Long-horizon ADMM kernels for Hopper (sm_90a), FP32: the iterates stream
-// through global memory knot by knot, one plant shared by the batch or one
-// per instance.
+// Long-horizon ADMM kernels for Hopper (sm_90a), FP32, one distinct plant
+// per instance: the iterates stream through global memory knot by knot.
 //
-//   stream_kernel<G, false, true>   replaces accelerated_tinympc_tpu/ops/
-//                                   stream_admm.py _kernel (fixed
-//                                   iterations, shared plant; its
-//                                   _make_streamer phases)
-//   stream_kernel<G, true, true>    replaces stream_admm.py _kernel_adaptive
-//                                   (per-instance early exit)
-//   stream_kernel<G, false, false>  replaces hstream_admm.py _kernel (a
-//                                   distinct plant per instance)
-//   stream_kernel<G, true, false>   replaces hstream_admm.py _kernel_adaptive
+//   stream_kernel<G, false, *>  replaces accelerated_tinympc_tpu/ops/
+//                               hstream_admm.py _kernel (fixed iterations)
+//   stream_kernel<G, true, *>   replaces hstream_admm.py _kernel_adaptive
+//                               (per-instance early exit)
+// (the third parameter: with cone code, or none at all)
+//
+// (The shared-plant kernels K9/K10 are csrc/stream_shared.cu.)
 //
 // What bounds it: memory traffic. At N in the hundreds to thousands one
 // instance's iterates (d, y, z: (N-1) nu; g, v: N nx floats) take ~100 KB at
@@ -26,12 +23,9 @@
 // instance and lane i keeps row i of A, AmBKt, B and Kinf' (lanes j < nu rows
 // of Kinf, B' and Quu_inv) in registers; products broadcast the vector with
 // __shfl_sync. Per knot the group reads and writes its instance's nx or nu
-// contiguous floats. A thread-per-instance design over a batch-innermost
-// layout would coalesce across instances instead, but needs the whole carry
-// transposed on every call and nx^2-class register tiles per thread.
-//  * Shared plant (SHARED): every group loads the same rows (served by the
-//    cache); qc, pterm and rho are shared too. Bounds are uniform rows or
-//    per-knot schedules, shared or per instance, by their strides.
+// contiguous floats. Bounds are uniform rows or per-knot schedules, shared
+// or per instance, by their strides. Cones (any number): mu, shift and each
+// lane's role per cone in the group's slice of dynamic shared memory.
 //  * x, u and p are sweep carries; U and X are written only where they are
 //    the result: on the last iteration (fixed mode), and in adaptive mode on
 //    every check iteration and the last one, while the instance is live.
@@ -64,7 +58,6 @@ namespace atm_stream {
 
 using namespace atm_group;
 
-constexpr int MAXC = 8;
 constexpr int MAXDIM = 32;
 constexpr int THREADS = 128;
 
@@ -73,13 +66,11 @@ struct Args {
   const float *umin, *umax, *xmin, *xmax, *qc, *pterm, *rho;
   float *U, *X, *d, *y, *g, *z, *v, *zs, *vs, *stats;
   const float *cparams, *cmasks;  // (Bn, nc, 2), (Bn, MR) or null
+  const float* ctab;              // static cone table (group_ops.cuh)
   int bi, bk;                     // bounds per instance, per knot
   int Bn, nx, nu, N, max_iter, check_every, en_ib, en_sb;
   float pri_tol, dua_tol;
   int nc_u, nc_x;
-  unsigned ball[MAXC];            // static ball indices as bits
-  int axis[MAXC];
-  float mu[MAXC], shift[MAXC];
 };
 
 // One instance: matrix rows in registers, pointers to its streamed rows.
@@ -88,10 +79,9 @@ struct Inst {
   float Ar[G], Mr[G], Br[G], Ktr[G];  // lane < nx: rows of A, AmBKt, B, Kinf'
   float Kr[G], Btr[G], Qr[G];         // lane < nu: rows of Kinf, B', Quu_inv
   float x0, pt, rho;
-  unsigned bbits, abits;
   const float *Qc, *XL, *XH, *UL, *UH;
   float *X, *V0, *V1, *Gd, *U, *Z0, *Z1, *Y, *D;  // buffers 0/1 by parity
-  const float* CP;
+  const float* CP;  // mu, shift per cone, then the lanes' roles
 };
 
 // Forward rollout fused with the slack projection, cones and dual update,
@@ -100,7 +90,7 @@ struct Inst {
 // maxima of this iteration (reference admm.cpp:95-98, dual ones without rho)
 // come back group-reduced. `wr`: store y, g and the new slacks; `wux`: store
 // U and X.
-template <int G>
+template <int G, bool CONES>
 __device__ inline void forward(const Args& a, Inst<G>& s, int lane, int ro,
                                int wn, bool res, bool wr, bool wux,
                                float r[4]) {
@@ -118,8 +108,9 @@ __device__ inline void forward(const Args& a, Inst<G>& s, int lane, int ro,
     const float tx = xi + (lx ? s.Gd[ex] : 0.0f);
     float vn = (a.en_sb && lx) ? clip(tx, s.XL[i * bk * nx + lane],
                                       s.XH[i * bk * nx + lane]) : tx;
-    if (a.nc_x) vn = cones<G>(lx ? vn : 0.0f, a.nc_u, a.nc_x, s.bbits, s.abits,
-                              s.CP);
+    if (CONES && a.nc_x)
+      vn = cones<G>(lx ? vn : 0.0f, a.nc_u, a.nc_x,
+                    s.CP + 2 * (a.nc_u + a.nc_x), s.CP, lane);
     if (lx) {
       if (res) {
         ps = nanmax(ps, fabsf(xi - vn));
@@ -137,8 +128,9 @@ __device__ inline void forward(const Args& a, Inst<G>& s, int lane, int ro,
     const float su = u + (lu ? s.Y[eu] : 0.0f);
     float zn = (a.en_ib && lu) ? clip(su, s.UL[i * bk * nu + lane],
                                       s.UH[i * bk * nu + lane]) : su;
-    if (a.nc_u) zn = cones<G>(lu ? zn : 0.0f, 0, a.nc_u, s.bbits, s.abits,
-                              s.CP);
+    if (CONES && a.nc_u)
+      zn = cones<G>(lu ? zn : 0.0f, 0, a.nc_u, s.CP + 2 * (a.nc_u + a.nc_x),
+                    s.CP, lane);
     if (lu) {
       if (res) {
         pu = nanmax(pu, fabsf(u - zn));
@@ -188,15 +180,15 @@ __device__ inline void backward(const Args& a, Inst<G>& s, int lane, int wn,
   }
 }
 
-template <int G, bool ADAPTIVE, bool SHARED>
+extern __shared__ float stream_smem[];
+
+template <int G, bool ADAPTIVE, bool CONES>
 __global__ void __launch_bounds__(THREADS) stream_kernel(Args a) {
-  __shared__ float cpar[THREADS / 4][2 * MAXC];
   const int lane = threadIdx.x & (G - 1);
   const int grp = threadIdx.x / G;
   const int b = blockIdx.x * (THREADS / G) + grp;
   const bool valid = b < a.Bn;
   const size_t bl = valid ? b : 0;   // a group past the batch reads instance 0
-  const size_t bp = SHARED ? 0 : bl;  // the plant's instance
   const int nx = a.nx, nu = a.nu, N = a.N, m = N - 1;
   const int nc = a.nc_u + a.nc_x;
   const size_t XN = (size_t)N * nx, UM = (size_t)m * nu;
@@ -204,7 +196,7 @@ __global__ void __launch_bounds__(THREADS) stream_kernel(Args a) {
 
   Inst<G> s;
   s.X = a.X + bl * XN; s.V0 = a.v + bl * XN; s.V1 = a.vs + bl * XN;
-  s.Gd = a.g + bl * XN; s.Qc = a.qc + bp * XN;
+  s.Gd = a.g + bl * XN; s.Qc = a.qc + bl * XN;
   // Bounds: uniform rows or a row per knot, shared or per instance.
   const size_t bx = a.bi ? bl * (a.bk ? N : 1) * nx : 0;
   const size_t bu = a.bi ? bl * (a.bk ? m : 1) * nu : 0;
@@ -212,46 +204,26 @@ __global__ void __launch_bounds__(THREADS) stream_kernel(Args a) {
   s.U = a.U + bl * UM; s.Z0 = a.z + bl * UM; s.Z1 = a.zs + bl * UM;
   s.Y = a.y + bl * UM; s.D = a.d + bl * UM;
   s.UL = a.umin + bu; s.UH = a.umax + bu;
-  float* cp = cpar[grp];
-  for (int c = lane; c < nc; c += G) {
-    cp[2 * c] = a.cparams ? a.cparams[(bl * nc + c) * 2] : a.mu[c];
-    cp[2 * c + 1] = a.cparams ? a.cparams[(bl * nc + c) * 2 + 1] : a.shift[c];
-  }
+  float* cp = stream_smem + grp * (2 + G) * nc;
+  float* cr = cp + 2 * nc;
+  if (CONES)
+    load_cones<G>(a.ctab, nx > nu ? nx : nu, a.nc_u, a.nc_x, nx, nu,
+                a.cparams, a.cmasks, bl, lane, cp, cr);
   s.CP = cp;
   // Matrix rows into registers.
 #pragma unroll
   for (int k = 0; k < G; ++k) {
-    s.Ar[k] = (lx && k < nx) ? a.A[(bp * nx + lane) * nx + k] : 0.0f;
-    s.Mr[k] = (lx && k < nx) ? a.M[(bp * nx + lane) * nx + k] : 0.0f;
-    s.Br[k] = (lx && k < nu) ? a.Bm[(bp * nx + lane) * nu + k] : 0.0f;
-    s.Ktr[k] = (lx && k < nu) ? a.K[(bp * nu + k) * nx + lane] : 0.0f;
-    s.Kr[k] = (lu && k < nx) ? a.K[(bp * nu + lane) * nx + k] : 0.0f;
-    s.Btr[k] = (lu && k < nx) ? a.Bm[(bp * nx + k) * nu + lane] : 0.0f;
-    s.Qr[k] = (lu && k < nu) ? a.Quu[(bp * nu + lane) * nu + k] : 0.0f;
+    s.Ar[k] = (lx && k < nx) ? a.A[(bl * nx + lane) * nx + k] : 0.0f;
+    s.Mr[k] = (lx && k < nx) ? a.M[(bl * nx + lane) * nx + k] : 0.0f;
+    s.Br[k] = (lx && k < nu) ? a.Bm[(bl * nx + lane) * nu + k] : 0.0f;
+    s.Ktr[k] = (lx && k < nu) ? a.K[(bl * nu + k) * nx + lane] : 0.0f;
+    s.Kr[k] = (lu && k < nx) ? a.K[(bl * nu + lane) * nx + k] : 0.0f;
+    s.Btr[k] = (lu && k < nx) ? a.Bm[(bl * nx + k) * nu + lane] : 0.0f;
+    s.Qr[k] = (lu && k < nu) ? a.Quu[(bl * nu + lane) * nu + k] : 0.0f;
   }
   s.x0 = lx ? a.x0[bl * nx + lane] : 0.0f;
-  s.pt = lx ? a.pterm[bp * nx + lane] : 0.0f;
-  s.rho = a.rho[bp];
-  // Cone membership bits of this lane.
-  s.bbits = 0u;
-  s.abits = 0u;
-  const int MR = 2 * nu * a.nc_u + 2 * nx * a.nc_x;
-  for (int c = 0; c < nc; ++c) {
-    const bool in_u = c < a.nc_u;
-    const int dim = in_u ? nu : nx;
-    if (lane >= dim) continue;
-    bool inb, isax;
-    if (a.cmasks) {
-      const int off = in_u ? 2 * nu * c : 2 * nu * a.nc_u + 2 * nx * (c - a.nc_u);
-      inb = a.cmasks[bl * MR + off + lane] != 0.0f;
-      isax = a.cmasks[bl * MR + off + dim + lane] != 0.0f;
-    } else {
-      inb = (a.ball[c] >> lane) & 1u;
-      isax = lane == a.axis[c];
-    }
-    if (inb) s.bbits |= 1u << c;
-    if (isax) s.abits |= 1u << c;
-  }
+  s.pt = lx ? a.pterm[bl * nx + lane] : 0.0f;
+  s.rho = a.rho[bl];
   __syncwarp();
 
   float r[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -262,7 +234,7 @@ __global__ void __launch_bounds__(THREADS) stream_kernel(Args a) {
     // compare the final slacks with the penultimate ones.
     for (int it = 0; it < a.max_iter; ++it) {
       const bool last = it == a.max_iter - 1;
-      forward<G>(a, s, lane, 0, 0, last, valid, valid && last, r);
+      forward<G, CONES>(a, s, lane, 0, 0, last, valid, valid && last, r);
       backward<G>(a, s, lane, 0, valid);
     }
     r[1] *= s.rho;
@@ -276,7 +248,7 @@ __global__ void __launch_bounds__(THREADS) stream_kernel(Args a) {
       const bool chk = kc % a.check_every == 0;
       const bool live = !done;
       float rr[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      forward<G>(a, s, lane, par, par ^ 1, chk, live,
+      forward<G, CONES>(a, s, lane, par, par ^ 1, chk, live,
                  live && (chk || kc == a.max_iter), rr);
       bool newly = false;
       if (chk && live) {
@@ -311,24 +283,35 @@ __global__ void __launch_bounds__(THREADS) stream_kernel(Args a) {
   }
 }
 
-template <int G, bool SHARED>
+// Dynamic shared memory of one block: per group mu, shift and the lanes'
+// roles per cone.
+__host__ __device__ inline int smem_bytes(int G, int nc) {
+  return (THREADS / G) * (2 + G) * nc * 4;
+}
+
+template <int G>
 static int launch_g(const Args& a, cudaStream_t stream) {
   constexpr int ipb = THREADS / G;
   const int blocks = (a.Bn + ipb - 1) / ipb;
-  if (a.check_every > 0)
-    stream_kernel<G, true, SHARED><<<blocks, THREADS, 0, stream>>>(a);
-  else
-    stream_kernel<G, false, SHARED><<<blocks, THREADS, 0, stream>>>(a);
+  const int smem = smem_bytes(G, a.nc_u + a.nc_x);
+  const bool coned = a.nc_u + a.nc_x > 0;   // else no cone code at all
+  auto kernel = a.check_every > 0
+      ? (coned ? stream_kernel<G, true, true> : stream_kernel<G, true, false>)
+      : (coned ? stream_kernel<G, false, true>
+               : stream_kernel<G, false, false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool SHARED>
 static int launch(const Args& a, int G, cudaStream_t stream) {
   switch (G) {
-    case 4: return launch_g<4, SHARED>(a, stream);
-    case 8: return launch_g<8, SHARED>(a, stream);
-    case 16: return launch_g<16, SHARED>(a, stream);
-    default: return launch_g<32, SHARED>(a, stream);
+    case 4: return launch_g<4>(a, stream);
+    case 8: return launch_g<8>(a, stream);
+    case 16: return launch_g<16>(a, stream);
+    default: return launch_g<32>(a, stream);
   }
 }
 
@@ -336,30 +319,31 @@ static int launch(const Args& a, int G, cudaStream_t stream) {
 
 extern "C" {
 
-// One batched long-horizon solve. shared != 0: one plant (A, B, K, Quu, M,
-// qc (N, nx), pterm (nx), rho (1)) for the batch (K9/K10); 0: per instance
-// (K11/K12). Bounds (umin, umax, ...): bound_inst 1 for a set per instance
-// (0: shared), bound_knot 1 for a row per knot (0: one uniform row). check_every == 0: fixed max_iter iterations; > 0: the adaptive
-// kernel, which needs zs (Bn, N-1, nu) and vs (Bn, N, nx) scratch. cone_idx ==
-// nullptr: no cones; otherwise host arrays cone_idx = [nc_u, nc_x, then per
-// cone ball bit mask, axis] and cone_par = per cone [mu, shift]; cparams (Bn,
-// nc, 2) and cmasks (Bn, MR) are device arrays of per-instance values or
-// nullptr.
+// One batched long-horizon solve, a plant per instance (K11/K12): A, B, K,
+// Quu, M, qc (Bn, N, nx), pterm (Bn, nx), rho (Bn). Bounds (umin, umax, ...):
+// bound_inst 1 for a set per instance (0: shared), bound_knot 1 for a row per
+// knot (0: one uniform row). check_every == 0: fixed max_iter iterations; >
+// 0: the adaptive kernel, which needs zs (Bn, N-1, nu) and vs (Bn, N, nx)
+// scratch. cone_tab == nullptr: no cones; otherwise the device table of nc_u
+// input and nc_x state cones (group_ops.cuh load_cones, rows of 2 + max(nx,
+// nu) floats); cparams (Bn, nc, 2) and cmasks (Bn, MR) are device arrays of
+// per-instance values or nullptr.
 int atm_stream_solve(
-    int shared, const float* x0, const float* A, const float* Bm,
+    const float* x0, const float* A, const float* Bm,
     const float* K, const float* Quu, const float* M, const float* umin,
     const float* umax, const float* xmin, const float* xmax, const float* qc,
     const float* pterm, const float* rho,
     float* U, float* X, float* d, float* y, float* g, float* z, float* v,
     float* zs, float* vs, float* stats,
-    const int* cone_idx, const float* cone_par, const float* cparams,
+    const float* cone_tab, int nc_u, int nc_x, const float* cparams,
     const float* cmasks, int bound_inst, int bound_knot,
     int Bn, int nx, int nu, int N, int max_iter, int check_every, int en_ib,
     int en_sb, float pri_tol, float dua_tol, void* stream) {
   using namespace atm_stream;
   if (Bn <= 0 || nx < 1 || nx > MAXDIM || nu < 1 || nu > MAXDIM || N < 2 ||
       max_iter < 1 || check_every < 0 || bound_inst < 0 || bound_inst > 1 ||
-      bound_knot < 0 || bound_knot > 1 || (check_every > 0 && (zs == nullptr || vs == nullptr)))
+      bound_knot < 0 || bound_knot > 1 ||
+      (check_every > 0 && (zs == nullptr || vs == nullptr)))
     return -1;
   Args a = {};
   a.x0 = x0; a.A = A; a.Bm = Bm; a.K = K; a.Quu = Quu; a.M = M;
@@ -373,27 +357,17 @@ int atm_stream_solve(
   a.Bn = Bn; a.nx = nx; a.nu = nu; a.N = N; a.max_iter = max_iter;
   a.check_every = check_every; a.en_ib = en_ib; a.en_sb = en_sb;
   a.pri_tol = pri_tol; a.dua_tol = dua_tol;
-  if (cone_idx != nullptr) {
-    a.nc_u = cone_idx[0];
-    a.nc_x = cone_idx[1];
-    const int nc = a.nc_u + a.nc_x;
-    if (a.nc_u < 0 || a.nc_x < 0 || nc < 1 || nc > MAXC) return -1;
-    for (int c = 0; c < nc; ++c) {
-      const int dim = c < a.nc_u ? nu : nx;
-      a.ball[c] = (unsigned)cone_idx[2 + 2 * c];
-      a.axis[c] = cone_idx[3 + 2 * c];
-      if (a.axis[c] < 0 || a.axis[c] >= dim) return -1;
-      if (dim < 32 && (a.ball[c] >> dim) != 0u) return -1;
-      a.mu[c] = cone_par[2 * c];
-      a.shift[c] = cone_par[2 * c + 1];
-    }
+  if (cone_tab != nullptr) {
+    if (nc_u < 0 || nc_x < 0 || nc_u + nc_x < 1) return -1;
+    a.ctab = cone_tab;
+    a.nc_u = nc_u;
+    a.nc_x = nc_x;
   } else if (cparams != nullptr || cmasks != nullptr) {
     return -1;
   }
   int G = 4;
   while (G < nx || G < nu) G *= 2;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return shared ? launch<true>(a, G, st) : launch<false>(a, G, st);
+  return launch(a, G, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -12,7 +12,11 @@ so device memory is read once and written once per *solve*. Where the
 operators do not fit beside one register tile of slots (the quadrotor past
 N=18), the kernels read them from device memory instead, in the padded
 layout of :func:`pad_problem` (:func:`choose_placement`); the sums run in
-the same order, so both placements give the same bits.
+the same order, so both placements give the same bits. Where one register
+tile of 8 slots' state does not fit even then (the quadrotor past N=78),
+the register tiles hold 4 slots (:func:`choose_register_tile`), again with
+the same bits; the quadrotor then runs to N=150, past the JAX package's
+N=129.
 
 Semantics: stage for stage the reference iteration (reference:
 src/tinympc/admm.cpp:111-152) in a fixed-iteration mode and an adaptive mode
@@ -71,11 +75,14 @@ LAUNCH_COUNTS = {
     "fused_rollout_fixed_cones": 0,
 }
 
-# Kernel geometry. Slots per block are a multiple of the register tile; the
-# shared-memory budget is the 227 KB a Hopper block may take. Threads per
-# block follow the tile (16 per slot, at most 256): the best pairs of
-# tools/torch_kernel_sweep.py's table on an H100.
+# Kernel geometry. Slots per block are a multiple of the register tile (8
+# slots; 4 where one tile of 8 slots' state does not fit even with the
+# operators in device memory); the shared-memory budget is the 227 KB a
+# Hopper block may take. Threads per block follow the tile (16 per slot, at
+# most 256): the best pairs of tools/torch_kernel_sweep.py's table on an
+# H100; the 4-slot tile, whose products are long, takes 256.
 REGISTER_TILE = 8
+REGISTER_TILES = (8, 4)
 MAX_TILE = 64
 MAX_THREADS = 256
 THREADS_PER_INSTANCE = 16
@@ -579,49 +586,77 @@ def tpu_horizon_limit(nx: int, nu: int) -> int:
 def choose_placement(dims: tuple, limit: int = SMEM_LIMIT_BYTES,
                      ncp: int = 0) -> str:
     """Where the kernels keep the condensed operators: ``"shared"`` wherever
-    they fit beside one register tile of slots (every shape that ran before
-    the device placement keeps its kernel), else ``"device"`` (read from
-    device memory, resident in L2) while one register tile of per-slot state
-    fits. Raises past that, with the bytes needed."""
+    they fit beside one register tile of 8 slots (every shape that ran
+    before the device placement keeps its kernel), else ``"device"`` (read
+    from device memory, resident in L2) while one register tile of per-slot
+    state fits, of 8 slots or else of 4. Raises past that, with the bytes
+    needed."""
     nx, nu, N = dims
     if kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp) <= limit:
         return "shared"
-    need = kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp, "device")
+    need = kernel_smem_bytes(nx, nu, N, REGISTER_TILES[-1], ncp, "device")
     if need <= limit:
         return "device"
     raise ValueError(
         f"the fused tier's per-slot state for nx={nx}, nu={nu}, horizon={N} "
         f"needs {need} bytes of shared memory per block with the condensed "
-        f"operators in device memory (limit {limit}); the JAX package's "
-        f"fused tier takes these widths up to N={tpu_horizon_limit(nx, nu)}"
-        " (a TPU's 12 MB VMEM budget); longer horizons belong to the "
-        "stream tier")
+        f"operators in device memory and {REGISTER_TILES[-1]} slots (limit "
+        f"{limit}); the JAX package's fused tier takes these widths up to "
+        f"N={tpu_horizon_limit(nx, nu)} (a TPU's 12 MB VMEM budget); longer "
+        "horizons belong to the stream tier")
+
+
+def choose_register_tile(dims: tuple, limit: int = SMEM_LIMIT_BYTES,
+                         ncp: int = 0, placement: str | None = None) -> int:
+    """Slots per register tile at ``placement`` (default
+    :func:`choose_placement`): 8 wherever one such tile fits (every shape
+    that ran before keeps its kernel), else 4, which only the device
+    placement takes. Raises if neither fits."""
+    nx, nu, N = dims
+    if placement is None:
+        placement = choose_placement(dims, limit, ncp)
+    for ri in REGISTER_TILES:
+        if ri != REGISTER_TILE and placement != "device":
+            break
+        if kernel_smem_bytes(nx, nu, N, ri, ncp, placement) <= limit:
+            return ri
+    need = kernel_smem_bytes(nx, nu, N, ri, ncp, placement)
+    raise ValueError(
+        f"one register tile of {ri} slots at nx={nx}, nu={nu}, horizon={N} "
+        f"needs {need} bytes of shared memory with the operators in "
+        f"{placement} memory (limit {limit})")
 
 
 def choose_tile(dims: tuple, batch: int, n_sm: int = 132,
                 limit: int = SMEM_LIMIT_BYTES, ncp: int = 0,
-                placement: str | None = None) -> int:
+                placement: str | None = None,
+                register_tile: int | None = None) -> int:
     """Slots per block: the largest multiple of the register tile that fits
     shared memory, not more than spreads the batch over all SMs, at
     ``placement`` (default: :func:`choose_placement`, which raises if even
-    one register tile does not fit)."""
+    one register tile does not fit) and ``register_tile`` slots per register
+    tile (default: :func:`choose_register_tile`)."""
     nx, nu, N = dims
     if placement is None:
         placement = choose_placement(dims, limit, ncp)
-    elif kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp, placement) > limit:
+    ri = register_tile or choose_register_tile(dims, limit, ncp, placement)
+    if ri not in REGISTER_TILES or (ri != REGISTER_TILE
+                                    and placement != "device"):
+        raise ValueError(f"register tiles of {ri} slots: take 8, or 4 with "
+                         "the operators in device memory")
+    need = kernel_smem_bytes(nx, nu, N, ri, ncp, placement)
+    if need > limit:
         raise ValueError(
-            f"one register tile at nx={nx}, nu={nu}, horizon={N} needs "
-            f"{kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp, placement)} "
-            f"bytes of shared memory with the operators in {placement} "
-            f"memory (limit {limit})")
-    fit = REGISTER_TILE
-    while (fit + REGISTER_TILE <= MAX_TILE and
-           kernel_smem_bytes(nx, nu, N, fit + REGISTER_TILE, ncp,
-                             placement) <= limit):
-        fit += REGISTER_TILE
+            f"one register tile of {ri} slots at nx={nx}, nu={nu}, "
+            f"horizon={N} needs {need} bytes of shared memory with the "
+            f"operators in {placement} memory (limit {limit})")
+    fit = ri
+    while (fit + ri <= MAX_TILE and
+           kernel_smem_bytes(nx, nu, N, fit + ri, ncp, placement) <= limit):
+        fit += ri
     per_sm = -(-batch // n_sm)
-    want = -(-per_sm // REGISTER_TILE) * REGISTER_TILE
-    return max(REGISTER_TILE, min(fit, want))
+    want = -(-per_sm // ri) * ri
+    return max(ri, min(fit, want))
 
 
 _F, _I, _P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
@@ -637,11 +672,11 @@ def _library() -> ctypes.CDLL:
         lib.atm_fused_smem_bytes.argtypes = [_I] * 6
         lib.atm_fused_smem_bytes.restype = _I
         lib.atm_fused_solve.argtypes = (
-            [_P] * 22 + [_I] * 2 + [_P] * 3 + [_I] * 7 + [_F] * 4 + [_I] * 4
+            [_P] * 22 + [_I] * 2 + [_P] * 3 + [_I] * 7 + [_F] * 4 + [_I] * 5
             + [_P])
         lib.atm_fused_solve.restype = _I
         lib.atm_fused_rollout.argtypes = (
-            [_P] * 25 + [_I] * 2 + [_P] + [_I] * 9 + [_F] * 4 + [_I] * 4
+            [_P] * 25 + [_I] * 2 + [_P] + [_I] * 9 + [_F] * 4 + [_I] * 5
             + [_P])
         lib.atm_fused_rollout.restype = _I
         lib._atm_declared = True
@@ -678,27 +713,30 @@ def _kernel_operands(pp: PaddedProblem, device) -> tuple:
 
 
 def _geometry(pp: PaddedProblem, B: int, device, batch_tile, threads,
-              ncp: int = 0, placement: str | None = None):
-    """``(tile, threads, smem bytes, placement)`` of one launch; the
-    placement is :func:`choose_placement`'s unless given."""
+              ncp: int = 0, placement: str | None = None,
+              register_tile: int | None = None):
+    """``(tile, threads, smem bytes, placement, register tile)`` of one
+    launch; the placement is :func:`choose_placement`'s and the register
+    tile :func:`choose_register_tile`'s unless given."""
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
     nx, nu, N = pp.dims
     if placement is None:
         placement = choose_placement(pp.dims, limit, ncp)
+    ri = register_tile or choose_register_tile(pp.dims, limit, ncp, placement)
     if batch_tile is None:
         tile = choose_tile(pp.dims, B, props.multi_processor_count, limit, ncp,
-                           placement)
+                           placement, ri)
     else:
-        tile = max(REGISTER_TILE,
-                   -(-int(batch_tile) // REGISTER_TILE) * REGISTER_TILE)
+        tile = max(ri, -(-int(batch_tile) // ri) * ri)
         tile = min(tile, choose_tile(pp.dims, 10 ** 9, 1, limit, ncp,
-                                     placement))
+                                     placement, ri))
     if threads is None:
-        threads = min(MAX_THREADS, THREADS_PER_INSTANCE * tile)
+        threads = (MAX_THREADS if ri != REGISTER_TILE
+                   else min(MAX_THREADS, THREADS_PER_INSTANCE * tile))
     threads = max(int(threads), -(-tile // 32) * 32)
     return (tile, threads, kernel_smem_bytes(nx, nu, N, tile, ncp, placement),
-            placement)
+            placement, ri)
 
 
 def work_counter(device) -> torch.Tensor:
@@ -762,6 +800,7 @@ def fused_solve(
     alpha: float = 1.0,
     threads: int | None = None,
     placement: str | None = None,
+    register_tile: int | None = None,
 ) -> FusedResult:
     """Run the fused whole-solve over a batch.
 
@@ -784,8 +823,11 @@ def fused_solve(
     mode only) runs that many iterations without convergence checks first.
     ``batch_tile`` (slots per block) and ``threads`` override the
     kernel's launch geometry, ``placement`` (``"shared"``/``"device"``)
-    where it keeps the operators (default :func:`choose_placement`; both
-    give the same bits where both fit).
+    where it keeps the operators (default :func:`choose_placement`) and
+    ``register_tile`` the slots per register tile (8, or 4 with the device
+    placement; default :func:`choose_register_tile`); every choice gives the
+    same bits where it fits, at one launch geometry (the backward product's
+    depth split follows slots and threads).
 
     Tensors on the CPU go through :func:`fused_solve_plain`; tensors on a
     CUDA device launch the kernel (float32 only) or raise. ``algo='bf16x3'``
@@ -829,8 +871,8 @@ def fused_solve(
     with torch.no_grad():
         const_d = _check("const_d", fold_const_d(pp, xref_q, pterm_c),
                          (1, Du), dev)
-    tile, threads, smem, placement = _geometry(
-        pp, B, dev, batch_tile, threads, ncp, placement)
+    tile, threads, smem, placement, ri = _geometry(
+        pp, B, dev, batch_tile, threads, ncp, placement, register_tile)
     W_f, W_b, W_x, lo, hi = _kernel_operands(pp, dev)
 
     new = lambda w: torch.empty((B, w), dtype=torch.float32, device=dev)
@@ -858,7 +900,7 @@ def fused_solve(
             min(int(warmup_iters), int(max_iter) - 1) if adaptive else 0,
             float(pp.rho_f), float(alpha),
             float(abs_pri_tol), float(abs_dua_tol),
-            tile, threads, smem, int(placement == "device"), stream,
+            tile, threads, smem, int(placement == "device"), ri, stream,
         )
     _raise_on(err, "fused_solve")
     LAUNCH_COUNTS[

@@ -165,6 +165,7 @@ def fused_rollout(
     alpha: float = 1.0,
     threads: int | None = None,
     placement: str | None = None,
+    register_tile: int | None = None,
 ) -> RolloutResult:
     """Run ``n_ticks`` receding-horizon MPC ticks in one kernel launch.
 
@@ -181,8 +182,9 @@ def fused_rollout(
     Semantics per tick match :func:`..api.mpc.fused_mpc_rollout` (the
     loop-of-kernels implementation of the same loop).
 
-    ``batch_tile``, ``threads`` and ``placement`` are the launch geometry
-    and operator placement of :func:`.fused_admm.fused_solve`.
+    ``batch_tile``, ``threads``, ``placement`` and ``register_tile`` are
+    the launch geometry, operator placement and register tile of
+    :func:`.fused_admm.fused_solve`.
 
     Tensors on the CPU go through :func:`fused_rollout_plain`; tensors on a
     CUDA device launch the kernel (float32 only) or raise.
@@ -211,8 +213,9 @@ def fused_rollout(
     D0 = _check("carry.D", carry.D, (B, Du), dev)
     Z0 = _check("carry.Z", carry.Z, (B, Du), dev)
     V0 = _check("carry.V", carry.V, (B, Dx), dev)
-    tile, threads, smem, placement = _geometry(
-        pp, B, dev, batch_tile, threads, placement=placement)
+    tile, threads, smem, placement, ri = _geometry(
+        pp, B, dev, batch_tile, threads, placement=placement,
+        register_tile=register_tile)
     W_f, W_b, W_x, lo, hi = _kernel_operands(pp, dev)
     A = _check("rops.A", rops.A, (nx, nx), dev)
     Bm = _check("rops.B", rops.B, (nx, nu), dev)
@@ -248,7 +251,7 @@ def fused_rollout(
             min(int(warmup_iters), int(max_iter) - 1) if adaptive else 0,
             float(pp.rho_f), float(alpha),
             float(abs_pri_tol), float(abs_dua_tol),
-            tile, threads, smem, int(placement == "device"), stream,
+            tile, threads, smem, int(placement == "device"), ri, stream,
         )
     _raise_on(err, "fused_rollout")
     LAUNCH_COUNTS["fused_rollout" + ("" if adaptive else "_fixed")

@@ -57,9 +57,9 @@ torch.backends.cuda.matmul.allow_tf32 = False  # full-float32 products
 LAUNCH_COUNTS = {"hetero_solve_fixed": 0, "hetero_solve_adaptive": 0}
 
 # Limits of csrc/hetero_admm.cu: a group of at most 32 lanes owns an
-# instance (one lane per state or input row), at most 8 cones.
+# instance (one lane per state or input row). Cones: any number, as far as
+# shared memory takes their operands.
 MAX_DIM = 32
-MAX_CONES = 8
 THREADS = 128          # threads per block at most
 SMEM_LIMIT_BYTES = 232_448
 
@@ -514,7 +514,8 @@ def _library() -> ctypes.CDLL:
     lib = load_library("hetero_admm")
     if not getattr(lib, "_atm_declared", False):
         lib.atm_hetero_solve.argtypes = (
-            [_P] * 30 + [_I] * 8 + [_F] * 2 + [_I] * 2 + [_P])
+            [_P] * 27 + [_I] * 2 + [_P] * 2 + [_I] * 8 + [_F] * 2 + [_I] * 2
+            + [_P])
         lib.atm_hetero_solve.restype = _I
         lib._atm_declared = True
     return lib
@@ -532,9 +533,9 @@ def group_size(nx: int, nu: int) -> int:
 def inst_floats(nx: int, nu: int, N: int, nc: int) -> int:
     """Shared-memory floats one instance needs (mirrors ``inst_floats`` in
     ``csrc/hetero_admm.cu``): X, two V buffers, G, qc and the state bounds
-    per knot; U, two Z buffers, Y, D and the input bounds per knot; mu and
-    shift per cone."""
-    return 7 * N * nx + 7 * (N - 1) * nu + 2 * nc
+    per knot; U, two Z buffers, Y, D and the input bounds per knot; mu,
+    shift and the role of each of the group's lanes per cone."""
+    return 7 * N * nx + 7 * (N - 1) * nu + (2 + group_size(nx, nu)) * nc
 
 
 def launch_geometry(dims: tuple, nc: int = 0,
@@ -573,19 +574,20 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Tensor:
     return t.contiguous()
 
 
-def _cone_table(cones, nx: int, nu: int):
-    """Host arrays of the C entry's cone table: ``idx = [nc_u, nc_x, then per
-    cone ball bit mask, axis]``, ``par = [mu, shift]`` per cone, and the
-    ctypes arrays that must outlive the call. Raises on indices outside a
-    knot or an axis inside its ball."""
+def _cone_table(cones, nx: int, nu: int, device):
+    """The kernels' static cone table on ``device``: per cone (input cones
+    first) a float32 row of ``2 + max(nx, nu)``: ``mu, shift``, then the role
+    of each component of its knot (1 in the ball, 2 the axis, 0 neither;
+    ``group_ops.cuh`` ``load_cones``). Returns ``(table, nc_u, nc_x)``,
+    ``(None, 0, 0)`` without cones. Raises on indices outside a knot or an
+    axis inside its ball."""
     if cones is None:
-        return None, None, ()
+        return None, 0, 0
     ucones, xcones = _cone_groups(cones)
     if not (ucones or xcones):
-        return None, None, ()
-    if len(ucones) + len(xcones) > MAX_CONES:
-        raise ValueError(f"the hetero kernels take at most {MAX_CONES} cones")
-    idx, par = [len(ucones), len(xcones)], []
+        return None, 0, 0
+    width = max(nx, nu)
+    rows = np.zeros((len(ucones) + len(xcones), 2 + width), np.float32)
     for k, cone in enumerate(ucones + xcones):
         dim = nu if k < len(ucones) else nx
         ball = [int(b) for b in cone.ball]
@@ -593,15 +595,10 @@ def _cone_table(cones, nx: int, nu: int):
             raise ValueError(f"cone {k}: indices must be in [0, {dim})")
         if int(cone.axis) in ball:
             raise ValueError(f"cone {k}: axis is in the ball")
-        bits = 0
-        for b in ball:
-            bits |= 1 << b
-        idx += [bits, int(cone.axis)]
-        par += [float(cone.mu), float(cone.shift)]
-    ci = (ctypes.c_int * len(idx))(*[ctypes.c_int(v).value for v in idx])
-    cp = (ctypes.c_float * len(par))(*par)
-    return (ctypes.cast(ci, ctypes.c_void_p), ctypes.cast(cp, ctypes.c_void_p),
-            (ci, cp))
+        rows[k, :2] = float(cone.mu), float(cone.shift)
+        rows[k, 2 + np.asarray(ball, int)] = 1.0
+        rows[k, 2 + int(cone.axis)] = 2.0
+    return (torch.as_tensor(rows, device=device), len(ucones), len(xcones))
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -658,9 +655,8 @@ def hetero_solve(
     m = N - 1
     Bn = x0.shape[0]
     dev = x0.device
-    cone_idx, cone_par, _alive = _cone_table(cones, nx, nu)
-    nc = 0 if cone_idx is None else (
-        len(cones.input_cones) + len(cones.state_cones))
+    ctab, nc_u, nc_x = _cone_table(cones, nx, nu, dev)
+    nc = nc_u + nc_x
     props = torch.cuda.get_device_properties(dev)
     limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
     G, ipb, smem = launch_geometry(hp.dims, nc, limit)
@@ -696,7 +692,7 @@ def hetero_solve(
             *(t.data_ptr() for t in ops),
             U.data_ptr(), X.data_ptr(), d.data_ptr(), y.data_ptr(),
             g.data_ptr(), z.data_ptr(), v.data_ptr(), stats.data_ptr(),
-            cone_idx, cone_par,
+            None if ctab is None else ctab.data_ptr(), nc_u, nc_x,
             None if cone_params is None else cone_params.data_ptr(),
             None if cone_masks is None else cone_masks.data_ptr(),
             Bn, nx, nu, N, int(max_iter),

@@ -41,7 +41,7 @@ from .stream_admm import (
     _check_common,
     _plain,
     _rows,
-    _launch,
+    _launch_hstream,
 )
 
 
@@ -217,7 +217,8 @@ def hstream_solve(
     that many iterations (stats column 0 the iterations, column 1 the solved
     flag). ``cones`` adds SOC projections; ``cone_params`` ``(B, nc, 2)`` /
     ``cone_masks`` ``(B, MR)`` override their mu/shift and geometry per
-    instance. ``knot_block`` changes nothing (:mod:`.stream_admm`).
+    instance. ``knot_block`` changes nothing (this kernel stages no
+    blocks).
 
     Tensors on the CPU go through :func:`hstream_solve_plain`; tensors on a
     CUDA device launch the kernel (float32, ``nx, nu <= 32``) or raise.
@@ -230,4 +231,4 @@ def hstream_solve(
               cones=cones, cone_params=cone_params, cone_masks=cone_masks)
     if not x0.is_cuda:
         return _plain(x0, carry, hsp, **kw)
-    return _launch("hstream_solve", False, x0, carry, hsp, **kw)
+    return _launch_hstream(x0, carry, hsp, **kw)

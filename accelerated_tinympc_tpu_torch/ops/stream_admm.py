@@ -15,11 +15,14 @@ carries written out only where they are the result.
 (:class:`StreamCarry`) holds ``d, y, z (B, N-1, nu)`` and ``g, v (B, N,
 nx)``; the plant, its cache, ``qc = -(Q o Xref)`` per knot and ``pterm =
 -Pinf^T Xref_{N-1}`` are shared. Bounds are one row (time-uniform) or one
-row per knot (a schedule). The JAX package's lane tiles, sublane padding,
-DMA double buffering and full-width stats rows are TPU layout and are not
-carried over; ``knot_block`` (the knots per DMA block there) is accepted and
-changes nothing: the CUDA kernel stages no blocks, so results do not depend
-on it.
+row per knot (a schedule). The JAX package's lane tiles, sublane padding
+and full-width stats rows are TPU layout and are not carried over. Its DMA
+double buffering has a counterpart: the kernels keep the next knots of
+every instance in flight through a ring in shared memory, and
+``knot_block`` (the knots per DMA block there) sets the ring's depth, up to
+``KB_MAX`` knots and as far as shared memory takes it (:func:`shared_plan`);
+results do not depend on it. The kernels read the carry knot-major with the
+instance innermost; the wrapper transposes it in and the results out.
 
 **Modes.** ``check_termination == 0``: ``max_iter`` iterations (kernel K9);
 ``> 0``: per-instance early exit with the reference's snapshot semantics
@@ -28,8 +31,13 @@ on it.
 slack save, Y and G advanced, U and X of that iteration. ``stats (B, 8)``:
 ``[iterations, solved, pri_state, dua_state, pri_input, dua_input, 0, 0]``.
 
-:func:`stream_solve` launches ``csrc/stream_admm.cu`` for tensors on a CUDA
-device and takes :func:`stream_solve_plain` only for tensors on the CPU.
+:func:`stream_solve` launches ``csrc/stream_shared.cu`` for tensors on a
+CUDA device and takes :func:`stream_solve_plain` only for tensors on the CPU.
+The kernels run one thread per instance, a warp's 32 slots fed by a work
+counter; any ``nx, nu`` and any number of cones are taken as far as shared
+memory holds the plant and the staging (:func:`shared_plan`), the shape of
+``SHARED_SHAPES`` with compiled loops, every other one with loops at run
+time.
 """
 
 from __future__ import annotations
@@ -51,9 +59,79 @@ LAUNCH_COUNTS = {"stream_solve_fixed": 0, "stream_solve_adaptive": 0,
                  "hstream_solve_fixed": 0, "hstream_solve_adaptive": 0}
 
 
+# csrc/stream_shared.cu: the shape (nx, nu) compiled with fixed loops, the
+# long-horizon example's plant (every other runs the run-time body), the most
+# knots a slot keeps in flight, slots per block, and the budget of a Hopper
+# block's shared memory.
+SHARED_SHAPES = ((8, 3),)
+KB_MAX = 8
+SLOTS = 32
+SMEM_LIMIT_BYTES = 232_448
+
+
 def reset_launch_counts() -> None:
     for k in LAUNCH_COUNTS:
         LAUNCH_COUNTS[k] = 0
+
+
+def shared_smem_bytes(nx: int, nu: int, kb: int, nc: int = 0) -> int:
+    """Dynamic shared memory of one block of the shared-plant kernels:
+    mirrors ``make_layout`` in ``csrc/stream_shared.cu`` (the C entry
+    refuses a launch when the two disagree). The plant's rows padded to
+    float4 (A, AmBKt: nx x r4(nx); B, Kinf': nx x r4(nu); Kinf, B': nu x
+    r4(nx); Quu_inv), pterm, uniform bounds, the cone table, the run-time
+    body's vectors (32 slots x (3 nx + 4 nu)) and each slot's ring of ``kb``
+    knots (d, y, z, g, v: 3 nu + 2 nx floats a knot)."""
+    r4 = lambda n: (n + 3) & ~3
+    px, pu, tw = r4(nx), r4(nu), max(nx, nu)
+    words = (2 * nx * px + 2 * nx * pu + 2 * nu * px + nu * pu
+             + 3 * px + 2 * pu                        # pterm, bounds
+             + r4(nc * (2 + tw)))
+    if (nx, nu) not in SHARED_SHAPES:
+        words += SLOTS * (3 * nx + 4 * nu)
+    return 4 * (words + kb * (3 * nu + 2 * nx) * SLOTS)
+
+
+def shared_plan(nx: int, nu: int, N: int, knot_block: int = 32, nc: int = 0,
+                limit: int = SMEM_LIMIT_BYTES) -> dict:
+    """The launch of the shared-plant kernels for these sizes: ``kernel``
+    (``"compiled nx/nu"`` for ``SHARED_SHAPES``, else ``"run-time"``),
+    ``kb`` (knots a slot keeps in flight: ``knot_block`` up to ``KB_MAX`` and
+    the horizon, less where shared memory needs it) and ``smem_bytes``.
+    Raises where even one knot does not fit, naming the bytes."""
+    kb = max(1, min(int(knot_block), KB_MAX, N))
+    while kb > 1 and shared_smem_bytes(nx, nu, kb, nc) > limit:
+        kb -= 1
+    need = shared_smem_bytes(nx, nu, kb, nc)
+    if need > limit:
+        raise ValueError(
+            f"the stream kernels' plant and staging for nx={nx}, nu={nu}, "
+            f"{nc} cones need {need} bytes of shared memory per block "
+            f"(limit {limit}): use the scan tier")
+    kernel = (f"compiled {nx}/{nu}" if (nx, nu) in SHARED_SHAPES
+              else "run-time")
+    return {"kernel": kernel, "kb": kb, "smem_bytes": need}
+
+
+def shared_slots(nx: int, nu: int, N: int, knot_block: int = 32,
+                 nc: int = 0, adaptive: bool = True,
+                 device: Any = "cuda") -> int:
+    """Slots the card holds at once for a launch of these sizes (resident
+    blocks x ``SLOTS``, from the CUDA occupancy of the kernel
+    :func:`shared_plan` picks). A batch past it keeps slots refilling from
+    the work counter."""
+    dev = torch.device(device)
+    props = torch.cuda.get_device_properties(dev)
+    limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
+    kb = shared_plan(nx, nu, N, knot_block, nc, limit)["kb"]
+    with torch.cuda.device(dev):
+        slots = _library("stream_shared").atm_shared_slots(
+            nx, nu, kb, nc, int(bool(adaptive)))
+    if slots < 0:
+        raise RuntimeError(f"shared_slots: the occupancy query failed "
+                           f"({slots}: -1 refused, else a negated CUDA "
+                           "error)")
+    return slots
 
 
 def _rows(b: torch.Tensor, knots: int, k: int) -> tuple[torch.Tensor, bool]:
@@ -208,38 +286,42 @@ def stream_solve_plain(
 _F, _I, _P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 
 
-def _library() -> ctypes.CDLL:
+def _library(name: str) -> ctypes.CDLL:
+    """``csrc/stream_shared.cu`` (``name="stream_shared"``, K9/K10) or
+    ``csrc/stream_admm.cu`` (``"stream_admm"``, K11/K12), built at first
+    use, with its C signatures declared."""
     from ._build import load_library
 
-    lib = load_library("stream_admm")
+    lib = load_library(name)
     if not getattr(lib, "_atm_declared", False):
-        lib.atm_stream_solve.argtypes = (
-            [_I] + [_P] * 27 + [_I] * 10 + [_F] * 2 + [_P])
-        lib.atm_stream_solve.restype = _I
+        if name == "stream_shared":
+            lib.atm_shared_stream_solve.argtypes = (
+                [_P] * 24 + [_I] * 2 + [_P] + [_I] * 9 + [_F] * 2
+                + [_I] * 2 + [_P])
+            lib.atm_shared_stream_solve.restype = _I
+            lib.atm_shared_smem_bytes.argtypes = [_I] * 4
+            lib.atm_shared_smem_bytes.restype = _I
+            lib.atm_shared_slots.argtypes = [_I] * 5
+            lib.atm_shared_slots.restype = _I
+        else:
+            lib.atm_stream_solve.argtypes = (
+                [_P] * 24 + [_I] * 2 + [_P] * 2 + [_I] * 10 + [_F] * 2
+                + [_P])
+            lib.atm_stream_solve.restype = _I
         lib._atm_declared = True
     return lib
 
 
-def _launch(name: str, shared: bool, x0, carry, ops, *, max_iter: int,
-            check_termination: int, abs_pri_tol: float, abs_dua_tol: float,
-            en_input_bound: bool, en_state_bound: bool, cones=None,
-            cone_params=None, cone_masks=None) -> StreamResult:
-    """Launch ``csrc/stream_admm.cu`` on CUDA tensors (float32, ``nx, nu <=
-    32``, at most 8 cones): ``shared`` for one plant (:class:`StreamProblem`),
-    else per-instance plants (:class:`.hstream_admm.HStreamProblem`).
-    Counts the launch under ``name`` + ``_fixed``/``_adaptive``."""
+def _operands(shared: bool, x0, carry, ops, cones, cone_params, cone_masks):
+    """The checked inputs of a launch (shared plant or one per instance), the
+    copies of the carry the kernel updates in place (knot-major for the
+    shared plant: :func:`_knot_major`), the cone table and whether the bounds
+    come a row per knot."""
     nx, nu, N = ops.dims
     m = N - 1
     Bn = x0.shape[0]
     dev = x0.device
-    if nx > ha.MAX_DIM or nu > ha.MAX_DIM:
-        raise ValueError(
-            f"the stream kernels take nx, nu <= {ha.MAX_DIM}, got nx={nx}, "
-            f"nu={nu}: use the scan tier")
-    adaptive = check_termination > 0
-    cone_idx, cone_par, _alive = ha._cone_table(cones, nx, nu)
-    nc = 0 if cone_idx is None else (
-        len(cones.input_cones) + len(cones.state_cones))
+    ctab, nc_u, nc_x = ha._cone_table(cones, nx, nu, dev)
     c = lambda what, t, shape: ha._check(what, t, shape, dev)
     P = () if shared else (Bn,)
     ku = ops.u_min.shape[-2]
@@ -261,33 +343,131 @@ def _launch(name: str, shared: bool, x0, carry, ops, *, max_iter: int,
         c("rho", ops.rho.reshape(-1), P or (1,)),
     ]
     # The kernel updates the carry in place: it gets copies.
-    cy = [c(f"carry.{k}", a, (Bn,) + s).clone() for k, a, s in zip(
+    copy = _knot_major if shared else torch.clone
+    cy = [copy(c(f"carry.{k}", a, (Bn,) + s)) for k, a, s in zip(
         carry._fields, carry, ((m, nu), (m, nu), (N, nx), (m, nu), (N, nx)))]
+    nc = nc_u + nc_x
     if cone_params is not None:
         cone_params = c("cone_params", cone_params, (Bn, nc, 2))
     if cone_masks is not None:
-        mr = 2 * nu * len(cones.input_cones) + 2 * nx * len(cones.state_cones)
+        mr = 2 * nu * nc_u + 2 * nx * nc_x
         cone_masks = c("cone_masks", cone_masks, (Bn, mr))
+    return ins, cy, (ctab, nc_u, nc_x), cone_params, cone_masks, \
+        bound_rows[0] > 1
+
+
+def _outputs(Bn, nx, nu, N, adaptive, dev):
     new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    m = N - 1
     U, X, stats = new(Bn, m, nu), new(Bn, N, nx), new(Bn, 8)
     zs = new(Bn, m, nu) if adaptive else None
     vs = new(Bn, N, nx) if adaptive else None
-    ptr = lambda t: None if t is None else t.data_ptr()
-    lib = _library()
+    return U, X, stats, zs, vs
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _knot_major(t: torch.Tensor) -> torch.Tensor:
+    """``(B, knots, k)`` -> ``(knots, k, B)``, a contiguous copy."""
+    return t.permute(1, 2, 0).clone(memory_format=torch.contiguous_format)
+
+
+def _batch_major(t: torch.Tensor) -> torch.Tensor:
+    """``(knots, k, B)`` -> ``(B, knots, k)``, contiguous."""
+    return t.permute(2, 0, 1).contiguous()
+
+
+def _launch_shared(x0, carry, sp, *, max_iter: int, knot_block: int,
+                   check_termination: int, abs_pri_tol: float,
+                   abs_dua_tol: float, en_input_bound: bool,
+                   en_state_bound: bool, cones=None) -> StreamResult:
+    """Launch ``csrc/stream_shared.cu`` (K9 fixed, K10 adaptive) on CUDA
+    tensors (float32; sizes as far as :func:`shared_plan` takes them). The
+    kernel works on knot-major copies of the carry (its layout: module
+    docstring), which come back batch-leading. Counts the launch under
+    ``stream_solve_fixed``/``_adaptive``."""
+    from .fused_admm import work_counter
+
+    nx, nu, N = sp.dims
+    Bn = x0.shape[0]
+    dev = x0.device
+    adaptive = check_termination > 0
+    props = torch.cuda.get_device_properties(dev)
+    limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
+    nc = 0 if cones is None else (len(cones.input_cones)
+                                  + len(cones.state_cones))
+    plan = shared_plan(nx, nu, N, knot_block, nc, limit)
+    ins, cy, (ctab, nc_u, nc_x), _cp, _cm, knot = _operands(
+        True, x0, carry, sp, cones, None, None)
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    m = N - 1
+    U, X, stats = new(m, nu, Bn), new(N, nx, Bn), new(Bn, 8)
+    zs = new(m, nu, Bn) if adaptive else None
+    vs = new(N, nx, Bn) if adaptive else None
+    counter = work_counter(dev)
+    lib = _library("stream_shared")
+    with torch.cuda.device(dev):
+        err = lib.atm_shared_stream_solve(
+            *(t.data_ptr() for t in ins),
+            U.data_ptr(), X.data_ptr(), *(t.data_ptr() for t in cy),
+            _ptr(zs), _ptr(vs), stats.data_ptr(), _ptr(ctab), nc_u, nc_x,
+            counter.data_ptr(), int(knot), Bn, nx, nu, N, int(max_iter),
+            int(check_termination) if adaptive else 0,
+            int(bool(en_input_bound)), int(bool(en_state_bound)),
+            float(abs_pri_tol), float(abs_dua_tol), plan["kb"],
+            plan["smem_bytes"], torch.cuda.current_stream().cuda_stream)
+    ha._raise_on(err, "stream_solve")
+    LAUNCH_COUNTS["stream_solve" + ("_adaptive" if adaptive
+                                    else "_fixed")] += 1
+    return StreamResult(U=_batch_major(U), X=_batch_major(X),
+                        carry=StreamCarry(*(_batch_major(t) for t in cy)),
+                        stats=stats)
+
+
+def _launch_hstream(x0, carry, hsp, *, max_iter: int, check_termination: int,
+                    abs_pri_tol: float, abs_dua_tol: float,
+                    en_input_bound: bool, en_state_bound: bool, cones=None,
+                    cone_params=None, cone_masks=None) -> StreamResult:
+    """Launch ``csrc/stream_admm.cu`` (K11 fixed, K12 adaptive: a plant per
+    instance, :class:`.hstream_admm.HStreamProblem`) on CUDA tensors
+    (float32, ``nx, nu <= 32``). Counts the launch under
+    ``hstream_solve_fixed``/``_adaptive``."""
+    nx, nu, N = hsp.dims
+    Bn = x0.shape[0]
+    dev = x0.device
+    if nx > ha.MAX_DIM or nu > ha.MAX_DIM:
+        raise ValueError(
+            f"the hstream kernels take nx, nu <= {ha.MAX_DIM}, got nx={nx}, "
+            f"nu={nu}: use the scan tier")
+    adaptive = check_termination > 0
+    ins, cy, (ctab, nc_u, nc_x), cone_params, cone_masks, knot = _operands(
+        False, x0, carry, hsp, cones, cone_params, cone_masks)
+    G = ha.group_size(nx, nu)
+    smem = (128 // G) * (2 + G) * (nc_u + nc_x) * 4
+    props = torch.cuda.get_device_properties(dev)
+    limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
+    if smem > limit:
+        raise ValueError(f"the hstream kernels' cone operands for "
+                         f"{nc_u + nc_x} cones need {smem} bytes of shared "
+                         f"memory per block (limit {limit})")
+    U, X, stats, zs, vs = _outputs(Bn, nx, nu, N, adaptive, dev)
+    lib = _library("stream_admm")
     with torch.cuda.device(dev):
         err = lib.atm_stream_solve(
-            int(shared), *(t.data_ptr() for t in ins),
+            *(t.data_ptr() for t in ins),
             U.data_ptr(), X.data_ptr(), *(t.data_ptr() for t in cy),
-            ptr(zs), ptr(vs), stats.data_ptr(),
-            cone_idx, cone_par, ptr(cone_params), ptr(cone_masks),
-            int(not shared), int(bound_rows[0] > 1),
-            Bn, nx, nu, N, int(max_iter),
+            _ptr(zs), _ptr(vs), stats.data_ptr(),
+            _ptr(ctab), nc_u, nc_x, _ptr(cone_params), _ptr(cone_masks),
+            1, int(knot), Bn, nx, nu, N, int(max_iter),
             int(check_termination) if adaptive else 0,
             int(bool(en_input_bound)), int(bool(en_state_bound)),
             float(abs_pri_tol), float(abs_dua_tol),
             torch.cuda.current_stream().cuda_stream)
-    ha._raise_on(err, name)
-    LAUNCH_COUNTS[name + ("_adaptive" if adaptive else "_fixed")] += 1
+    ha._raise_on(err, "hstream_solve")
+    LAUNCH_COUNTS["hstream_solve" + ("_adaptive" if adaptive
+                                     else "_fixed")] += 1
     return StreamResult(U=U, X=X, carry=StreamCarry(*cy), stats=stats)
 
 
@@ -314,8 +494,8 @@ def stream_solve(
     early exit admm.cpp:135-144; stats column 0 the iterations, column 1
     the solved flag). Tolerances are runtime arguments; ``cones`` (a
     :class:`..solver.cones.ConeSet`) adds SOC projections after the box
-    clip. ``knot_block`` is accepted for the JAX signature and changes
-    nothing (module docstring). Combine with
+    clip. ``knot_block`` sets the kernels' staged knot block (module
+    docstring; results do not depend on it). Combine with
     :func:`..solver.cascade.stream_cascade_solve` for compaction between
     launches.
 
@@ -329,4 +509,4 @@ def stream_solve(
               cones=cones)
     if not x0.is_cuda:
         return _plain(x0, carry, sp, **kw)
-    return _launch("stream_solve", True, x0, carry, sp, **kw)
+    return _launch_shared(x0, carry, sp, knot_block=knot_block, **kw)

@@ -370,7 +370,8 @@ def ptxas_per_kernel(log: str) -> list:
                       r" '?(\w+)'?", ln)
         if m and "Compiling" in ln:
             name = m.group(1)
-            short = re.search(r"atm\d+(\w+?_kernel)(I\w*E)?", name)
+            short = re.search(r"atm(?:_[a-z]+)?\d+(\w+?_kernel)(I\w*E)?",
+                              name)
             label = name
             if short:   # template arguments (placement, shape) as <...>
                 args = re.findall(r"L[ib](\d+)E", short.group(2) or "")
@@ -575,7 +576,9 @@ def main() -> None:
         for name in ("hetero_admm", "stream_admm")}
     emit("build", seconds=round(_build.last_build_seconds, 2), ptxas=ptxas,
          fused_kernels=ptxas_per_kernel(_build.build_log("fused_admm")),
-         riccati_kernels=ptxas_per_kernel(_build.build_log("riccati")))
+         riccati_kernels=ptxas_per_kernel(_build.build_log("riccati")),
+         shared_stream_kernels=ptxas_per_kernel(
+             _build.build_log("stream_shared")))
 
     # -------------------------------------------------------------- kernels
     cases = []
@@ -695,8 +698,7 @@ def main() -> None:
     # slot); batches smaller than one block's slots; two launches back to
     # back (the work counter starts at 0 in each). All at one launch
     # geometry (the backward product's depth split follows slots and threads).
-    tile_, threads_, _smem, _placement = fused_admm._geometry(
-        pp, B, dev, None, None)
+    tile_, threads_ = fused_admm._geometry(pp, B, dev, None, None)[:2]
     geo = dict(batch_tile=tile_, threads=threads_)
     perm = torch.as_tensor(np.random.default_rng(7).permutation(B),
                            device=dev)
@@ -762,9 +764,14 @@ def main() -> None:
     # 20-tick in-kernel mission, each against the plain version (the
     # float64 plain version arbitrates, as for the fleets, where two
     # float32 versions stray further than the bars), and the entry point's
-    # results equal to the kernel's called directly. Then the N=18 solve's
-    # milliseconds in both placements at batch 65,536, and where
-    # choose_tile refuses.
+    # results equal to the kernel's called directly; the same at N=100 and
+    # N=129 (the JAX package's limit for the quadrotor), where one register
+    # tile of 8 slots no longer fits shared memory and the kernels run
+    # tiles of 4 (batch 1,027). At N=40 tiles of 8 and of 4 slots give the
+    # same bits (K1, K2 warm, K3 12 ticks; a block of one tile, 128
+    # threads). Then the N=18 solve's milliseconds in both placements at
+    # batch 65,536, N=100 and N=129 at 4,099, and where choose_tile
+    # refuses.
     def placement_fields(kind, run):
         out = run("shared"), run("device")
         f = solve_fields if kind == "solve" else mission_fields
@@ -792,11 +799,12 @@ def main() -> None:
             "mission", lambda pl: fused_rollout(ox, ocold, opp, orops, 12,
                                                 placement=pl, **ogeo,
                                                 **WARM_KW))
-    for N in (20, 40):
+    for N in (20, 40, 100, 129):
         oprob, ocache, ox = atm.models.quadrotor_hovering_setup(
             horizon=N, device=dev)
+        OB = B if N <= 40 else 1027
         rng = np.random.default_rng(N)
-        ox = torch.as_tensor(ox[None] + 0.05 * rng.standard_normal((B, 12)),
+        ox = torch.as_tensor(ox[None] + 0.05 * rng.standard_normal((OB, 12)),
                              dtype=torch.float32, device=dev)
         opp64 = pad_problem(oprob.to(dtype=f64), ocache.to(dtype=f64),
                             atm.condensed_operators(
@@ -806,12 +814,14 @@ def main() -> None:
                 ("fixed-100", atm.Settings(max_iter=100, check_termination=0)),
                 ("adaptive", atm.Settings(max_iter=100, check_termination=1))):
             mpc = atm.TinyMPC.from_parts(oprob, ocache, tier="fused",
-                                         batch=B, settings=settings)
+                                         batch=OB, settings=settings)
             mpc.set_x0(ox)
             mpc.solve()
             opp = mpc._pp
             assert fused_admm.choose_placement(opp.dims) == "device", N
-            ocold = FusedCarry.zeros(B, opp, device=dev)
+            assert fused_admm.choose_register_tile(opp.dims) == (
+                8 if N <= 78 else 4), N
+            ocold = FusedCarry.zeros(OB, opp, device=dev)
             kw = dict(max_iter=100,
                       check_termination=settings.check_termination)
             got = mpc._fused_result
@@ -824,13 +834,13 @@ def main() -> None:
                 f"TinyMPC fused {label} N={N}", got,
                 fused_solve_plain(ox, ocold, opp, **kw),
                 fused_solve_plain(ox.double(), FusedCarry.zeros(
-                    B, opp64, f64, dev), opp64, **kw),
+                    OB, opp64, f64, dev), opp64, **kw),
                 kw["check_termination"], opp.rho_f,
                 lambda: cuda_result(fused_solve_plain(
-                    ox.cpu(), FusedCarry.zeros(B, cpu_pp, device="cpu"),
+                    ox.cpu(), FusedCarry.zeros(OB, cpu_pp, device="cpu"),
                     cpu_pp, **kw))))
         orops = rollout_ops(oprob, opp, device=dev)
-        mpc = atm.TinyMPC.from_parts(oprob, ocache, tier="fused", batch=B,
+        mpc = atm.TinyMPC.from_parts(oprob, ocache, tier="fused", batch=OB,
                                      settings=atm.Settings(
                                          max_iter=100, check_termination=1))
         mpc.set_x0(ox)
@@ -841,21 +851,37 @@ def main() -> None:
         op_cases.append(compare_rollout(
             f"K3 20 ticks N={N}", got,
             fused_rollout_plain(ox, ocold, opp, orops, 20, **WARM_KW), 1))
+        if N == 40:   # register tiles of 8 and of 4 slots, one geometry
+            tgeo = lambda ri: dict(placement="device", register_tile=ri,
+                                   batch_tile=ri, threads=128)
+            ox1, owarm = got.x_final, got.final.carry.reset_duals()
+            for label, fkind, run in (
+                    ("K1", "solve", lambda ri: fused_solve(
+                        ox, ocold, opp, max_iter=100, **tgeo(ri))),
+                    ("K2 warm", "solve", lambda ri: fused_solve(
+                        ox1, owarm, opp, **WARM_KW, **tgeo(ri))),
+                    ("K3 12 ticks", "mission", lambda ri: fused_rollout(
+                        ox, ocold, opp, orops, 12, **WARM_KW, **tgeo(ri)))):
+                f = solve_fields if fkind == "solve" else mission_fields
+                op_exact[f"{label} N=40 tiles of 8 and 4 slots"] = all(
+                    torch.equal(a, b) for a, b in zip(f(run(8)), f(run(4))))
     raises_at = []
-    for N in range(2, 80):
+    for N in range(2, 152):
         try:
             fused_admm.choose_tile((12, 4, N), MAIN_BATCH)
         except ValueError:
             raises_at.append(N)
-    for N in (18, 20):
-        _p, _c, opp, oxm = flagship(MAIN_BATCH, dev, horizon=N)
-        ocold = FusedCarry.zeros(MAIN_BATCH, opp, device=dev)
+    for N in (18, 20, 100, 129):
+        MB = MAIN_BATCH if N <= 20 else B
+        _p, _c, opp, oxm = flagship(MB, dev, horizon=N)
+        ocold = FusedCarry.zeros(MB, opp, device=dev)
         for pl in ("shared", "device") if N == 18 else ("device",):
+            geo_ = fused_admm._geometry(opp, MB, dev, None, None, 0, pl)
             op_ms[f"N={N} fixed-100 {pl}"] = {
                 "ms": cuda_ms(lambda: fused_solve(oxm, ocold, opp,
                                                   max_iter=100, placement=pl)),
-                "tile_threads": fused_admm._geometry(
-                    opp, MAIN_BATCH, dev, None, None, 0, pl)[:2]}
+                "batch": MB, "tile_threads": geo_[:2],
+                "register_tile": geo_[4]}
     del oxm, ocold, opp, mpc, got, direct
     torch.cuda.synchronize()
     emit("operators", batch=B, bit_exact=op_exact, cases=op_cases,
@@ -863,7 +889,7 @@ def main() -> None:
     raise_failures(op_cases + [{"failures": [
         f"operators: {k} is not bit-exact" for k, v in op_exact.items()
         if not v]}])
-    assert raises_at == [79], raises_at
+    assert raises_at == [151], raises_at
 
     # ------------------------------------------- cones in the fused kernels
     # The powered-descent lander of examples/torch_soc_landing.py: nx=6,
@@ -2121,6 +2147,68 @@ def main() -> None:
             case["failures"].append(f"{label} lander: final slack violates "
                                     f"a cone by {case['cone_excess']}")
         str_cases.append(case)
+    # K9/K10 past the old lane groups: random plants at (40, 12, 64) and
+    # (33, 33, 16) (csrc/stream_shared.cu's run-time body), and ten cones,
+    # one with a ten-entry ball, on a random 12/4 plant at N=64 (the cones
+    # overlap, so their composition is held against the plain version
+    # only); the plan (body, knots per staged block, shared memory) beside
+    ten_cones = ConeSet(
+        input_cones=tuple(Cone((i,), (i + 1) % 4, 2.0, 1.0)
+                          for i in range(4)),
+        state_cones=(Cone(tuple(range(10)), 10, 5.0, 1.0),)
+        + tuple(Cone((k,), k + 1, 3.0, 2.0) for k in range(5)))
+    for label, (wx, wu, wN), extra in (
+            ("random 40/12/64", (40, 12, 64), {}),
+            ("random 33/33/16", (33, 33, 16), {}),
+            ("random 12/4/64 ten cones", (12, 4, 64), {"cones": ten_cones})):
+        wprob, wrho = atm.models.random_lti_problem(5, wx, wu, wN, device=dev)
+        spw = sa.pad_stream_problem(wprob, atm.riccati_cache(
+            wprob.A, wprob.B, wprob.Q, wprob.R, wrho, device=dev))
+        xs_w = spread_x0(SB, wx, (0.3, 1.0, 3.0), seed=4)
+        plan = sa.shared_plan(wx, wu, wN, nc=10 if extra else 0)
+        for mode, kw, check in (("K9 fixed-20", dict(max_iter=20), 0),
+                                ("K10 check=5", akw(20, 5, 1e-3), 5)):
+            case, got, _ms = stream_case(
+                f"{mode} {label}", sa.stream_solve, sa.stream_solve_plain,
+                spw, xs_w, sa.StreamCarry.zeros(SB, spw), check,
+                float(spw.rho), **kw, **extra)
+            case["plan"] = plan
+            str_cases.append(case)
+    # K10's slot refills: a batch a quarter past the slots the card holds at
+    # once (the compiled 8/3 body; the run-time body at 33/33, one block an
+    # SM), so slots retire and take new instances from the work counter;
+    # the batch against the plain version, and a permuted batch bit for bit
+    for label, (wx, wu, wN) in (("8/3/16", (8, 3, 16)),
+                                ("33/33/16", (33, 33, 16))):
+        slots = sa.shared_slots(wx, wu, wN)
+        RB = slots + slots // 4
+        wprob, wrho = atm.models.random_lti_problem(6, wx, wu, wN, device=dev)
+        spw = sa.pad_stream_problem(wprob, atm.riccati_cache(
+            wprob.A, wprob.B, wprob.Q, wprob.R, wrho, device=dev))
+        xs_r = spread_x0(RB, wx, (0.3, 1.0, 3.0), seed=6)
+        cold_r = sa.StreamCarry.zeros(RB, spw)
+        rkw = akw(60, 5, 1e-3)
+        case, got, _ms = stream_case(
+            f"K10 slot refills {label}", sa.stream_solve,
+            sa.stream_solve_plain, spw, xs_r, cold_r, 5, float(spw.rho),
+            **rkw)
+        perm_r = torch.as_tensor(np.random.default_rng(8).permutation(RB),
+                                 device=dev)
+        again = sa.stream_solve(xs_r[perm_r], sa.StreamCarry(
+            *(t[perm_r] for t in cold_r)), spw, **rkw)
+        inv_r = torch.argsort(perm_r)
+        exact = all(torch.equal(a, b[inv_r]) for a, b in zip(
+            solve_fields(got), solve_fields(again)))
+        its = got.stats[:, 0]
+        case.update(slots=slots, batch=RB, permuted_bit_exact=exact,
+                    iters_min=float(its.min()), iters_max=float(its.max()))
+        if not RB > slots:
+            case["failures"].append(f"slot refills {label}: batch {RB} "
+                                    f"within the {slots} slots")
+        if not exact:
+            case["failures"].append(f"slot refills {label}: a permuted "
+                                    "batch changes the results")
+        str_cases.append(case)
     # K11/K12: the robust sweep's family (a) and the design sweep's family
     # (b) with per-instance cone parameters and geometry, at N=256
     fa = robust_family(SB, seed=7)
@@ -2361,7 +2449,8 @@ def main() -> None:
         case, p_ms, p_iters = plain_ms4[key]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "accelerated_tinympc_tpu_torch/ops/csrc/stream_admm.cu",
+            "source": "accelerated_tinympc_tpu_torch/ops/csrc/" + (
+                "stream_shared.cu" if shared else "stream_admm.cu"),
             "replaces": replaces, "launches": counts4[name],
             "max_abs_err": case["max_abs_err"], "ms": ms,
             "plain_ms": p_ms, "plain_batch": SB, "plain_max_iter": p_iters,

@@ -192,6 +192,44 @@ def test_fused_equals_scan_tier_f64(mode):
                                       to_np(want.status) == atm_t.SOLVED)
 
 
+def test_plain_version_at_a_4_slot_horizon_matches_the_jax_scan_tier_f64():
+    """The quadrotor at N=100, where the kernels take register tiles of 4
+    slots (past N=78): the port's fused solve (its plain version on the CPU)
+    against the JAX package's scan tier, both in float64, 30 fixed
+    iterations from three perturbed starts: every field to 1e-9 (the same
+    iteration; the two sum in other orders)."""
+    import jax
+
+    from accelerated_tinympc_tpu.solver.batched import (
+        init_state_batched as init_j, solve_batched as solve_j,
+    )
+
+    N, n = 100, 3
+    assert ft.choose_register_tile((12, 4, N)) == 4
+    with jax.enable_x64(True):
+        pj, cj, x0 = hovering_j(horizon=N, dtype=jnp.float64)
+        x0s = perturbed_x0(x0, n, seed=5)
+        stj = init_j(n, 12, 4, N, jnp.float64)
+        stj = stj.replace(x=stj.x.at[:, 0, :].set(jnp.asarray(x0s)))
+        s = atm_j.Settings(max_iter=30, check_termination=30,
+                           abs_pri_tol=0.0, abs_dua_tol=0.0)
+        want = jax.tree.map(np.asarray, jax.jit(
+            lambda q: solve_j(q, pj, cj, s))(stj))
+    tdt = torch.float64
+    pt, ct = problem_to_torch(pj, tdt), cache_to_torch(cj, tdt)
+    _, pp = torch_pp(pt, ct, tdt)
+    got = ft.fused_solve(torch.as_tensor(x0s),
+                         ft.FusedCarry.zeros(n, pp, tdt, DEV), pp,
+                         max_iter=30)
+    flat = lambda a: np.asarray(a).reshape(n, -1)
+    for a, b in [(got.U, want.u), (got.carry.D, want.d),
+                 (got.carry.Y, want.y), (got.carry.G, want.g),
+                 (got.carry.Z, want.z), (got.carry.V, want.v)]:
+        np.testing.assert_allclose(to_np(a), flat(b), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(to_np(ft.unpad_states(got, pp))[:, 1:],
+                               want.x[:, 1:], rtol=0, atol=1e-9)
+
+
 def test_infinite_bounds_are_safe(quad):
     """Disabled bound sets arrive as +-inf; the clip must not produce NaN."""
     _pj, _cj, _ppj, ppt, pt, ct, x0s = quad
@@ -236,11 +274,12 @@ def test_kernel_geometry():
         or tile == ft.MAX_TILE
     assert ft.choose_tile((12, 4, 10), 1) == 8          # one block, one tile
     assert ft.choose_tile((12, 4, 10), 132 * 16) == 16  # spread over the SMs
-    # N=64 runs with the operators in device memory; past N=78 even one
-    # register tile of per-slot state outgrows shared memory
+    # N=64 runs with the operators in device memory; past N=78 register
+    # tiles of 4 slots; past N=150 even one of them outgrows shared memory
     assert ft.choose_tile((12, 4, 64), 1024) == 8
+    assert ft.choose_tile((12, 4, 79), 1024) == 4
     with pytest.raises(ValueError, match="stream tier"):
-        ft.choose_tile((12, 4, 79), 1024)               # long horizon
+        ft.choose_tile((12, 4, 151), 1024)              # long horizon
 
 
 def test_what_raises_for_now(quad):

@@ -2,9 +2,10 @@
 
 The fused CUDA kernels (``ops/csrc/admm_iteration.cuh``) keep per-instance
 slots in shared memory and compute their products by FP32 FMA from 8 x 4
-register tiles. The card is needed to run them; here are checked the
-shared-memory layout the wrapper mirrors, the tile it chooses and the launch
-counters' names. No JAX and no Pallas kernel: well under a second."""
+register tiles (4 x 4 where one tile of 8 slots does not fit). The card is
+needed to run them; here are checked the shared-memory layout the wrapper
+mirrors, the tiles it chooses and the launch counters' names. No JAX and no
+Pallas kernel: well under a second."""
 
 import pathlib
 import re
@@ -95,20 +96,60 @@ def test_operators_stay_in_shared_memory_where_they_fit(N, placement, tile):
 
 
 def test_past_one_register_tile_of_state_the_fused_tier_refuses():
-    # N=79: 8 slots of per-slot state alone exceed a block's shared memory;
-    # the message gives the bytes and the JAX package's boundary (its 12 MB
-    # VMEM sizing takes the quadrotor to N=129, the lander to N=213)
-    need = ft.kernel_smem_bytes(12, 4, 79, 8, placement="device")
-    assert need == 233_552 > ft.SMEM_LIMIT_BYTES
+    # N=151: 4 slots of per-slot state alone exceed a block's shared memory
+    # (8 slots already at N=79, where the 4-slot tile takes over); the
+    # message gives the bytes and the JAX package's boundary (its 12 MB VMEM
+    # sizing takes the quadrotor to N=129, the lander to N=213)
+    need = ft.kernel_smem_bytes(12, 4, 151, 4, placement="device")
+    assert need == 232_800 > ft.SMEM_LIMIT_BYTES
+    assert ft.kernel_smem_bytes(12, 4, 79, 8, placement="device") == 233_552
+    assert ft.choose_tile((12, 4, 150), 65536) == 4
     with pytest.raises(ValueError, match=f"needs {need} bytes.*N=129"):
-        ft.choose_tile((12, 4, 79), 65536)
+        ft.choose_tile((12, 4, 151), 65536)
     assert ft.tpu_horizon_limit(12, 4) == 129
     assert ft.tpu_horizon_limit(6, 3) == 213
-    assert ft.choose_placement((6, 3, 135)) == "device"    # the lander
+    assert ft.choose_placement((6, 3, 261)) == "device"    # the lander
     with pytest.raises(ValueError, match="N=213"):
-        ft.choose_placement((6, 3, 136))
+        ft.choose_placement((6, 3, 262))
     with pytest.raises(ValueError, match="operators in shared memory"):
         ft.choose_tile((12, 4, 20), 65536, placement="shared")
+    with pytest.raises(ValueError, match="4 with the operators in device"):
+        ft.choose_tile((12, 4, 10), 65536, placement="shared", register_tile=4)
+
+
+@pytest.mark.parametrize("dims, ri", [
+    ((12, 4, 78), 8), ((12, 4, 79), 4), ((12, 4, 100), 4), ((12, 4, 129), 4),
+    ((6, 3, 135), 8), ((6, 3, 213), 4), ((12, 4, 10), 8)])
+def test_register_tile_follows_the_sizing(dims, ri):
+    # 8 slots a register tile wherever one such tile fits (every shape that
+    # ran before keeps its kernel); 4 only where 8 do not fit even with the
+    # operators in device memory
+    assert ft.choose_register_tile(dims) == ri
+    tile = ft.choose_tile(dims, 65536)
+    assert tile % ri == 0
+    placement = ft.choose_placement(dims)
+    assert ft.kernel_smem_bytes(*dims, tile, placement=placement) \
+        <= ft.SMEM_LIMIT_BYTES
+    if ri == 4:
+        assert placement == "device" and tile == 4
+        assert ft.kernel_smem_bytes(*dims, 8, placement="device") \
+            > ft.SMEM_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("nx, nu, jax_limit, port_limit", [
+    (12, 4, 129, 150), (6, 3, 213, 261), (4, 1, 448, 491), (8, 3, 171, 217),
+    (5, 2, 257, 340), (6, 8, 97, 156), (16, 8, 80, 97), (32, 12, 43, 53),
+    (1, 1, 769, 1114)])
+def test_every_horizon_of_the_jax_fused_tier_is_taken(nx, nu, jax_limit,
+                                                      port_limit):
+    # the JAX package's fused tier takes these widths up to jax_limit (its
+    # VMEM sizing, copied in tpu_horizon_limit); the port takes every one of
+    # those horizons and refuses first at port_limit + 1
+    assert ft.tpu_horizon_limit(nx, nu) == jax_limit
+    for N in range(2, port_limit + 1):
+        assert ft.choose_tile((nx, nu, N), 65536) >= 4
+    with pytest.raises(ValueError, match=f"N={jax_limit}"):
+        ft.choose_tile((nx, nu, port_limit + 1), 65536)
 
 
 def test_kernel_operands_come_padded_to_float4_rows():

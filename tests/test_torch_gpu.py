@@ -201,6 +201,77 @@ def test_tinympc_fused_past_shared_memory_matches_the_plain_tiers(card):
         assert np.abs(u - res[tier][0]).max() <= ATOL, tier
 
 
+def test_register_tiles_of_8_and_4_slots_are_bit_identical(card):
+    """A slot's arithmetic does not depend on how many slots share its
+    register tile: at N=40 (operators in device memory) tiles of 8 and of 4
+    slots give the same bits for a fixed solve (K1), a warm adaptive solve
+    (K2) and a 12-tick mission (K3), at one launch geometry (a block of one
+    register tile, 128 threads: the same backward depth split)."""
+    problem, _cache, pp, x0s = _quadrotor(40)
+    assert fused_admm.choose_placement(pp.dims) == "device"
+    assert fused_admm.choose_register_tile(pp.dims) == 8
+    cold = FusedCarry.zeros(x0s.shape[0], pp)
+    geo = lambda ri: dict(placement="device", register_tile=ri,
+                          batch_tile=ri, threads=128)
+    rops = rollout_ops(problem, pp)
+    lead = fused_rollout(x0s, cold, pp, rops, 4, max_iter=100,
+                         check_termination=1)
+    x1, warm = lead.x_final, lead.final.carry.reset_duals()
+    for run, fields in (
+            (lambda ri: fused_solve(x0s, cold, pp, max_iter=100, **geo(ri)),
+             _solve_fields),
+            (lambda ri: fused_solve(x1, warm, pp, max_iter=100,
+                                    check_termination=1, **geo(ri)),
+             _solve_fields),
+            (lambda ri: fused_rollout(x0s, cold, pp, rops, 12, max_iter=100,
+                                      check_termination=1, **geo(ri)),
+             _mission_fields)):
+        a, b = run(8), run(4)
+        assert all(torch.equal(x, y) for x, y in zip(fields(a), fields(b)))
+
+
+@pytest.mark.parametrize("N", [100, 129])
+def test_tinympc_fused_with_4_slot_tiles_matches_the_plain_version(card, N):
+    """Past N=78 one register tile of 8 slots no longer fits shared memory
+    and the fused tier runs tiles of 4 (N=129 is the JAX package's limit for
+    the quadrotor). Through TinyMPC(tier="fused"): a fixed-100 solve
+    (controls 1e-4, states 2e-4 of the fused plain version), an adaptive
+    one (counts equal on >= 99 %, values on the equal ones) and a 20-tick
+    in-kernel mission (counts per instance-tick on >= 95 %, values on the
+    instances whose schedule agrees, every control within 2e-3):
+    chip_smoke.py's bars."""
+    problem, cache, pp, x0s = _quadrotor(N, batch=67)
+    assert fused_admm.choose_register_tile(pp.dims) == 4
+    B = x0s.shape[0]
+    cold = FusedCarry.zeros(B, pp)
+    for settings in (atm.Settings(max_iter=100, check_termination=0),
+                     atm.Settings(max_iter=100, check_termination=1)):
+        mpc = atm.TinyMPC.from_parts(problem, cache, tier="fused", batch=B,
+                                     settings=settings)
+        mpc.set_x0(x0s)
+        mpc.solve()
+        got = mpc._fused_result
+        want = fused_solve_plain(x0s, cold, pp, max_iter=100,
+                                 check_termination=settings.check_termination)
+        same = got.stats[:, 0] == want.stats[:, 0]
+        assert float(same.float().mean()) >= 0.99
+        assert float((got.U - want.U)[same].abs().max()) <= ATOL
+        assert float((got.X - want.X)[same].abs().max()) <= 2 * ATOL
+    rops = rollout_ops(problem, pp)
+    kw = dict(max_iter=100, check_termination=1)
+    mpc = atm.TinyMPC.from_parts(problem, cache, tier="fused", batch=B,
+                                 settings=atm.Settings(**kw))
+    mpc.set_x0(x0s)
+    xf, us = mpc.rollout(20, in_kernel=True)
+    want = fused_rollout_plain(x0s, cold, pp, rops, 20, **kw)
+    got = fused_rollout(x0s, cold, pp, rops, 20, **kw)
+    assert torch.equal(us, got.us) and torch.equal(xf, got.x_final)
+    assert float((got.iters == want.iters).float().mean()) >= 0.95
+    same = (got.iters == want.iters).all(dim=0)
+    assert float((got.us - want.us)[:, same].abs().max()) <= ATOL
+    assert float((got.us - want.us).abs().max()) <= 2e-3
+
+
 def test_coned_kernel_takes_any_number_of_cones(card):
     """Ten cones, one with a ten-entry ball (the kernels read a cone table
     sized at run time)."""
@@ -617,9 +688,10 @@ def _assert_stream_close(got, want, min_agree=0.98):
         assert float(err.abs().max()) <= 2 * ATOL, k
 
 
-@pytest.mark.parametrize("dims", [(8, 3, 64), (6, 3, 256), (12, 4, 33),
-                                  (1, 1, 5)])
-@pytest.mark.parametrize("tier", ["stream", "hstream"])
+@pytest.mark.parametrize("dims, tier", [
+    (dims, tier) for dims in ((8, 3, 64), (6, 3, 256), (12, 4, 33), (1, 1, 5))
+    for tier in ("stream", "hstream")] + [
+    ((40, 12, 64), "stream"), ((33, 33, 16), "stream")])
 @pytest.mark.parametrize("mode", ["fixed", "adaptive"])
 def test_stream_kernels_match_plain(card, dims, tier, mode):
     from accelerated_tinympc_tpu_torch.ops import hstream_admm as hs
@@ -695,11 +767,89 @@ def test_stream_cascades_are_bit_exact_on_the_card(card):
 
 
 def test_stream_kernels_refuse(card):
+    from accelerated_tinympc_tpu_torch.ops import hstream_admm as hs
     from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
 
     sp, hsp, x0 = _stream_parts(4, 3, 2, 5)
     cold = sa.StreamCarry.zeros(4, sp)
+    # the per-instance plants' lane groups stop at 32 rows
     with pytest.raises(ValueError, match="scan tier"):
-        sa.stream_solve(x0, cold, sp.replace(dims=(33, 2, 5)))
+        hs.hstream_solve(x0, cold, hsp.replace(dims=(33, 2, 5)))
     with pytest.raises(TypeError, match="float32"):
         sa.stream_solve(x0.double(), cold, sp)
+    # the shared plant only past shared memory, naming the bytes
+    need = sa.shared_smem_bytes(120, 40, 1)
+    with pytest.raises(ValueError, match=f"need {need} bytes"):
+        sa.stream_solve(x0, cold, sp.replace(dims=(120, 40, 5)))
+
+
+@pytest.mark.parametrize("nx, nu", [(8, 3), (33, 33)])
+def test_stream_slots_are_bit_exact_under_a_permuted_batch(card, nx, nu):
+    """K10's slots: a batch a quarter past the slots the card holds at once
+    (the compiled 8/3 body, and the run-time body at 33/33, one block an
+    SM), so slots retire and take new instances from the work counter at
+    their own iteration boundaries; the batch holds the bars against the
+    plain version and a permuted batch gives the permuted result bit for
+    bit."""
+    from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
+
+    N = 16
+    slots = sa.shared_slots(nx, nu, N)
+    B = slots + slots // 4
+    assert B > slots > 0
+    sp, _hsp, _x0 = _stream_parts(3, nx, nu, N, seed=3)
+    rng = np.random.default_rng(4)
+    scale = np.array([0.05, 0.5, 2.0])[rng.integers(0, 3, B)][:, None]
+    x0 = torch.as_tensor(scale * rng.standard_normal((B, nx)),
+                         dtype=torch.float32, device="cuda")
+    kw = dict(max_iter=60, check_termination=5, abs_pri_tol=1e-3,
+              abs_dua_tol=1e-3)
+    cold = sa.StreamCarry.zeros(B, sp)
+    got = sa.stream_solve(x0, cold, sp, **kw)
+    _assert_stream_close(got, sa.stream_solve_plain(x0, cold, sp, **kw))
+    run = lambda x, *c: _solve_fields(
+        sa.stream_solve(x, sa.StreamCarry(*c), sp, **kw))
+    assert _permuted_equal(run, (x0,) + tuple(cold), B)
+    spread = got.stats[:, 0]
+    assert float(spread.min()) < float(spread.max())   # exits spread
+
+
+def _ten_cones(nu=4):
+    """Ten cones, one with a ten-entry ball: four on the input knot, six on
+    the state knot (nx >= 11)."""
+    from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
+
+    return ConeSet(
+        input_cones=tuple(Cone((i,), (i + 1) % nu, 2.0, 1.0)
+                          for i in range(4)),
+        state_cones=(Cone(tuple(range(10)), 10, 5.0, 1.0),)
+        + tuple(Cone((k,), k + 1, 3.0, 2.0) for k in range(5)))
+
+
+@pytest.mark.parametrize("kernel", ["stream", "hstream", "hetero"])
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+def test_long_horizon_and_fleet_kernels_take_ten_cones(card, kernel, mode):
+    """The stream, hstream and hetero kernels read a cone table sized at
+    run time: ten cones, one with a ten-entry ball, against the plain
+    versions."""
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+    from accelerated_tinympc_tpu_torch.ops import hstream_admm as hs
+    from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
+
+    cones = _ten_cones()
+    kw = dict(max_iter=40, cones=cones)
+    if mode == "adaptive":
+        kw.update(check_termination=2, abs_pri_tol=1e-2, abs_dua_tol=1e-2)
+    if kernel == "hetero":
+        hp, x0 = _fleet(133, 12, 4, 10, seed=6)
+        cold = ha.HeteroCarry.zeros(hp)
+        _assert_hetero_close(ha.hetero_solve(x0, cold, hp, **kw),
+                             ha.hetero_solve_plain(x0, cold, hp, **kw))
+        return
+    sp, hsp, x0 = _stream_parts(133, 12, 4, 64, seed=6)
+    ops, solve, plain = ((sp, sa.stream_solve, sa.stream_solve_plain)
+                         if kernel == "stream" else
+                         (hsp, hs.hstream_solve, hs.hstream_solve_plain))
+    cold = sa.StreamCarry.zeros(133, ops)
+    _assert_stream_close(solve(x0, cold, ops, **kw),
+                         plain(x0, cold, ops, **kw))

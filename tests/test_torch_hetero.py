@@ -328,6 +328,37 @@ def test_cone_mask_validation_matches_jax():
     np.testing.assert_array_equal(to_np(m[:, :NU]), [[1.0, 0.0]] * B)
 
 
+def test_cone_table_takes_any_number_of_cones():
+    """The fleet and long-horizon kernels read their static cones from a
+    device table sized at run time (no cap on the count): per cone mu,
+    shift and the role of each component of its knot (1 ball, 2 axis).
+    Ten cones, one with a ten-entry ball; invalid indices still raise."""
+    from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
+
+    cones = ConeSet(
+        input_cones=tuple(Cone((i,), (i + 1) % 4, 2.0, 1.0)
+                          for i in range(4)),
+        state_cones=(Cone(tuple(range(10)), 10, 5.0, 1.0),)
+        + tuple(Cone((k,), k + 1, 3.0, 2.0) for k in range(5)))
+    tab, nc_u, nc_x = ht._cone_table(cones, 12, 4, "cpu")
+    assert (nc_u, nc_x) == (4, 6) and tuple(tab.shape) == (10, 14)
+    assert tab.dtype == torch.float32
+    np.testing.assert_array_equal(to_np(tab[4, :2]), [5.0, 1.0])
+    np.testing.assert_array_equal(to_np(tab[4, 2:]), [1.0] * 10 + [2.0, 0.0])
+    np.testing.assert_array_equal(to_np(tab[0, 2:6]), [1.0, 2.0, 0.0, 0.0])
+    assert not tab[:4, 6:].any()            # an input cone's row past nu
+    assert ht._cone_table(None, 12, 4, "cpu") == (None, 0, 0)
+    with pytest.raises(ValueError, match="indices"):
+        ht._cone_table(ConeSet(state_cones=(Cone((12,), 0, 1.0, 0.0),)),
+                       12, 4, "cpu")
+    with pytest.raises(ValueError, match="axis is in the ball"):
+        ht._cone_table(ConeSet(state_cones=(Cone((0, 1), 1, 1.0, 0.0),)),
+                       12, 4, "cpu")
+    # the roles take the group's lanes in every instance's shared memory
+    assert (ht.inst_floats(12, 4, 10, 10) - ht.inst_floats(12, 4, 10, 0)
+            == 10 * (2 + 16))
+
+
 @pytest.mark.parametrize("coned", [False, True])
 def test_hetero_cascade_bit_exact(data, coned):
     """The cascade against one adaptive call: bit for bit, schedules and

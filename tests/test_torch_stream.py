@@ -307,6 +307,117 @@ def test_per_knot_bounds_and_cones_f64():
     _assert_vs_scan(res, want_a, atol=1e-9, scaled=True)
 
 
+def _wide_fields(nx, nu, n, seed):
+    rng = np.random.default_rng(seed)
+    A = np.eye(nx) + 0.02 * rng.standard_normal((nx, nx))
+    Bm = 0.2 * rng.standard_normal((nx, nu))
+    Q = np.abs(rng.standard_normal(nx)) + 1.0
+    R = np.abs(rng.standard_normal(nu)) + 1.0
+    u = np.full((n - 1, nu), 0.7)
+    f = dict(A=A, B=Bm, Q=Q, R=R, u_min=-u, u_max=u,
+             x_min=np.full((n, nx), -4.0), x_max=np.full((n, nx), 4.0),
+             Xref=0.1 * rng.standard_normal((n, nx)),
+             Uref=np.zeros((n - 1, nu)))
+    return f, riccati_cache(A, Bm, Q, R, rho=1.0)
+
+
+@pytest.mark.parametrize("case", ["40/12", "ten cones"])
+def test_past_the_lane_group_limits_f64(case):
+    """What the shared-plant kernels take since they run a thread per
+    instance: a 40/12 plant at N=16, and a 12/4 plant at N=24 with ten cones
+    (four input cones, six state cones, one with a ten-entry ball). The
+    port's stream tier (its plain version on the CPU) against the JAX scan
+    tier with the same cone projection, both in float64, fixed 25
+    iterations and adaptive (check 5): every field to 1e-9 relative to its
+    largest entry, equal iteration counts."""
+    from accelerated_tinympc_tpu.solver import cones as cj
+    from accelerated_tinympc_tpu_torch.solver import cones as ct
+
+    nx, nu, n = (40, 12, 16) if case == "40/12" else (12, 4, 24)
+    fields, cache = _wide_fields(nx, nu, n, seed=5)
+    rng = np.random.default_rng(6)
+    scale = np.repeat([0.05, 0.4, 2.0], 2)[:, None]
+    x0s = scale * rng.standard_normal((6, nx))
+    cone_args = None
+    if case == "ten cones":
+        cone_args = dict(
+            input_cones=[((i,), (i + 1) % 4, 2.0, 1.0) for i in range(4)],
+            state_cones=[(tuple(range(10)), 10, 5.0, 1.0)]
+            + [((k,), k + 1, 3.0, 2.0) for k in range(5)])
+    sp = _torch_sp(fields, cache, torch.float64)
+    cones = None if cone_args is None else ct.ConeSet(**{
+        k: tuple(ct.Cone(*c) for c in v) for k, v in cone_args.items()})
+    with jax.enable_x64(True):
+        proj = None if cone_args is None else cj.cone_slack_update(
+            cj.ConeSet(**{k: tuple(cj.Cone(*c) for c in v)
+                          for k, v in cone_args.items()}))
+        pj = Problem(**{k: jnp.asarray(v, jnp.float64)
+                        for k, v in fields.items()})
+        cjx = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), cache)
+        for check, it in ((0, 25), (5, 60)):
+            s = atm_j.Settings(max_iter=it, check_termination=check or it,
+                               abs_pri_tol=5e-3 if check else 0.0,
+                               abs_dua_tol=5e-3 if check else 0.0)
+            stt = init_state_batched(6, nx, nu, n, jnp.float64)
+            stt = stt.replace(x=stt.x.at[:, 0, :].set(jnp.asarray(x0s)))
+            want = jax.tree.map(np.asarray, solve_batched(
+                stt, pj, cjx, s, project=proj))
+            kw = dict(check_termination=check, abs_pri_tol=5e-3,
+                      abs_dua_tol=5e-3) if check else {}
+            res = st.stream_solve(torch.as_tensor(x0s),
+                                  st.StreamCarry.zeros(6, sp), sp,
+                                  max_iter=it, cones=cones, **kw)
+            _assert_vs_scan(res, want, atol=1e-9, scaled=True)
+
+
+def test_shared_plant_kernel_plan():
+    """The host's plan of the shared-plant kernels (csrc/stream_shared.cu):
+    the compiled body for 8/3, else the run-time one; the knots a
+    slot keeps in flight from knot_block up to KB_MAX, fewer where shared
+    memory needs it; a refusal that names the bytes past it."""
+    plan = st.shared_plan(8, 3, 1024)
+    assert plan == {"kernel": "compiled 8/3", "kb": 8,
+                    "smem_bytes": st.shared_smem_bytes(8, 3, 8)}
+    # the layout, region by region (floats): plant rows padded to float4,
+    # pterm and uniform bounds, then 32 slots' rings of 8 knots of d, y, z,
+    # g, v
+    plant = 2 * 8 * 8 + 2 * 8 * 4 + 2 * 3 * 8 + 3 * 4 + 3 * 8 + 2 * 4
+    ring = 8 * (3 * 3 + 2 * 8) * 32
+    assert plan["smem_bytes"] == 4 * (plant + ring) == 26_736
+    assert st.shared_plan(8, 3, 1024, knot_block=3)["kb"] == 3
+    assert st.shared_plan(8, 3, 5)["kb"] == 5          # not past the horizon
+    assert st.SHARED_SHAPES == ((8, 3),)
+    assert st.shared_plan(6, 3, 256, nc=2)["kernel"] == "run-time"
+    wide = st.shared_plan(33, 33, 16)
+    assert wide["kernel"] == "run-time" and wide["kb"] < st.KB_MAX
+    assert wide["smem_bytes"] <= st.SMEM_LIMIT_BYTES
+    assert st.shared_smem_bytes(33, 33, wide["kb"] + 1) > st.SMEM_LIMIT_BYTES
+    assert st.shared_plan(40, 12, 64)["kernel"] == "run-time"
+    # ten cones add their table: rows of 2 + max(nx, nu) floats
+    assert (st.shared_smem_bytes(12, 4, 8, nc=10)
+            - st.shared_smem_bytes(12, 4, 8)) == 4 * 10 * 14
+    need = st.shared_smem_bytes(120, 40, 1)
+    with pytest.raises(ValueError, match=f"need {need} bytes"):
+        st.shared_plan(120, 40, 64)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_shared_launch_copies_the_carry_once_knot_major(batch):
+    """The shared-plant launch's carry operands: one contiguous knot-major
+    copy of each field (the kernel's layout), never the caller's storage,
+    not even where a batch of one makes the transpose a view."""
+    sp = _torch_sp(*_fields(n=8), torch.float32)
+    x0 = torch.as_tensor(_x0s(batch), dtype=torch.float32, device=DEV)
+    gen = torch.Generator().manual_seed(0)
+    carry = st.StreamCarry(*(torch.randn(t.shape, generator=gen).to(DEV)
+                             for t in st.StreamCarry.zeros(batch, sp)))
+    _ins, cy, *_ = st._operands(True, x0, carry, sp, None, None, None)
+    for got, held in zip(cy, carry):
+        assert got.is_contiguous()
+        assert got.data_ptr() != held.data_ptr()
+        assert torch.equal(got, held.permute(1, 2, 0))
+
+
 def test_bounds_disabled(f64_fixed):
     """en_*_bound=False skips the box clips (reference admm.cpp:50-60)."""
     fields, cache, x0s, _ = f64_fixed

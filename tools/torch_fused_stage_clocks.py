@@ -17,7 +17,8 @@ and refill; per retired slot, the cycles its warp spent retiring it and
 loading the next. Two kernel layouts are known: the lockstep blocks of the
 first port (``solve_core``) and the slot kernels (``run_block``); the
 script stops if ROOT's source matches neither (the slot kernels templated
-over the operators' placement count as the second). The counters cost one
+over the operators' placement, and over the register tile's slots, count
+as the second). The counters cost one
 global atomic per stage and block-iteration, so the times printed beside
 them are a little above the uninstrumented kernels'.
 
@@ -149,9 +150,11 @@ PLACED = ("refill_stage<ADAPTIVE, ROLLOUT", "forward_stage<CONES, ROLLOUT",
           "retire_slot<ROLLOUT", "load_slot<ADAPTIVE, ROLLOUT")
 
 
-def _placed(text: str) -> str:
+def _placed(text: str, tiled: bool = False) -> str:
     for call in PLACED:
         text = text.replace(call + ">", call + ", GOPS>")
+    if tiled:   # templated over the register tile's slots too
+        text = text.replace("forward_stage<CONES", "forward_stage<RI, CONES")
     return text
 
 
@@ -164,8 +167,11 @@ def instrumented_copy(root: pathlib.Path, dst: pathlib.Path) -> str:
     layout, edits = ("slots", SLOTS) if "run_block" in src else (
         "lockstep", LOCKSTEP)
     if "bool GOPS" in src:
-        layout = "slots over two placements"
-        edits = [(_placed(old), _placed(new)) for old, new in SLOTS]
+        tiled = "template <int RI, bool ADAPTIVE" in src
+        layout = "slots over two placements" + (
+            " and two register tiles" if tiled else "")
+        edits = [(_placed(old, tiled), _placed(new, tiled))
+                 for old, new in SLOTS]
     src = src.replace("namespace atm {\n", "namespace atm {\n" + COUNTERS, 1)
     for old, new in edits:
         if src.count(old) != 1:

@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Times of the fleet and long-horizon kernels (K7-K12) of one checkout of
+the port on one GPU.
+
+    python3 tools/torch_stream_times.py [ROOT] [--reps 3]
+
+ROOT is the directory that holds ``accelerated_tinympc_tpu_torch`` (default:
+this checkout), so the same script times an unpacked earlier commit beside
+this one: run it on both in one call, in turns (parent, change, change,
+parent), and compare only within that call. Each checkout builds its kernels
+into a directory of its own under the system's temporary directory.
+
+The workloads are ``chip_smoke.py``'s. K9/K10: the long-horizon example's
+plant (``random_lti`` seed 0, nx=8, nu=3, N=1024), x0 of three scales (0.3,
+3, 10), cold, at 512 and 8,192 instances; K9 fixed 100 iterations, K10
+check 5 at tolerance 1e-3 (mean iterations beside). K7/K8: the robust
+sweep's family (the quadrotor's plant perturbed by 3 %, N=10) at 65,536;
+K7 fixed 100 cold, K8 check 1 at 1e-3 warm after a 12-tick fleet mission.
+K11/K12: the same family (seed 12) at N=256 for 8,192 instances, fixed 100
+and check 5. Prints one JSON line with the card's name. Needs a CUDA device
+and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import pathlib
+import sys
+import tempfile
+
+HERE = pathlib.Path(__file__).resolve().parents[1]
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("root", nargs="?", default=str(HERE))
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args()
+    root = pathlib.Path(args.root).resolve()
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs   # this checkout's timer
+
+    sys.path.insert(0, str(root))
+    tag = hashlib.sha256(str(root).encode()).hexdigest()[:8]
+    os.environ["ATM_TORCH_BUILD_DIR"] = str(
+        pathlib.Path(tempfile.gettempdir()) / f"atm_stream_times_{tag}")
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    import accelerated_tinympc_tpu_torch as atm
+    from accelerated_tinympc_tpu_torch.api.mpc import fleet_mpc_rollout
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+    from accelerated_tinympc_tpu_torch.ops import hstream_admm as hs
+    from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
+
+    dev = "cuda"
+    ms = lambda fn: cs.cuda_ms(fn, args.reps)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    def robust_family(batch, seed=0, spread=0.03):
+        prob, cch, _x0 = atm.models.quadrotor_hovering_setup(device=dev)
+        rng = np.random.default_rng(seed)
+        A0 = prob.A.double().cpu().numpy()
+        B0 = prob.B.double().cpu().numpy()
+        mulA = 1.0 + spread * rng.standard_normal((batch, 12, 12))
+        mulB = 1.0 + spread * rng.standard_normal((batch, 12, 4))
+        mulA[0] = 1.0
+        mulB[0] = 1.0
+        wide = lambda a: a.expand((batch,) + tuple(a.shape)).contiguous()
+        prob_b = atm.Problem(**{k: wide(v) for k, v in prob.tensors().items()})
+        prob_b = prob_b.replace(A=t(A0[None] * mulA), B=t(B0[None] * mulB))
+        rho = torch.full((batch,), float(cch.rho), device=dev)
+        x0s = t(prob.Xref[0].cpu().numpy()[None]
+                + 0.2 * rng.standard_normal((batch, 12)))
+        return prob_b, rho, x0s
+
+    def spread_x0(batch, nx, seed=11):
+        rng = np.random.default_rng(seed)
+        sc = np.resize(np.asarray((0.3, 3.0, 10.0)), batch)[:, None]
+        return t(sc * rng.standard_normal((batch, nx)))
+
+    def at_horizon(prob_b, N):
+        Bn = prob_b.A.shape[0]
+        rows = lambda a, k: a[:, :1].expand(Bn, k, a.shape[-1]).contiguous()
+        return prob_b.replace(
+            u_min=rows(prob_b.u_min, N - 1), u_max=rows(prob_b.u_max, N - 1),
+            x_min=rows(prob_b.x_min, N), x_max=rows(prob_b.x_max, N),
+            Xref=rows(prob_b.Xref, N), Uref=rows(prob_b.Uref, N - 1))
+
+    row = {"root": str(root), "device": torch.cuda.get_device_name(0)}
+    adapt5 = dict(max_iter=100, check_termination=5, abs_pri_tol=1e-3,
+                  abs_dua_tol=1e-3)
+    # K9/K10
+    prob, rho = atm.models.random_lti_problem(0, 8, 3, 1024, device=dev)
+    sp = sa.pad_stream_problem(prob, atm.riccati_cache(
+        prob.A, prob.B, prob.Q, prob.R, rho, device=dev))
+    for Bn in (512, 8192):
+        x0 = spread_x0(Bn, 8)
+        cold = sa.StreamCarry.zeros(Bn, sp)
+        row[f"K9_b{Bn}_ms"] = ms(lambda: sa.stream_solve(x0, cold, sp,
+                                                         max_iter=100))
+        row[f"K10_b{Bn}_ms"] = ms(lambda: sa.stream_solve(x0, cold, sp,
+                                                          **adapt5))
+        row[f"K10_b{Bn}_iters_mean"] = float(sa.stream_solve(
+            x0, cold, sp, **adapt5).stats[:, 0].mean())
+        del x0, cold
+    # K7/K8
+    B7 = 65536
+    fam = robust_family(B7)
+    hp = ha.pad_hetero_from_plants(fam[0].A, fam[0].B, fam[0].Q, fam[0].R,
+                                   fam[1], fam[0])[0]
+    hcold = ha.HeteroCarry.zeros(hp)
+    row["K7_ms"] = ms(lambda: ha.hetero_solve(fam[2], hcold, hp,
+                                              max_iter=100))
+    kh8 = dict(max_iter=100, check_termination=1, abs_pri_tol=1e-3,
+               abs_dua_tol=1e-3)
+    xw, _us, cw = fleet_mpc_rollout(hp, fam[0], fam[2], 12, **kh8)
+    cw = cw.reset_duals()
+    row["K8_ms"] = ms(lambda: ha.hetero_solve(xw, cw, hp, **kh8))
+    del fam, hp, hcold, xw, cw
+    # K11/K12
+    prob_f, rho_f, x0_f = robust_family(8192, seed=12)
+    hsp = hs.pad_hstream_from_plants(prob_f.A, prob_f.B, prob_f.Q, prob_f.R,
+                                     rho_f, at_horizon(prob_f, 256))[0]
+    hcold = sa.StreamCarry.zeros(8192, hsp)
+    row["K11_ms"] = ms(lambda: hs.hstream_solve(x0_f, hcold, hsp,
+                                                max_iter=100))
+    row["K12_ms"] = ms(lambda: hs.hstream_solve(x0_f, hcold, hsp, **adapt5))
+    print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()
