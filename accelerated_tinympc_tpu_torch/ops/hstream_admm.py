@@ -5,7 +5,7 @@ Counterpart of the JAX package's ``ops/hstream_admm.py``: the hetero tier
 the stream tier (:mod:`.stream_admm`) streams long horizons for one shared
 plant. Fleets of *distinct* plants over long horizons take this tier: each
 instance's plant and cache (A, B, Kinf, Quu_inv, AmBKt: ~2 KB at nx=12,
-nu=4) stay in registers while its iterates stream knot by knot through
+nu=4) stay on chip while its iterates stream knot by knot through
 device memory, both horizon recurrences of every ADMM iteration (reference:
 src/tinympc/admm.cpp:27-37 forward rollout, :15-22 backward gradient
 recursion) fused with the slack projection (:45-61), dual ascent (:67-71)
@@ -23,7 +23,12 @@ tier's operands (:func:`.hetero_admm.pad_hetero_cone_params` /
 
 :func:`hstream_solve` launches ``csrc/stream_admm.cu`` (kernels K11 fixed,
 K12 adaptive) for tensors on a CUDA device and takes
-:func:`hstream_solve_plain` only for tensors on the CPU.
+:func:`hstream_solve_plain` only for tensors on the CPU. The kernels run a
+group of lanes per instance over its state and input rows, one product on
+each knot chain, and keep the next knots of every instance in flight
+through a ring in shared memory (the JAX kernels' ``_make_streamer``;
+``knot_block`` its depth); any ``nx, nu`` whose plant and ring fit shared
+memory (:func:`.stream_admm.hstream_plan`).
 """
 
 from __future__ import annotations
@@ -35,13 +40,14 @@ import torch
 
 from ..types import Cache, Problem, _Struct
 from . import hetero_admm as ha
-from .stream_admm import (
+from .stream_admm import (  # noqa: F401  (hstream_plan: re-exported)
     StreamCarry,
     StreamResult,
     _check_common,
     _plain,
     _rows,
     _launch_hstream,
+    hstream_plan,
 )
 
 
@@ -217,11 +223,14 @@ def hstream_solve(
     that many iterations (stats column 0 the iterations, column 1 the solved
     flag). ``cones`` adds SOC projections; ``cone_params`` ``(B, nc, 2)`` /
     ``cone_masks`` ``(B, MR)`` override their mu/shift and geometry per
-    instance. ``knot_block`` changes nothing (this kernel stages no
-    blocks).
+    instance. ``knot_block`` sets the knots each instance keeps in flight
+    in the kernels' ring (:func:`.stream_admm.hstream_plan`; results do not
+    depend on it).
 
     Tensors on the CPU go through :func:`hstream_solve_plain`; tensors on a
-    CUDA device launch the kernel (float32, ``nx, nu <= 32``) or raise.
+    CUDA device launch the kernel (float32, any ``nx, nu`` whose plant and
+    ring fit shared memory: :func:`.stream_admm.hstream_plan`, which names
+    the bytes where they do not) or raise.
     """
     _check_common(max_iter, knot_block)
     ha._check_cone_args(cones, cone_params, cone_masks)
@@ -231,4 +240,4 @@ def hstream_solve(
               cones=cones, cone_params=cone_params, cone_masks=cone_masks)
     if not x0.is_cuda:
         return _plain(x0, carry, hsp, **kw)
-    return _launch_hstream(x0, carry, hsp, **kw)
+    return _launch_hstream(x0, carry, hsp, knot_block=knot_block, **kw)

@@ -113,6 +113,103 @@ def shared_plan(nx: int, nu: int, N: int, knot_block: int = 32, nc: int = 0,
     return {"kernel": kernel, "kb": kb, "smem_bytes": need}
 
 
+# csrc/stream_admm.cu (the hstream kernels K11/K12): the shapes compiled with
+# their plant rows in registers (the robust sweep's quadrotor family, the
+# timed one, and the long-horizon example's plant; every other runs the
+# run-time body), the most knots a group keeps in flight, the most rows a
+# lane owns, and the threads of a block at most.
+HSTREAM_SHAPES = ((12, 4), (8, 3))
+HSTREAM_KB_MAX = 8
+HSTREAM_ROWS_MAX = 8
+HSTREAM_THREADS = 128
+
+
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def hstream_smem_bytes(nx: int, nu: int, kb: int, nc: int = 0,
+                       knot_bounds: bool = False, instances: int = 1) -> int:
+    """Dynamic shared memory of ``instances`` groups of the hstream kernels:
+    mirrors ``make_layout`` in ``csrc/stream_admm.cu`` (the C entry refuses
+    a launch when the two disagree). Per instance, rows padded to float4:
+    the run-time body's plant rows ([Acl; Kinf], [AmBKt; B']: 2 (nx + nu)
+    r4(nx)), the thin rows (B, Kinf': nx x r4(nu) each; Quu_inv), the
+    double-buffered x, p, w, the cone slacks, pterm, uniform bounds, the
+    cone rows and the ring of ``kb`` knots (d, y, z: r4(nu); g, v, qc:
+    r4(nx); the bounds where they come per knot)."""
+    px, pu, tw = _r4(nx), _r4(nu), max(nx, nu)
+    plant = 0 if (nx, nu) in HSTREAM_SHAPES else 2 * (nx + nu) * px
+    words = (plant + 2 * nx * pu + nu * pu            # thin rows
+             + 2 * px + 2 * px + 2 * pu + px + pu     # x, p, w, slacks
+             + px + 2 * px + 2 * pu                   # pterm, bounds
+             + _r4(nc * (2 + tw)))
+    rw = 3 * pu + 3 * px + (2 * px + 2 * pu if knot_bounds else 0)
+    return 4 * instances * (words + kb * rw)
+
+
+def hstream_plan(nx: int, nu: int, N: int, knot_block: int = 32,
+                 nc: int = 0, knot_bounds: bool = False,
+                 limit: int = SMEM_LIMIT_BYTES) -> dict:
+    """The launch of the hstream kernels (K11/K12) for these sizes:
+    ``kernel`` (``"compiled nx/nu"`` for ``HSTREAM_SHAPES``, else
+    ``"run-time"``), ``G`` (lanes per instance: 16 for a compiled shape,
+    else the power of two >= nx + nu from 4 to 32; a lane owns rows j, j +
+    G, ... of the nx state rows, then the nu input rows), ``rows_per_lane``
+    (``ceil((nx + nu) / G)``), ``threads`` and ``instances_per_block``,
+    ``kb`` (knots a group keeps in flight: ``knot_block`` within 2 ..
+    ``HSTREAM_KB_MAX`` and the horizon), ``smem_bytes`` per block and
+    ``bytes_per_instance``. Where a block of 128 threads does not fit,
+    fewer instances share a block, then the ring gets shallower. Raises
+    where one instance with a ring of two knots does not fit, naming the
+    bytes."""
+    G = 4
+    while G < nx + nu and G < 32:
+        G *= 2
+    if (nx, nu) in HSTREAM_SHAPES:
+        G = 16
+    rows_per_lane = -(-(nx + nu) // G)
+    kb = max(2, min(int(knot_block), HSTREAM_KB_MAX, N))
+    threads = HSTREAM_THREADS
+    need = lambda: hstream_smem_bytes(nx, nu, kb, nc, knot_bounds,
+                                      threads // G)
+    while need() > limit and threads > max(32, G):
+        threads //= 2
+    while need() > limit and kb > 2:
+        kb -= 1
+    if need() > limit or rows_per_lane > HSTREAM_ROWS_MAX:
+        raise ValueError(
+            f"the hstream kernels' plant and staging for nx={nx}, nu={nu}, "
+            f"{nc} cones need {need()} bytes of shared memory per block "
+            f"(limit {limit}): use tier=\"scan\", which runs any size")
+    return {"kernel": (f"compiled {nx}/{nu}" if (nx, nu) in HSTREAM_SHAPES
+                       else "run-time"),
+            "G": G, "rows_per_lane": rows_per_lane, "threads": threads,
+            "instances_per_block": threads // G, "kb": kb,
+            "smem_bytes": need(), "bytes_per_instance": need() // (
+                threads // G)}
+
+
+def hstream_resident(nx: int, nu: int, N: int, knot_block: int = 32,
+                     nc: int = 0, knot_bounds: bool = False,
+                     adaptive: bool = True, device: Any = "cuda") -> int:
+    """Blocks of the hstream kernel :func:`hstream_plan` picks that one SM
+    holds at once (the CUDA occupancy query); a launch of ``B`` instances
+    takes ``ceil(B / instances_per_block / (this x SMs))`` waves."""
+    dev = torch.device(device)
+    props = torch.cuda.get_device_properties(dev)
+    limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
+    plan = hstream_plan(nx, nu, N, knot_block, nc, knot_bounds, limit)
+    with torch.cuda.device(dev):
+        n = _library("stream_admm").atm_hstream_resident(
+            nx, nu, plan["kb"], nc, int(bool(knot_bounds)),
+            int(bool(adaptive)), plan["threads"])
+    if n < 1:
+        raise RuntimeError(f"hstream_resident: the occupancy query failed "
+                           f"({n})")
+    return n
+
+
 def shared_slots(nx: int, nu: int, N: int, knot_block: int = 32,
                  nc: int = 0, adaptive: bool = True,
                  device: Any = "cuda") -> int:
@@ -305,9 +402,11 @@ def _library(name: str) -> ctypes.CDLL:
             lib.atm_shared_slots.restype = _I
         else:
             lib.atm_stream_solve.argtypes = (
-                [_P] * 24 + [_I] * 2 + [_P] * 2 + [_I] * 10 + [_F] * 2
-                + [_P])
+                [_P] * 24 + [_I] * 2 + [_P] * 2 + [_I] * 9 + [_F] * 2
+                + [_I] * 3 + [_P])
             lib.atm_stream_solve.restype = _I
+            lib.atm_hstream_resident.argtypes = [_I] * 7
+            lib.atm_hstream_resident.restype = _I
         lib._atm_declared = True
     return lib
 
@@ -315,7 +414,8 @@ def _library(name: str) -> ctypes.CDLL:
 def _operands(shared: bool, x0, carry, ops, cones, cone_params, cone_masks):
     """The checked inputs of a launch (shared plant or one per instance), the
     copies of the carry the kernel updates in place (knot-major for the
-    shared plant: :func:`_knot_major`), the cone table and whether the bounds
+    shared plant: :func:`_knot_major`; rows padded to float4 for a plant
+    per instance: :func:`_padded`), the cone table and whether the bounds
     come a row per knot."""
     nx, nu, N = ops.dims
     m = N - 1
@@ -343,7 +443,7 @@ def _operands(shared: bool, x0, carry, ops, cones, cone_params, cone_masks):
         c("rho", ops.rho.reshape(-1), P or (1,)),
     ]
     # The kernel updates the carry in place: it gets copies.
-    copy = _knot_major if shared else torch.clone
+    copy = _knot_major if shared else (lambda t: _padded(t, True))
     cy = [copy(c(f"carry.{k}", a, (Bn,) + s)) for k, a, s in zip(
         carry._fields, carry, ((m, nu), (m, nu), (N, nx), (m, nu), (N, nx)))]
     nc = nc_u + nc_x
@@ -356,17 +456,27 @@ def _operands(shared: bool, x0, carry, ops, cones, cone_params, cone_masks):
         bound_rows[0] > 1
 
 
-def _outputs(Bn, nx, nu, N, adaptive, dev):
-    new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-    m = N - 1
-    U, X, stats = new(Bn, m, nu), new(Bn, N, nx), new(Bn, 8)
-    zs = new(Bn, m, nu) if adaptive else None
-    vs = new(Bn, N, nx) if adaptive else None
-    return U, X, stats, zs, vs
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _padded(t: torch.Tensor, copy: bool) -> torch.Tensor:
+    """``(B, knots, k)`` with each row padded with zeros to ``r4(k)`` floats
+    and 16-byte aligned, the layout the hstream kernels copy 16-byte pieces
+    of: a new tensor where ``copy`` or where the rows need padding, else
+    ``t`` itself (contiguous, aligned)."""
+    k = t.shape[-1]
+    if _r4(k) != k:
+        out = t.new_zeros(t.shape[:-1] + (_r4(k),))
+        out[..., :k] = t
+        return out
+    if copy or t.data_ptr() % 16:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def _unpadded(t: torch.Tensor, k: int) -> torch.Tensor:
+    return t if t.shape[-1] == k else t[..., :k].contiguous()
 
 
 def _knot_major(t: torch.Tensor) -> torch.Tensor:
@@ -426,33 +536,40 @@ def _launch_shared(x0, carry, sp, *, max_iter: int, knot_block: int,
                         stats=stats)
 
 
-def _launch_hstream(x0, carry, hsp, *, max_iter: int, check_termination: int,
-                    abs_pri_tol: float, abs_dua_tol: float,
-                    en_input_bound: bool, en_state_bound: bool, cones=None,
-                    cone_params=None, cone_masks=None) -> StreamResult:
+def _launch_hstream(x0, carry, hsp, *, max_iter: int, knot_block: int,
+                    check_termination: int, abs_pri_tol: float,
+                    abs_dua_tol: float, en_input_bound: bool,
+                    en_state_bound: bool, cones=None, cone_params=None,
+                    cone_masks=None) -> StreamResult:
     """Launch ``csrc/stream_admm.cu`` (K11 fixed, K12 adaptive: a plant per
     instance, :class:`.hstream_admm.HStreamProblem`) on CUDA tensors
-    (float32, ``nx, nu <= 32``). Counts the launch under
+    (float32; sizes as far as :func:`hstream_plan` takes them). The kernel
+    reads the carry, qc and per-knot bounds with each knot's row padded to
+    float4 (:func:`_padded`: copies where nx or nu is not a multiple of 4);
+    the carry comes back unpadded. Counts the launch under
     ``hstream_solve_fixed``/``_adaptive``."""
     nx, nu, N = hsp.dims
+    m = N - 1
     Bn = x0.shape[0]
     dev = x0.device
-    if nx > ha.MAX_DIM or nu > ha.MAX_DIM:
-        raise ValueError(
-            f"the hstream kernels take nx, nu <= {ha.MAX_DIM}, got nx={nx}, "
-            f"nu={nu}: use the scan tier")
     adaptive = check_termination > 0
-    ins, cy, (ctab, nc_u, nc_x), cone_params, cone_masks, knot = _operands(
-        False, x0, carry, hsp, cones, cone_params, cone_masks)
-    G = ha.group_size(nx, nu)
-    smem = (128 // G) * (2 + G) * (nc_u + nc_x) * 4
     props = torch.cuda.get_device_properties(dev)
     limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
-    if smem > limit:
-        raise ValueError(f"the hstream kernels' cone operands for "
-                         f"{nc_u + nc_x} cones need {smem} bytes of shared "
-                         f"memory per block (limit {limit})")
-    U, X, stats, zs, vs = _outputs(Bn, nx, nu, N, adaptive, dev)
+    nc = 0 if cones is None else (len(cones.input_cones)
+                                  + len(cones.state_cones))
+    plan = hstream_plan(nx, nu, N, knot_block, nc, hsp.has_knot_bounds,
+                        limit)
+    ins, cy, (ctab, nc_u, nc_x), cone_params, cone_masks, knot = _operands(
+        False, x0, carry, hsp, cones, cone_params, cone_masks)
+    ins[10] = _padded(ins[10], False)                       # qc
+    if knot:
+        ins[6:10] = [_padded(t, False) for t in ins[6:10]]  # bound rows
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    U, X, stats = new(Bn, m, nu), new(Bn, N, nx), new(Bn, 8)
+    zs = vs = None
+    if adaptive:   # read in 16-byte pieces: the padding must be zero
+        zs = torch.zeros((Bn, m, _r4(nu)), dtype=torch.float32, device=dev)
+        vs = torch.zeros((Bn, N, _r4(nx)), dtype=torch.float32, device=dev)
     lib = _library("stream_admm")
     with torch.cuda.device(dev):
         err = lib.atm_stream_solve(
@@ -460,15 +577,18 @@ def _launch_hstream(x0, carry, hsp, *, max_iter: int, check_termination: int,
             U.data_ptr(), X.data_ptr(), *(t.data_ptr() for t in cy),
             _ptr(zs), _ptr(vs), stats.data_ptr(),
             _ptr(ctab), nc_u, nc_x, _ptr(cone_params), _ptr(cone_masks),
-            1, int(knot), Bn, nx, nu, N, int(max_iter),
+            int(knot), Bn, nx, nu, N, int(max_iter),
             int(check_termination) if adaptive else 0,
             int(bool(en_input_bound)), int(bool(en_state_bound)),
-            float(abs_pri_tol), float(abs_dua_tol),
+            float(abs_pri_tol), float(abs_dua_tol), plan["kb"],
+            plan["threads"], plan["smem_bytes"],
             torch.cuda.current_stream().cuda_stream)
     ha._raise_on(err, "hstream_solve")
     LAUNCH_COUNTS["hstream_solve" + ("_adaptive" if adaptive
                                      else "_fixed")] += 1
-    return StreamResult(U=U, X=X, carry=StreamCarry(*cy), stats=stats)
+    carry_out = StreamCarry(*(_unpadded(t, k) for t, k in zip(
+        cy, (nu, nu, nx, nu, nx))))
+    return StreamResult(U=U, X=X, carry=carry_out, stats=stats)
 
 
 def stream_solve(

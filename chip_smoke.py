@@ -574,11 +574,13 @@ def main() -> None:
         name: [ln.strip() for ln in _build.build_log(name).splitlines()
                if "registers" in ln or "spill" in ln]
         for name in ("hetero_admm", "stream_admm")}
+    hstream_ptxas = ptxas_per_kernel(_build.build_log("stream_admm"))
     emit("build", seconds=round(_build.last_build_seconds, 2), ptxas=ptxas,
          fused_kernels=ptxas_per_kernel(_build.build_log("fused_admm")),
          riccati_kernels=ptxas_per_kernel(_build.build_log("riccati")),
          shared_stream_kernels=ptxas_per_kernel(
-             _build.build_log("stream_shared")))
+             _build.build_log("stream_shared")),
+         hstream_kernels=hstream_ptxas)
 
     # -------------------------------------------------------------- kernels
     cases = []
@@ -2016,10 +2018,11 @@ def main() -> None:
          adaptive_rho=adaptive3)
 
     # ====================================================== long horizons
-    # K9-K12 (csrc/stream_admm.cu) against their plain versions at batch
-    # 1,027 (not a multiple of any block), with the float64 plain version as
-    # arbiter where float32 itself strays (cold long-horizon transients
-    # amplify rounding through the clips). The plain version issues ~20
+    # K9-K12 (csrc/stream_shared.cu, csrc/stream_admm.cu) against their
+    # plain versions at batch 1,027 (not a multiple of any block), with the
+    # float64 plain version as arbiter where float32 itself strays (cold
+    # long-horizon transients amplify rounding through the clips). The
+    # plain version issues ~20
     # small launches per knot (~25 us each, measured: 8.0 s for 25
     # iterations at N=1024), so the comparisons run 20 iterations at N=1024
     # (adaptive: up to 20) and 30 at N=256 (adaptive: up to 40).
@@ -2174,6 +2177,33 @@ def main() -> None:
                 float(spw.rho), **kw, **extra)
             case["plan"] = plan
             str_cases.append(case)
+    # K11/K12 past the old lane groups too (the run-time body: a lane owns
+    # 2 and 3 of the 52 and 66 rows): a fleet of the same random plants with
+    # A perturbed by 1 % per instance, caches from the batched tensor code
+    for label, (wx, wu, wN) in (("random 40/12/64", (40, 12, 64)),
+                                ("random 33/33/16", (33, 33, 16))):
+        wprob, wrho = atm.models.random_lti_problem(5, wx, wu, wN, device=dev)
+        rng = np.random.default_rng(9)
+        wide = lambda a: a.expand((SB,) + tuple(a.shape)).contiguous()
+        wprob_b = atm.Problem(**{k: wide(v)
+                                 for k, v in wprob.tensors().items()})
+        wprob_b = wprob_b.replace(A=wprob_b.A * torch.as_tensor(
+            1.0 + 0.01 * rng.standard_normal((SB, wx, wx)),
+            dtype=torch.float32, device=dev))
+        hspw = hs.pad_hstream_from_plants(
+            wprob_b.A, wprob_b.B, wprob_b.Q, wprob_b.R,
+            torch.full((SB,), float(wrho), device=dev), wprob_b,
+            riccati="vmap")[0]
+        xs_w = spread_x0(SB, wx, (0.3, 1.0, 3.0), seed=4)
+        plan = sa.hstream_plan(wx, wu, wN)
+        for mode, kw, check in (("K11 fixed-20", dict(max_iter=20), 0),
+                                ("K12 check=5", akw(20, 5, 1e-3), 5)):
+            case, got, _ms = stream_case(
+                f"{mode} {label}", hs.hstream_solve, hs.hstream_solve_plain,
+                hspw, xs_w, sa.StreamCarry.zeros(SB, hspw), check,
+                float(hspw.rho.max()), **kw)
+            case["plan"] = plan
+            str_cases.append(case)
     # K10's slot refills: a batch a quarter past the slots the card holds at
     # once (the compiled 8/3 body; the run-time body at 33/33, one block an
     # SM), so slots retire and take new instances from the work counter;
@@ -2235,13 +2265,14 @@ def main() -> None:
             if label.startswith("a"):
                 plain_ms4[mode.split()[0]] = (case, ms, kw["max_iter"])
             str_cases.append(case)
-    kb_h = [hs.hstream_solve(fa[2], sa.StreamCarry.zeros(SB, hsp_a), hsp_a,
-                             knot_block=k, **akw(60, 5, 1e-3))
-            for k in (8, 16, 64)]
-    kb_same = kb_same and all(
-        torch.equal(r.U, kb_h[0].U) and torch.equal(r.stats, kb_h[0].stats)
-        for r in kb_h[1:])
-    str_cases.append({"case": "knot_block 8/16/64 bit-identical (K10, K12)",
+    for kw in (dict(max_iter=30), akw(60, 5, 1e-3)):   # K11, K12
+        kb_h = [solve_fields(hs.hstream_solve(
+            fa[2], sa.StreamCarry.zeros(SB, hsp_a), hsp_a, knot_block=k,
+            **kw)) for k in (8, 16, 64)]
+        kb_same = kb_same and all(torch.equal(a, b) for r in kb_h[1:]
+                                  for a, b in zip(r, kb_h[0]))
+    str_cases.append({"case": "knot_block 8/16/64 bit-identical (K10, K11, "
+                              "K12)",
                       "equal": kb_same,
                       "failures": [] if kb_same else ["knot_block changes "
                                                       "the results"]})
@@ -2447,6 +2478,22 @@ def main() -> None:
         bound_ms, bound_by, streamed_ms = stream_bound(dims4, iters,
                                                        LONG_BATCH, shared)
         case, p_ms, p_iters = plain_ms4[key]
+        geometry = {}
+        if not shared:   # K11/K12: registers, blocks an SM, waves
+            plan = sa.hstream_plan(*dims4)
+            adaptive = key == "K12"
+            per_sm = sa.hstream_resident(*dims4, adaptive=adaptive)
+            label = f"hstream_kernel<12,4,{int(adaptive)},0>"
+            blocks = -(-LONG_BATCH // plan["instances_per_block"])
+            n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+            geometry = {
+                "registers": next((r.get("registers") for r in hstream_ptxas
+                                   if r["kernel"] == label), None),
+                "threads_per_block": plan["threads"],
+                "instances_per_block": plan["instances_per_block"],
+                "resident_blocks_per_sm": per_sm,
+                "waves": -(-blocks // (per_sm * n_sm)), "ring_knots":
+                plan["kb"]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "accelerated_tinympc_tpu_torch/ops/csrc/" + (
@@ -2457,7 +2504,7 @@ def main() -> None:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "streamed_bound_ms": streamed_ms, "library_ms": None,
             "batch": LONG_BATCH, "dims": dims4,
-            "iters_mean": iters / LONG_BATCH})
+            "iters_mean": iters / LONG_BATCH, **geometry})
     emit("long_horizon_seconds", seconds=round(time.perf_counter() - T_LONG,
                                                1))
 

@@ -334,11 +334,24 @@ def test_tinympc_fused_per_instance_cones_compaction_and_rollout():
     same = sj["iterations"] == st["iterations"]
     assert same.mean() >= 0.75
     np.testing.assert_allclose(mt.get_u()[same], mj.get_u()[same], atol=1e-4)
-    # the cascade changes nothing against the monolithic adaptive solve
-    _, plain = _mpc_pair("fused", 4, settings, cone_mu=mu)
-    sp = plain.solve()
-    np.testing.assert_array_equal(sp["iterations"], st["iterations"])
-    np.testing.assert_allclose(plain.get_u(), mt.get_u(), atol=1e-6)
+    # the cascade changes nothing against the monolithic adaptive solve; held
+    # in float64, since compaction changes the batch shape of the products
+    # and the CPU's BLAS groups float32 sums by that shape
+    _pj, _cj, _cnj, pt64, cache64, cones64 = lander_pair(N, dtype=np.float64)
+    x0_64 = perturbed_x0(LANDER_X0, 4, seed=3, spread=0.3).astype(np.float32)
+    runs = []
+    for seg in ({"compaction_segment": 10}, {}):
+        m = atm_t.TinyMPC.from_parts(
+            pt64, cache64, settings=atm_t.Settings(**settings), batch=4,
+            tier="fused", device=DEV, cones=cones64,
+            cone_mu=torch.as_tensor(mu, dtype=torch.float64), **seg)
+        m.set_x0(x0_64)
+        runs.append((m.solve(), m.get_u()))
+    (st64, u_casc), (sp64, u_one) = runs
+    np.testing.assert_array_equal(sp64["iterations"], st64["iterations"])
+    assert u_one.dtype == np.float64
+    np.testing.assert_allclose(u_one, u_casc,
+                               atol=1e-12 * max(1.0, np.abs(u_one).max()))
     # coned missions: in-kernel form against the tick loop, and against JAX
     mj, mt = _mpc_pair("fused", 4, dict(max_iter=15, check_termination=0))
     _, mt2 = _mpc_pair("fused", 4, dict(max_iter=15, check_termination=0))

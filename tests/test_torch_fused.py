@@ -8,6 +8,9 @@ float32 tiers); adaptive iteration counts agree on >= 90 % of instances
 as tests/test_rollout_kernel.py allows); in float64 against the scan tier
 counts are exactly equal and values agree to 1e-9."""
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -132,8 +135,22 @@ def test_tracking_ref_vectors_match_jax(quad):
     xq_t, pc_t = ft.ref_vectors(ppt, pt.Q, ct.Pinf, torch.as_tensor(window))
     np.testing.assert_allclose(to_np(xq_t)[0], np.asarray(xq_j)[0, :120],
                                atol=1e-6)
-    np.testing.assert_allclose(to_np(pc_t)[0], np.asarray(pc_j)[0, :120],
-                               atol=1e-5)
+    # pterm_c = -Xref[-1] @ Pinf reaches ~7e2, where one float32 step is
+    # 6e-5: the two packages' products sum in different orders, so the
+    # comparison runs in float64 (1e-12 of the largest entry)
+    with jax.enable_x64(True):
+        f64 = jnp.float64
+        ppj64 = ppj.replace(xref_q=jnp.asarray(np.asarray(ppj.xref_q), f64))
+        _, pc_j64 = fj.ref_vectors(
+            ppj64, jnp.asarray(np.asarray(pj.Q), f64),
+            jnp.asarray(np.asarray(cj.Pinf), f64), jnp.asarray(window, f64))
+        pc_j64 = np.asarray(pc_j64)
+    pp64 = dataclasses.replace(ppt, xref_q=ppt.xref_q.double())
+    _, pc_t64 = ft.ref_vectors(pp64, pt.Q.double(), ct.Pinf.double(),
+                               torch.as_tensor(window, dtype=torch.float64))
+    assert pc_j64.dtype == np.float64
+    np.testing.assert_allclose(to_np(pc_t64)[0], pc_j64[0, :120],
+                               atol=1e-12 * np.abs(pc_j64).max())
     got, want = _both(ppj, ppt, x0s, max_iter=25, check_termination=0,
                       xref_q=(xq_j, xq_t), pterm_c=(pc_j, pc_t))
     assert_fused_close(got, want, ppt.dims, atol=ATOL)

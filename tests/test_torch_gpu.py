@@ -691,7 +691,8 @@ def _assert_stream_close(got, want, min_agree=0.98):
 @pytest.mark.parametrize("dims, tier", [
     (dims, tier) for dims in ((8, 3, 64), (6, 3, 256), (12, 4, 33), (1, 1, 5))
     for tier in ("stream", "hstream")] + [
-    ((40, 12, 64), "stream"), ((33, 33, 16), "stream")])
+    (dims, tier) for dims in ((40, 12, 64), (33, 33, 16))
+    for tier in ("stream", "hstream")])
 @pytest.mark.parametrize("mode", ["fixed", "adaptive"])
 def test_stream_kernels_match_plain(card, dims, tier, mode):
     from accelerated_tinympc_tpu_torch.ops import hstream_admm as hs
@@ -772,15 +773,44 @@ def test_stream_kernels_refuse(card):
 
     sp, hsp, x0 = _stream_parts(4, 3, 2, 5)
     cold = sa.StreamCarry.zeros(4, sp)
-    # the per-instance plants' lane groups stop at 32 rows
-    with pytest.raises(ValueError, match="scan tier"):
-        hs.hstream_solve(x0, cold, hsp.replace(dims=(33, 2, 5)))
+    # the per-instance plants only past shared memory (one instance a block,
+    # a ring of two knots), naming the bytes and the scan tier
+    need = sa.hstream_smem_bytes(120, 60, 2)
+    with pytest.raises(ValueError, match=f'need {need} bytes.*tier="scan"'):
+        hs.hstream_solve(x0, cold, hsp.replace(dims=(120, 60, 5)))
     with pytest.raises(TypeError, match="float32"):
         sa.stream_solve(x0.double(), cold, sp)
     # the shared plant only past shared memory, naming the bytes
     need = sa.shared_smem_bytes(120, 40, 1)
     with pytest.raises(ValueError, match=f"need {need} bytes"):
         sa.stream_solve(x0, cold, sp.replace(dims=(120, 40, 5)))
+
+
+@pytest.mark.parametrize("dims", [(12, 4, 64), (8, 3, 64), (33, 33, 16)])
+def test_hstream_kernels_are_bit_exact_under_permutation_and_knot_block(
+        card, dims):
+    """K11/K12 (the compiled 12/4 body and the run-time one): a permuted
+    batch gives the permuted result bit for bit, and so do rings of 8, 16
+    and 64 knots (knot_block up to the ring's cap)."""
+    from accelerated_tinympc_tpu_torch.ops import hstream_admm as hs
+    from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
+
+    B = 133
+    _sp, hsp, x0 = _stream_parts(B, *dims, seed=7)
+    cold = sa.StreamCarry.zeros(B, hsp)
+    perm = torch.as_tensor(np.random.default_rng(9).permutation(B),
+                           device="cuda")
+    inv = torch.argsort(perm)
+    hsp_p, cold_p, x0_p, _cp, _cm = hs.gather_hstream(hsp, cold, x0, perm)
+    for kw in (dict(max_iter=30),
+               dict(max_iter=60, check_termination=5, abs_pri_tol=1e-3,
+                    abs_dua_tol=1e-3)):
+        runs = [_solve_fields(hs.hstream_solve(x0, cold, hsp, knot_block=k,
+                                               **kw)) for k in (8, 16, 64)]
+        assert all(torch.equal(a, b) for r in runs[1:]
+                   for a, b in zip(r, runs[0]))
+        again = _solve_fields(hs.hstream_solve(x0_p, cold_p, hsp_p, **kw))
+        assert all(torch.equal(a, b[inv]) for a, b in zip(runs[0], again))
 
 
 @pytest.mark.parametrize("nx, nu", [(8, 3), (33, 33)])

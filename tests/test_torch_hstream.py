@@ -77,9 +77,10 @@ def _scan(pj, cjx, x0s, max_iter, check=0, tol=0.0):
     the last iteration with tolerance 0 (that iteration's residuals, no
     freeze)."""
     dtype = pj.A.dtype
+    nx, nu = pj.B.shape[-2:]
     s = atm_j.Settings(max_iter=max_iter, check_termination=check or max_iter,
                        abs_pri_tol=tol, abs_dua_tol=tol)
-    st = init_state_batched(x0s.shape[0], NX, NU, pj.Xref.shape[1], dtype)
+    st = init_state_batched(x0s.shape[0], nx, nu, pj.Xref.shape[1], dtype)
     st = st.replace(x=st.x.at[:, 0, :].set(jnp.asarray(x0s, dtype)))
     out = jax.jit(lambda q: solve_batched(q, pj, cjx, s, problem_axes=0,
                                           cache_axes=0))(st)
@@ -361,3 +362,109 @@ def test_knot_block_invariance_and_refusals(f64):
                          cone_params=torch.zeros((B, 1, 2)))
     with pytest.raises(ValueError, match="max_iter >= 1"):
         hs.hstream_solve(x0, hs.hstream_carry_zeros(B, hsp), hsp, max_iter=0)
+
+
+def test_hstream_kernel_plan():
+    """The host's plan of the hstream kernels (csrc/stream_admm.cu): the
+    compiled bodies for 12/4 and 8/3 (16 lanes an instance, a row a lane),
+    the run-time body for every other size (a lane owns ceil((nx + nu) / G)
+    rows); the ring's depth from knot_block within 2 .. HSTREAM_KB_MAX and
+    the horizon; a refusal past shared memory that names the bytes and the
+    scan tier."""
+    from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
+
+    plan = sa.hstream_plan(12, 4, 256)
+    assert plan == {"kernel": "compiled 12/4", "G": 16, "rows_per_lane": 1,
+                    "threads": 128, "instances_per_block": 8, "kb": 8,
+                    "smem_bytes": 19_584, "bytes_per_instance": 2_448}
+    # per instance (floats): thin rows of B, Kinf' and Quu_inv, the x, p
+    # and w buffers, the cone slacks, pterm and uniform bounds, then a ring
+    # of 8 knots of d, y, z (4 each) and g, v, qc (12 each)
+    thin = 2 * 12 * 4 + 4 * 4
+    vecs = 2 * 12 + 2 * 12 + 2 * 4 + (12 + 4) + 12 + 2 * 12 + 2 * 4
+    assert 4 * (thin + vecs + 8 * (3 * 4 + 3 * 12)) == 2_448
+    assert sa.HSTREAM_SHAPES == ((12, 4), (8, 3))
+    assert sa.hstream_plan(8, 3, 256)["kernel"] == "compiled 8/3"
+    # per-knot bounds ride in the ring; ten cones add their rows
+    assert (sa.hstream_smem_bytes(12, 4, 8, knot_bounds=True)
+            - sa.hstream_smem_bytes(12, 4, 8)) == 4 * 8 * (2 * 12 + 2 * 4)
+    assert (sa.hstream_smem_bytes(12, 4, 8, nc=10)
+            - sa.hstream_smem_bytes(12, 4, 8)) == 4 * 10 * 14
+    assert sa.hstream_plan(12, 4, 256, knot_block=3)["kb"] == 3
+    assert sa.hstream_plan(12, 4, 256, knot_block=1)["kb"] == 2
+    assert sa.hstream_plan(12, 4, 5)["kb"] == 5
+    for (nx, nu), rows in (((33, 33), 3), ((40, 12), 2), ((6, 3), 1)):
+        p = sa.hstream_plan(nx, nu, 64)
+        assert p["kernel"] == "run-time" and p["rows_per_lane"] == rows
+        assert p["G"] == (32 if nx + nu > 16 else 16)
+        assert p["smem_bytes"] == sa.hstream_smem_bytes(
+            nx, nu, p["kb"], instances=p["instances_per_block"])
+        assert p["smem_bytes"] <= sa.SMEM_LIMIT_BYTES
+    # 33/33: plant rows 2 x 66 x 36, thin rows 99 x 36, vectors, 8 knots of
+    # 6 x 36 floats: four instances a block of 128 threads
+    wide = sa.hstream_plan(33, 33, 16)
+    assert wide["bytes_per_instance"] == 4 * (2 * 66 * 36 + 99 * 36 + 468
+                                              + 8 * 216) == 42_048
+    assert wide["instances_per_block"] == 4 and wide["kb"] == 8
+    # past shared memory even for one instance a block and two knots
+    need = sa.hstream_smem_bytes(120, 60, 2)
+    assert need > sa.SMEM_LIMIT_BYTES
+    with pytest.raises(ValueError, match=f'need {need} bytes.*tier="scan"'):
+        sa.hstream_plan(120, 60, 64)
+    # a smaller card's limit: fewer instances a block first, then the ring
+    tight = sa.hstream_plan(33, 33, 64, limit=60_000)
+    assert tight["instances_per_block"] == 1 and tight["kb"] == 8
+    tighter = sa.hstream_plan(33, 33, 64, limit=38_000)
+    assert tighter["instances_per_block"] == 1 and 2 <= tighter["kb"] < 8
+
+
+def _wide_fleet(nx, nu, n, batch, seed):
+    """Distinct random plants of any size (float64), batch-leading JAX
+    Problem/Cache pytrees, per-instance rho."""
+    problems, caches = [], []
+    for k in range(batch):
+        rng = np.random.default_rng(seed + k)
+        A = np.eye(nx) + 0.02 * rng.standard_normal((nx, nx))
+        Bm = 0.2 * rng.standard_normal((nx, nu))
+        Q = np.abs(rng.standard_normal(nx)) + 1.0
+        R = np.abs(rng.standard_normal(nu)) + 1.0
+        u = np.full((n - 1, nu), 0.7 + 0.1 * k)
+        caches.append(riccati_cache(A, Bm, Q, R, rho=1.0 + 0.5 * k,
+                                    dtype=np.float64))
+        problems.append(Problem(
+            A=A, B=Bm, Q=Q, R=R, u_min=-u, u_max=u,
+            x_min=np.full((n, nx), -4.0), x_max=np.full((n, nx), 4.0),
+            Xref=0.1 * rng.standard_normal((n, nx)),
+            Uref=np.zeros((n - 1, nu))))
+    stack = lambda trees: jax.tree.map(
+        lambda *xs: jnp.stack([jnp.asarray(x, jnp.float64) for x in xs]),
+        *trees)
+    return stack(problems), stack(caches)
+
+
+@pytest.mark.parametrize("dims", [(40, 12, 64), (33, 33, 16)],
+                         ids=["40/12/64", "33/33/16"])
+def test_past_the_lane_group_limits_f64(dims):
+    """What the hstream kernels take since a lane owns several rows: plants
+    past 32 states or inputs. The port's hstream tier (its plain version on
+    the CPU) against the JAX scan tier with per-instance plants, both in
+    float64, fixed 25 iterations and adaptive (check 5): every field to
+    1e-9 relative to its largest entry, equal counts and solved flags."""
+    nx, nu, n = dims
+    batch = 4
+    with jax.enable_x64(True):
+        pj, cjx = _wide_fleet(nx, nu, n, batch, seed=11)
+        rng = np.random.default_rng(12)
+        x0s = np.repeat([0.05, 0.4, 2.0, 0.4], 1)[:batch, None] * \
+            rng.standard_normal((batch, nx))
+        want = {0: _scan(pj, cjx, x0s, 25),
+                5: _scan(pj, cjx, x0s, 60, check=5, tol=5e-3)}
+        pj, cjx = jax.tree.map(np.asarray, (pj, cjx))
+    hsp = _torch_hsp(pj, cjx, torch.float64)
+    assert hsp.dims == (nx, nu, n)
+    x0 = torch.as_tensor(x0s)
+    for check, it in ((0, 25), (5, 60)):
+        kw = dict(ADAPT) if check else {}
+        res = hs.hstream_solve_plain(
+            x0, hs.hstream_carry_zeros(batch, hsp), hsp, max_iter=it, **kw)
+        _assert_vs_scan(res, want[check], atol=1e-9)

@@ -16,9 +16,10 @@ plant (``random_lti`` seed 0, nx=8, nu=3, N=1024), x0 of three scales (0.3,
 check 5 at tolerance 1e-3 (mean iterations beside). K7/K8: the robust
 sweep's family (the quadrotor's plant perturbed by 3 %, N=10) at 65,536;
 K7 fixed 100 cold, K8 check 1 at 1e-3 warm after a 12-tick fleet mission.
-K11/K12: the same family (seed 12) at N=256 for 8,192 instances, fixed 100
-and check 5. Prints one JSON line with the card's name. Needs a CUDA device
-and nvcc.
+K11/K12: the same family (seed 12) at N=256 for 8,192 instances (and 512),
+fixed 100 and check 5; also the K9/K10 plant at N=256 given to every
+instance (8/3) at 8,192 and 512. Prints one JSON line with the card's
+name. Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -32,6 +33,55 @@ import sys
 import tempfile
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
+
+
+def robust_family(atm, batch, seed=0, spread=0.03, dev="cuda"):
+    """The robust sweep's family: the quadrotor's plant with A and B
+    perturbed by ``spread`` (instance 0 nominal), the hover problem for
+    every instance, the cache's rho, x0 around the hover reference. Returns
+    ``(problem, rho, x0s)``, batch-leading."""
+    import numpy as np
+    import torch
+
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    prob, cch, _x0 = atm.models.quadrotor_hovering_setup(device=dev)
+    rng = np.random.default_rng(seed)
+    A0 = prob.A.double().cpu().numpy()
+    B0 = prob.B.double().cpu().numpy()
+    mulA = 1.0 + spread * rng.standard_normal((batch, 12, 12))
+    mulB = 1.0 + spread * rng.standard_normal((batch, 12, 4))
+    mulA[0] = 1.0
+    mulB[0] = 1.0
+    wide = lambda a: a.expand((batch,) + tuple(a.shape)).contiguous()
+    prob_b = atm.Problem(**{k: wide(v) for k, v in prob.tensors().items()})
+    prob_b = prob_b.replace(A=t(A0[None] * mulA), B=t(B0[None] * mulB))
+    rho = torch.full((batch,), float(cch.rho), device=dev)
+    x0s = t(prob.Xref[0].cpu().numpy()[None]
+            + 0.2 * rng.standard_normal((batch, 12)))
+    return prob_b, rho, x0s
+
+
+def at_horizon(prob_b, N):
+    """A batch-leading problem carried to horizon N: uniform bounds and
+    reference (its first knot's rows repeated)."""
+    Bn = prob_b.A.shape[0]
+    rows = lambda a, k: a[:, :1].expand(Bn, k, a.shape[-1]).contiguous()
+    return prob_b.replace(
+        u_min=rows(prob_b.u_min, N - 1), u_max=rows(prob_b.u_max, N - 1),
+        x_min=rows(prob_b.x_min, N), x_max=rows(prob_b.x_max, N),
+        Xref=rows(prob_b.Xref, N), Uref=rows(prob_b.Uref, N - 1))
+
+
+def hstream_workload(atm, batch=8192, seed=12, N=256, dev="cuda"):
+    """K11/K12's timed workload (``chip_smoke.py``'s): the robust family at
+    N=256. Returns ``(hsp, x0s, cold carry)``."""
+    from accelerated_tinympc_tpu_torch.ops import hstream_admm as hs
+    from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
+
+    prob_f, rho_f, x0_f = robust_family(atm, batch, seed=seed, dev=dev)
+    hsp = hs.pad_hstream_from_plants(prob_f.A, prob_f.B, prob_f.Q, prob_f.R,
+                                     rho_f, at_horizon(prob_f, N))[0]
+    return hsp, x0_f, sa.StreamCarry.zeros(batch, hsp)
 
 
 def main():
@@ -63,35 +113,10 @@ def main():
     ms = lambda fn: cs.cuda_ms(fn, args.reps)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
 
-    def robust_family(batch, seed=0, spread=0.03):
-        prob, cch, _x0 = atm.models.quadrotor_hovering_setup(device=dev)
-        rng = np.random.default_rng(seed)
-        A0 = prob.A.double().cpu().numpy()
-        B0 = prob.B.double().cpu().numpy()
-        mulA = 1.0 + spread * rng.standard_normal((batch, 12, 12))
-        mulB = 1.0 + spread * rng.standard_normal((batch, 12, 4))
-        mulA[0] = 1.0
-        mulB[0] = 1.0
-        wide = lambda a: a.expand((batch,) + tuple(a.shape)).contiguous()
-        prob_b = atm.Problem(**{k: wide(v) for k, v in prob.tensors().items()})
-        prob_b = prob_b.replace(A=t(A0[None] * mulA), B=t(B0[None] * mulB))
-        rho = torch.full((batch,), float(cch.rho), device=dev)
-        x0s = t(prob.Xref[0].cpu().numpy()[None]
-                + 0.2 * rng.standard_normal((batch, 12)))
-        return prob_b, rho, x0s
-
     def spread_x0(batch, nx, seed=11):
         rng = np.random.default_rng(seed)
         sc = np.resize(np.asarray((0.3, 3.0, 10.0)), batch)[:, None]
         return t(sc * rng.standard_normal((batch, nx)))
-
-    def at_horizon(prob_b, N):
-        Bn = prob_b.A.shape[0]
-        rows = lambda a, k: a[:, :1].expand(Bn, k, a.shape[-1]).contiguous()
-        return prob_b.replace(
-            u_min=rows(prob_b.u_min, N - 1), u_max=rows(prob_b.u_max, N - 1),
-            x_min=rows(prob_b.x_min, N), x_max=rows(prob_b.x_max, N),
-            Xref=rows(prob_b.Xref, N), Uref=rows(prob_b.Uref, N - 1))
 
     row = {"root": str(root), "device": torch.cuda.get_device_name(0)}
     adapt5 = dict(max_iter=100, check_termination=5, abs_pri_tol=1e-3,
@@ -112,7 +137,7 @@ def main():
         del x0, cold
     # K7/K8
     B7 = 65536
-    fam = robust_family(B7)
+    fam = robust_family(atm, B7)
     hp = ha.pad_hetero_from_plants(fam[0].A, fam[0].B, fam[0].Q, fam[0].R,
                                    fam[1], fam[0])[0]
     hcold = ha.HeteroCarry.zeros(hp)
@@ -124,14 +149,34 @@ def main():
     cw = cw.reset_duals()
     row["K8_ms"] = ms(lambda: ha.hetero_solve(xw, cw, hp, **kh8))
     del fam, hp, hcold, xw, cw
-    # K11/K12
-    prob_f, rho_f, x0_f = robust_family(8192, seed=12)
-    hsp = hs.pad_hstream_from_plants(prob_f.A, prob_f.B, prob_f.Q, prob_f.R,
-                                     rho_f, at_horizon(prob_f, 256))[0]
-    hcold = sa.StreamCarry.zeros(8192, hsp)
-    row["K11_ms"] = ms(lambda: hs.hstream_solve(x0_f, hcold, hsp,
-                                                max_iter=100))
-    row["K12_ms"] = ms(lambda: hs.hstream_solve(x0_f, hcold, hsp, **adapt5))
+    # K11/K12 at 8,192 (K11_ms, K12_ms) and at 512
+    for Bn, tag in ((8192, ""), (512, "_b512")):
+        hsp, x0_f, hcold = hstream_workload(atm, batch=Bn)
+        row[f"K11{tag}_ms"] = ms(lambda: hs.hstream_solve(
+            x0_f, hcold, hsp, max_iter=100))
+        row[f"K12{tag}_ms"] = ms(lambda: hs.hstream_solve(
+            x0_f, hcold, hsp, **adapt5))
+        row[f"K12{tag}_iters_mean"] = float(hs.hstream_solve(
+            x0_f, hcold, hsp, **adapt5).stats[:, 0].mean())
+        del hsp, x0_f, hcold
+    # K11/K12 at another shape: the long-horizon example's plant (8/3) at
+    # N=256 given to every instance
+    prob83, rho83 = atm.models.random_lti_problem(0, 8, 3, 256, device=dev)
+    for Bn in (8192, 512):
+        rep = lambda a: a[None].expand(Bn, *a.shape).contiguous()
+        pb = prob83.replace(**{k: rep(getattr(prob83, k)) for k in (
+            "A", "B", "Q", "R", "u_min", "u_max", "x_min", "x_max", "Xref",
+            "Uref")})
+        hsp = hs.pad_hstream_from_plants(
+            pb.A, pb.B, pb.Q, pb.R, torch.full((Bn,), float(rho83),
+                                               device=dev), pb)[0]
+        x0 = spread_x0(Bn, 8)
+        hcold = sa.StreamCarry.zeros(Bn, hsp)
+        row[f"K11_8_3_b{Bn}_ms"] = ms(lambda: hs.hstream_solve(
+            x0, hcold, hsp, max_iter=100))
+        row[f"K12_8_3_b{Bn}_ms"] = ms(lambda: hs.hstream_solve(
+            x0, hcold, hsp, **adapt5))
+        del hsp, x0, hcold
     print(json.dumps(row), flush=True)
 
 
