@@ -56,11 +56,14 @@ torch.backends.cuda.matmul.allow_tf32 = False  # full-float32 products
 # Launches per kernel, counted where (and only where) the wrapper launches it.
 LAUNCH_COUNTS = {"hetero_solve_fixed": 0, "hetero_solve_adaptive": 0}
 
-# Limits of csrc/hetero_admm.cu: a group of at most 32 lanes owns an
-# instance (one lane per state or input row). Cones: any number, as far as
-# shared memory takes their operands.
-MAX_DIM = 32
-THREADS = 128          # threads per block at most
+# csrc/hetero_admm.cu: the shapes compiled with their rows in registers (the
+# robust sweep's quadrotor family, the timed one, and the design sweep's
+# 8/3 family; every other runs the run-time body, as far as one instance's
+# knots, rows and cone operands fit a block's shared memory), the most rows
+# a lane owns, the threads of a block at most.
+HETERO_SHAPES = ((12, 4), (8, 3))
+ROWS_MAX = 8
+THREADS = 128
 SMEM_LIMIT_BYTES = 232_448
 
 
@@ -514,55 +517,120 @@ def _library() -> ctypes.CDLL:
     lib = load_library("hetero_admm")
     if not getattr(lib, "_atm_declared", False):
         lib.atm_hetero_solve.argtypes = (
-            [_P] * 27 + [_I] * 2 + [_P] * 2 + [_I] * 8 + [_F] * 2 + [_I] * 2
+            [_P] * 27 + [_I] * 2 + [_P] * 3 + [_I] * 8 + [_F] * 2 + [_I] * 2
             + [_P])
         lib.atm_hetero_solve.restype = _I
+        lib.atm_hetero_resident.argtypes = [_I] * 6
+        lib.atm_hetero_resident.restype = _I
         lib._atm_declared = True
     return lib
 
 
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
 def group_size(nx: int, nu: int) -> int:
-    """Lanes per instance in the kernels: the power of two >= max(nx, nu),
-    at least 4."""
+    """Lanes per instance in the kernels: the power of two >= nx + nu, from
+    4 to 32 (lane j owns rows j, j + G, ... of the nx state rows, then the nu
+    input rows)."""
     g = 4
-    while g < max(nx, nu):
+    while g < nx + nu and g < 32:
         g *= 2
     return g
 
 
-def inst_floats(nx: int, nu: int, N: int, nc: int) -> int:
-    """Shared-memory floats one instance needs (mirrors ``inst_floats`` in
-    ``csrc/hetero_admm.cu``): X, two V buffers, G, qc and the state bounds
-    per knot; U, two Z buffers, Y, D and the input bounds per knot; mu,
-    shift and the role of each of the group's lanes per cone."""
-    return 7 * N * nx + 7 * (N - 1) * nu + (2 + group_size(nx, nu)) * nc
+def inst_floats(nx: int, nu: int, N: int, nc: int,
+                adaptive: bool = True) -> int:
+    """Shared-memory floats one instance needs (mirrors ``make_layout`` in
+    ``csrc/hetero_admm.cu``; the C entry refuses a launch when the two
+    disagree): p|w double-buffered and pterm (padded to 4); per knot a
+    record of stacked rows (x|u, the slacks v|z (two rows in the adaptive
+    kernel), the duals g|y, the bounds, qc|d), each ``nx + nu`` floats,
+    padded to a multiple of 4 for a compiled shape; mu, shift and a role
+    per stacked row for each cone; for the run-time body the rows of [A;
+    Kinf] and [AmBKt; B'] (nx wide), of B, Kinf' and Quu_inv. Rounded up
+    to a multiple of 4."""
+    compiled = (nx, nu) in HETERO_SHAPES
+    R = _r4(nx + nu) if compiled else nx + nu
+    records = N * (6 + bool(adaptive)) * R
+    rows = 0 if compiled else 2 * R * nx + 2 * nx * nu + nu * nu
+    return _r4(2 * R + _r4(nx) + records + (2 + R) * nc + rows)
 
 
-def launch_geometry(dims: tuple, nc: int = 0,
-                    limit: int = SMEM_LIMIT_BYTES) -> tuple[int, int, int]:
-    """``(group, instances per block, shared-memory bytes)``. Blocks hold
-    ``THREADS / group`` instances unless shared memory forces fewer (whole
-    warps only). Raises if one warp's instances do not fit."""
-    nx, nu, N = dims
-    if nx > MAX_DIM or nu > MAX_DIM:
-        raise ValueError(
-            f"the hetero kernels take nx, nu <= {MAX_DIM}, got nx={nx}, "
-            f"nu={nu}: use tier='instance_ops' or tier='scan'")
+def inst_stride(floats: int, G: int) -> int:
+    """The floats between two instances' slices (mirrors ``inst_stride`` in
+    ``csrc/hetero_admm.cu``): ``floats`` padded so that the groups of a warp
+    (G < 32 lanes each) start on different shared-memory banks."""
+    return floats + (G - floats % 32) % 32 if G < 32 else floats
+
+
+def hetero_plan(nx: int, nu: int, N: int, nc: int = 0,
+                adaptive: bool = True,
+                limit: int = SMEM_LIMIT_BYTES) -> dict:
+    """The launch of the hetero kernels (K7/K8) for these sizes: ``kernel``
+    (``"compiled nx/nu"`` for ``HETERO_SHAPES``, else ``"run-time"``), ``G``
+    (lanes per instance, :func:`group_size`), ``rows_per_lane``
+    (``ceil((nx + nu) / G)``), ``threads`` and ``instances_per_block``,
+    ``smem_bytes`` per block and ``bytes_per_instance`` (an instance's
+    slice, :func:`inst_floats` padded by :func:`inst_stride`). Where a block of
+    128 threads does not fit, fewer instances share a block. Raises where
+    one instance does not fit, naming the bytes and the tier that runs any
+    size."""
     G = group_size(nx, nu)
-    per = 4 * inst_floats(nx, nu, N, nc)
-    step = 32 // G
-    ipb = THREADS // G
-    while ipb > step and ipb * per > limit:
-        ipb -= step
-    if ipb * per > limit:
+    rows_per_lane = -(-(nx + nu) // G)
+    per = 4 * inst_stride(inst_floats(nx, nu, N, nc, adaptive), G)
+    threads = THREADS
+    while threads // G * per > limit and threads > max(32, G):
+        threads //= 2
+    if threads // G * per > limit or rows_per_lane > ROWS_MAX:
         raise ValueError(
-            f"the hetero kernels hold {step} instance(s) of nx={nx}, nu={nu}, "
-            f"horizon={N} in {step * per} bytes of shared memory (limit "
-            f"{limit}): use tier='instance_ops' or tier='scan'")
-    return G, ipb, ipb * per
+            f"the hetero kernels' knots and rows for nx={nx}, nu={nu}, "
+            f"horizon={N}, {nc} cones need {threads // G * per} bytes of "
+            f"shared memory per block (limit {limit}): use "
+            f"tier=\"instance_ops\", which runs any size")
+    return {"kernel": (f"compiled {nx}/{nu}" if (nx, nu) in HETERO_SHAPES
+                       else "run-time"),
+            "G": G, "rows_per_lane": rows_per_lane, "threads": threads,
+            "instances_per_block": threads // G,
+            "smem_bytes": threads // G * per, "bytes_per_instance": per}
+
+
+def hetero_resident(nx: int, nu: int, N: int, nc: int = 0,
+                    adaptive: bool = True, device: Any = "cuda") -> int:
+    """Blocks of the hetero kernel :func:`hetero_plan` picks that one SM
+    holds at once (the CUDA occupancy query). The kernels launch that many
+    blocks an SM at most (persistent blocks), so a batch past
+    ``this x SMs x instances_per_block`` slots refills them from the work
+    counter."""
+    dev = torch.device(device)
+    props = torch.cuda.get_device_properties(dev)
+    limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
+    plan = hetero_plan(nx, nu, N, nc, adaptive, limit)
+    with torch.cuda.device(dev):
+        n = _library().atm_hetero_resident(nx, nu, N, nc, int(bool(adaptive)),
+                                           plan["threads"])
+    if n < 1:
+        raise RuntimeError(f"hetero_resident: the occupancy query failed "
+                           f"({n})")
+    return n
+
+
+def hetero_slots(nx: int, nu: int, N: int, nc: int = 0,
+                 adaptive: bool = True, device: Any = "cuda") -> int:
+    """Instances the card holds at once for a launch of these sizes; a batch
+    past it refills the slots (``batch - this`` refills)."""
+    dev = torch.device(device)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = hetero_plan(nx, nu, N, nc, adaptive)
+    return (hetero_resident(nx, nu, N, nc, adaptive, dev) * n_sm
+            * plan["instances_per_block"])
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Tensor:
+    """The operand as the kernels read it: on ``device``, float32, of
+    ``shape``, contiguous and 16-byte aligned (a view off a 16-byte
+    boundary is copied)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor")
     if t.device != device:
@@ -571,7 +639,8 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Tensor:
         raise TypeError(f"{name} is {t.dtype}: the CUDA kernels are float32")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    return t.contiguous()
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _cone_table(cones, nx: int, nu: int, device):
@@ -637,7 +706,8 @@ def hetero_solve(
     per-instance residual stats.
 
     Tensors on the CPU go through :func:`hetero_solve_plain`; tensors on a
-    CUDA device launch the kernel (float32, ``nx, nu <= 32``) or raise.
+    CUDA device launch the kernel (float32, any size whose instance fits a
+    block's shared memory: :func:`hetero_plan`) or raise.
     """
     _check_cone_args(cones, cone_params, cone_masks)
     adaptive = check_termination > 0
@@ -659,7 +729,7 @@ def hetero_solve(
     nc = nc_u + nc_x
     props = torch.cuda.get_device_properties(dev)
     limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
-    G, ipb, smem = launch_geometry(hp.dims, nc, limit)
+    plan = hetero_plan(nx, nu, N, nc, adaptive, limit)
     c = lambda name, t, shape: _check(name, t, shape, dev)
     ops = [
         c("x0", x0, (Bn, nx)), c("hp.A", hp.A, (Bn, nx, nx)),
@@ -686,6 +756,7 @@ def hetero_solve(
     d, y, g, z, v = (new(Bn, m, nu), new(Bn, m, nu), new(Bn, N, nx),
                      new(Bn, m, nu), new(Bn, N, nx))
     stats = new(Bn, 8)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.atm_hetero_solve(
@@ -695,11 +766,11 @@ def hetero_solve(
             None if ctab is None else ctab.data_ptr(), nc_u, nc_x,
             None if cone_params is None else cone_params.data_ptr(),
             None if cone_masks is None else cone_masks.data_ptr(),
-            Bn, nx, nu, N, int(max_iter),
+            counter.data_ptr(), Bn, nx, nu, N, int(max_iter),
             int(check_termination) if adaptive else 0,
             int(bool(en_input_bound)), int(bool(en_state_bound)),
-            float(abs_pri_tol), float(abs_dua_tol), ipb, smem,
-            torch.cuda.current_stream().cuda_stream)
+            float(abs_pri_tol), float(abs_dua_tol), plan["threads"],
+            plan["smem_bytes"], torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "hetero_solve")
     LAUNCH_COUNTS["hetero_solve_adaptive" if adaptive
                   else "hetero_solve_fixed"] += 1

@@ -575,7 +575,9 @@ def main() -> None:
                if "registers" in ln or "spill" in ln]
         for name in ("hetero_admm", "stream_admm")}
     hstream_ptxas = ptxas_per_kernel(_build.build_log("stream_admm"))
+    hetero_ptxas = ptxas_per_kernel(_build.build_log("hetero_admm"))
     emit("build", seconds=round(_build.last_build_seconds, 2), ptxas=ptxas,
+         hetero_kernels=hetero_ptxas,
          fused_kernels=ptxas_per_kernel(_build.build_log("fused_admm")),
          riccati_kernels=ptxas_per_kernel(_build.build_log("riccati")),
          shared_stream_kernels=ptxas_per_kernel(
@@ -1239,6 +1241,32 @@ def main() -> None:
         return ha.pad_hetero_from_plants(prob_b.A, prob_b.B, prob_b.Q,
                                          prob_b.R, rho, prob_b)[0]
 
+    def random_fleet(batch, nx, nu, N, seed):
+        """Random plants of any size (spectral radius 0.95), per-instance
+        input bounds, a small reference, caches from the batched tensor
+        code; ``(hp, x0s)``."""
+        A_, B_, Q_, R_, rho_ = plants(batch, nx, nu, seed=seed)
+        rng = np.random.default_rng(seed)
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        lim = t(0.5 + rng.random((batch, N - 1, nu)))
+        prob_b = atm.Problem(
+            A=A_, B=B_, Q=Q_, R=R_, u_min=-lim, u_max=lim,
+            x_min=t(np.full((batch, N, nx), -5.0)),
+            x_max=t(np.full((batch, N, nx), 5.0)),
+            Xref=t(0.1 * rng.standard_normal((batch, N, nx))),
+            Uref=t(np.zeros((batch, N - 1, nu))))
+        hp = ha.pad_hetero_from_plants(A_, B_, Q_, R_, rho_, prob_b,
+                                       riccati="vmap")[0]
+        return hp, t(rng.standard_normal((batch, nx)))
+
+    # ten cones, one with a ten-entry ball (the cones overlap, so their
+    # composition is held against the plain version only)
+    ten_cones = ConeSet(
+        input_cones=tuple(Cone((i,), (i + 1) % 4, 2.0, 1.0)
+                          for i in range(4)),
+        state_cones=(Cone(tuple(range(10)), 10, 5.0, 1.0),)
+        + tuple(Cone((k,), k + 1, 3.0, 2.0) for k in range(5)))
+
     def geometry_excess(Z, geometry):
         """Worst violation of per-instance cones on slacks ``Z (B, K, nu)``:
         ball mask ``(B, nu)``, axis index ``(B,)``, mu ``(B,)``, shift."""
@@ -1269,19 +1297,30 @@ def main() -> None:
     # warm start of family (a): twelve adaptive ticks of the plain mission
     xa_w, _us, ca_w = plain_mission(hp_a, fam_a[0], fam_a[2], 12,
                                     max_iter=100, check_termination=1)
+    # (d, e) past the old lane groups (the run-time body: a lane owns 2 and
+    # 3 of the 52 and 66 rows) and (f) ten cones on the compiled 12/4 body,
+    # random plants, 40 iterations
+    hp_d, xs_d = random_fleet(B, 40, 12, 10, seed=5)
+    hp_e, xs_e = random_fleet(B, 33, 33, 10, seed=6)
+    hp_f, xs_f = random_fleet(B, 12, 4, 10, seed=7)
     hcases = [("a robust 12/4/10", hp_a, fam_a[2], {}, None, None),
               ("a robust 12/4/10 warm", hp_a, xa_w, {}, ca_w.reset_duals(),
                None),
               ("b fleet_sweep 8/3/10 cones", hp_b, fam_b[2], fam_b[3], None,
                fam_b[4]),
-              ("c ragged 5/2/7", hp_c, fam_c[2], {}, None, None)]
+              ("c ragged 5/2/7", hp_c, fam_c[2], {}, None, None),
+              ("d random 40/12/10", hp_d, xs_d, {}, None, None),
+              ("e random 33/33/10", hp_e, xs_e, {}, None, None),
+              ("f random 12/4/10 ten cones", hp_f, xs_f,
+               {"cones": ten_cones}, None, None)]
     for label, hp, xs, extra, cy, geometry in hcases:
         cy = ha.HeteroCarry.zeros(hp) if cy is None else cy
         rho_max = float(hp.rho.max())
-        modes = [("K7 fixed-100", dict(max_iter=100), 0),
-                 ("K8 check=1", dict(max_iter=100, check_termination=1,
+        it = 40 if label[0] in "def" else 100
+        modes = [(f"K7 fixed-{it}", dict(max_iter=it), 0),
+                 ("K8 check=1", dict(max_iter=it, check_termination=1,
                                      abs_pri_tol=1e-3, abs_dua_tol=1e-3), 1),
-                 ("K8 check=5", dict(max_iter=100, check_termination=5,
+                 ("K8 check=5", dict(max_iter=it, check_termination=5,
                                      abs_pri_tol=1e-3, abs_dua_tol=1e-3), 5)]
         if label.endswith("warm"):
             modes = modes[1:2]
@@ -1297,8 +1336,12 @@ def main() -> None:
             case = arbitrated(
                 f"{mode} {label}", as_flat(got), as_flat(want),
                 as_flat(ref64), check, rho_max,
-                lambda: plain_on_cpu(xs, cy, hp, **kw, **extra))
+                lambda: plain_on_cpu(xs, cy, hp, **kw, **extra),
+                max_iter=kw["max_iter"])
             case["solved_share"] = float(got.stats[:, 1].mean())
+            case["plan"] = ha.hetero_plan(*hp.dims, nc=len(
+                extra["cones"].input_cones) + len(extra["cones"].state_cones)
+                if "cones" in extra else 0, adaptive=check > 0)
             if geometry is not None:
                 case["cone_excess"] = geometry_excess(got.carry.z, geometry)
                 if not case["cone_excess"] <= CONE_TOL:
@@ -1306,6 +1349,54 @@ def main() -> None:
                         f"{mode} {label}: final slack violates its cone by "
                         f"{case['cone_excess']}")
             het_cases.append(case)
+    # K7/K8's slot refills: a batch a quarter past the instances the card
+    # holds at once (the compiled 12/4 body on the robust family, the
+    # run-time one at 33/33/10), so slots retire and take new instances
+    # from the work counter; against the plain version, and a permuted
+    # batch bit for bit
+    for label, dims_r in (("12/4/10", (12, 4, 10)), ("33/33/10",
+                                                      (33, 33, 10))):
+        slots = ha.hetero_slots(*dims_r)
+        RB = slots + slots // 4
+        if dims_r[0] == 12:
+            fr = robust_family(RB, seed=4)
+            hp_r, xs_r = hetero_of(fr[0], fr[1]), fr[2]
+        else:
+            hp_r, xs_r = random_fleet(RB, *dims_r, seed=8)
+        cy_r = ha.HeteroCarry.zeros(hp_r)
+        perm_r = torch.as_tensor(np.random.default_rng(8).permutation(RB),
+                                 device=dev)
+        inv_r = torch.argsort(perm_r)
+        hp_p, cy_p, xs_p, _cp, _cm = ha.gather_hetero(hp_r, cy_r, xs_r,
+                                                      perm_r)
+        fields = lambda r: (r.U, r.X, r.stats) + tuple(r.carry)
+        for mode, kw, check in (
+                ("K7 fixed-40", dict(max_iter=40), 0),
+                ("K8 check=1", dict(max_iter=100, check_termination=1,
+                                    abs_pri_tol=1e-3, abs_dua_tol=1e-3), 1)):
+            got = ha.hetero_solve(xs_r, cy_r, hp_r, **kw)
+            want = ha.hetero_solve_plain(xs_r, cy_r, hp_r, **kw)
+            ref64 = lambda: as_flat(ha.hetero_solve_plain(
+                xs_r.double(), ha.HeteroCarry(*(a.double() for a in cy_r)),
+                hp_r.to(dtype=torch.float64), **kw))
+            case = arbitrated(
+                f"{mode} slot refills {label}", as_flat(got), as_flat(want),
+                ref64, check, float(hp_r.rho.max()),
+                lambda: plain_on_cpu(xs_r, cy_r, hp_r, **kw),
+                max_iter=kw["max_iter"])
+            again = ha.hetero_solve(xs_p, cy_p, hp_p, **kw)
+            exact = all(torch.equal(a, b[inv_r]) for a, b in zip(
+                fields(got), fields(again)))
+            its = got.stats[:, 0]
+            case.update(slots=slots, batch=RB, refills=RB - slots,
+                        permuted_bit_exact=exact,
+                        iters_min=float(its.min()),
+                        iters_max=float(its.max()))
+            if not exact:
+                case["failures"].append(f"{mode} slot refills {label}: a "
+                                        "permuted batch changes the results")
+            het_cases.append(case)
+        del hp_r, xs_r, cy_r, hp_p, cy_p, xs_p
     torch.cuda.synchronize()
     emit("kernels_hetero", batch=B, cases=het_cases)
     raise_failures(het_cases)
@@ -1629,6 +1720,21 @@ def main() -> None:
         lambda g: g.stats[:, 0].sum(), MAIN_BATCH, source="hetero_admm.cu",
         bound=lambda g: hetero_bound(hdims, float(g.stats[:, 0].sum()),
                                      MAIN_BATCH))
+    # K7/K8's geometry: registers, blocks an SM, the slots the card holds
+    # and the refills a batch of 65,536 takes
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for row_, adaptive in ((kernels[-2], False), (kernels[-1], True)):
+        plan = ha.hetero_plan(*hdims, adaptive=adaptive)
+        per_sm = ha.hetero_resident(*hdims, adaptive=adaptive)
+        slots = per_sm * n_sm * plan["instances_per_block"]
+        label = f"hetero_kernel<12,4,{int(adaptive)},0>"
+        row_.update(
+            registers=next((r.get("registers") for r in hetero_ptxas
+                            if r["kernel"] == label), None),
+            threads_per_block=plan["threads"],
+            instances_per_block=plan["instances_per_block"],
+            resident_blocks_per_sm=per_sm, slots=slots,
+            refills=max(0, MAIN_BATCH - slots))
     del fam_m, hp_m, hcold_m, xm_w, cm_w
 
     # ------------------------------------------------------------ main path
@@ -2155,11 +2261,6 @@ def main() -> None:
     # one with a ten-entry ball, on a random 12/4 plant at N=64 (the cones
     # overlap, so their composition is held against the plain version
     # only); the plan (body, knots per staged block, shared memory) beside
-    ten_cones = ConeSet(
-        input_cones=tuple(Cone((i,), (i + 1) % 4, 2.0, 1.0)
-                          for i in range(4)),
-        state_cones=(Cone(tuple(range(10)), 10, 5.0, 1.0),)
-        + tuple(Cone((k,), k + 1, 3.0, 2.0) for k in range(5)))
     for label, (wx, wu, wN), extra in (
             ("random 40/12/64", (40, 12, 64), {}),
             ("random 33/33/16", (33, 33, 16), {}),

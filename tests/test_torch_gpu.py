@@ -579,7 +579,8 @@ def _assert_hetero_close(got, want, min_agree=0.99):
 
 
 @pytest.mark.parametrize("dims", [(12, 4, 10), (8, 3, 10), (5, 2, 7),
-                                  (20, 6, 5), (1, 1, 3)])
+                                  (20, 6, 5), (1, 1, 3), (40, 12, 10),
+                                  (33, 33, 10)])
 @pytest.mark.parametrize("mode", ["fixed", "adaptive"])
 def test_hetero_kernels_match_plain(card, dims, mode):
     from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
@@ -638,12 +639,72 @@ def test_hetero_cascade_is_bit_exact_on_the_card(card):
 
 
 def test_hetero_kernel_refuses_large_sizes(card):
+    """Any nx, nu run (a lane owns several rows past 32); the kernels refuse
+    only where one instance outgrows a block's shared memory, naming the
+    bytes and the tier that runs any size."""
     from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
 
     hp, x0 = _fleet(4, 3, 2, 5)
-    big = hp.replace(dims=(33, 2, 5))
-    with pytest.raises(ValueError, match="instance_ops"):
+    big = hp.replace(dims=(120, 60, 10))
+    with pytest.raises(ValueError, match=r"need \d+ bytes.*instance_ops"):
         ha.hetero_solve(x0, ha.HeteroCarry.zeros(hp), big)
+
+
+def _past_the_slots(nx, nu, N, seed):
+    """A fleet a quarter past the instances the card holds at once, so
+    slots retire and take new instances from the work counter."""
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+
+    slots = ha.hetero_slots(nx, nu, N)
+    hp, x0 = _fleet(slots + slots // 4, nx, nu, N, seed=seed)
+    return hp, x0, slots
+
+
+@pytest.mark.parametrize("dims", [(12, 4, 10), (8, 3, 10), (33, 33, 10)],
+                         ids=["12/4/10", "8/3/10", "33/33/10"])
+def test_hetero_kernels_are_bit_exact_under_a_permuted_batch(card, dims):
+    """K7/K8's slots (the compiled 12/4 body and the run-time one), with a
+    batch past the slots the card holds: a permuted batch gives the
+    permuted result bit for bit, and so does a second launch (slots take
+    other instances in another order)."""
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+
+    hp, x0, slots = _past_the_slots(*dims, seed=8)
+    B = x0.shape[0]
+    assert B > slots
+    cold = ha.HeteroCarry.zeros(hp)
+    perm = torch.as_tensor(np.random.default_rng(9).permutation(B),
+                           device="cuda")
+    inv = torch.argsort(perm)
+    hp_p, cold_p, x0_p, _cp, _cm = ha.gather_hetero(hp, cold, x0, perm)
+    for kw in (dict(max_iter=30),
+               dict(max_iter=60, check_termination=1, abs_pri_tol=1e-3,
+                    abs_dua_tol=1e-3)):
+        one = _solve_fields(ha.hetero_solve(x0, cold, hp, **kw))
+        again = _solve_fields(ha.hetero_solve(x0_p, cold_p, hp_p, **kw))
+        assert all(torch.equal(a, b[inv]) for a, b in zip(one, again))
+        twice = _solve_fields(ha.hetero_solve(x0, cold, hp, **kw))
+        assert all(torch.equal(a, b) for a, b in zip(one, twice))
+
+
+def test_hetero_cascade_relaunch_is_bit_exact_with_refills(card):
+    """The compaction cascade (segments of 10 iterations, survivors gathered
+    and relaunched) against one adaptive call, on a batch past the slots:
+    the same bits."""
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+    from accelerated_tinympc_tpu_torch.solver.cascade import (
+        hetero_cascade_solve,
+    )
+
+    hp, x0, _slots = _past_the_slots(12, 4, 10, seed=3)
+    cold = ha.HeteroCarry.zeros(hp)
+    kw = dict(check_termination=1, abs_pri_tol=1e-3, abs_dua_tol=1e-3)
+    one = ha.hetero_solve(x0, cold, hp, max_iter=100, **kw)
+    U, X, stats, carry = hetero_cascade_solve(
+        x0, cold, hp, max_iter=100, segment_iters=10, **kw)
+    assert torch.equal(U, one.U) and torch.equal(X, one.X)
+    assert torch.equal(stats, one.stats)
+    assert all(torch.equal(a, b) for a, b in zip(carry, one.carry))
 
 
 # ------------------------------------------------------ long horizons ----

@@ -35,7 +35,8 @@ from accelerated_tinympc_tpu_torch.solver.batched import (
 )
 from accelerated_tinympc_tpu_torch.solver.cascade import hetero_cascade_solve
 
-from torch_parity_utils import DEV, fields_of, to_np
+from accelerated_tinympc_tpu.types import SOLVED
+from torch_parity_utils import DEV, assert_fields_close, fields_of, to_np
 
 B, NX, NU, N = 6, 5, 2, 5      # a ragged shape: no dimension a power of two
 ATOL = 1e-4
@@ -293,6 +294,80 @@ def test_float64_schedules_equal_jax_scan_tier(ce):
     np.testing.assert_allclose(to_np(sb.x), to_np(want.x), atol=1e-9)
 
 
+def _wide_parts(nx, nu, n, batch, seed):
+    """Distinct random plants of any size (float64): batch-leading JAX
+    Problem/Cache pytrees, per-instance rho and bounds."""
+    problems, caches = [], []
+    for k in range(batch):
+        rng = np.random.default_rng(seed + k)
+        A = np.eye(nx) + 0.02 * rng.standard_normal((nx, nx))
+        Bm = 0.2 * rng.standard_normal((nx, nu))
+        Q = np.abs(rng.standard_normal(nx)) + 1.0
+        R = np.abs(rng.standard_normal(nu)) + 1.0
+        u = np.full((n - 1, nu), 0.7 + 0.1 * k)
+        caches.append(riccati_cache_j(A, Bm, Q, R, rho=1.0 + 0.5 * k,
+                                      dtype=np.float64))
+        problems.append(atm_j.Problem(
+            A=A, B=Bm, Q=Q, R=R, u_min=-u, u_max=u,
+            x_min=np.full((n, nx), -4.0), x_max=np.full((n, nx), 4.0),
+            Xref=0.1 * rng.standard_normal((n, nx)),
+            Uref=np.zeros((n - 1, nu))))
+    stack = lambda trees: jax.tree.map(
+        lambda *xs: jnp.stack([jnp.asarray(x, jnp.float64) for x in xs]),
+        *trees)
+    return stack(problems), stack(caches)
+
+
+@pytest.mark.parametrize("dims", [(40, 12, 10), (33, 33, 10)],
+                         ids=["40/12/10", "33/33/10"])
+def test_hetero_past_the_lane_group_limits_f64(dims):
+    """What the hetero kernels take since a lane owns several rows: plants
+    past 32 states or inputs. The plain version (the kernels' yardstick and
+    the CPU path) against the JAX scan tier with per-instance plants, both
+    in float64, fixed 25 iterations and adaptive (check 2): every field to
+    1e-9 relative to its largest entry, equal counts and solved flags."""
+    nx, nu, n = dims
+    batch = 3
+    with jax.enable_x64(True):
+        pj, cjx = _wide_parts(nx, nu, n, batch, seed=11)
+        x0s = np.asarray([0.05, 0.4, 2.0])[:, None] * \
+            np.random.default_rng(12).standard_normal((batch, nx))
+        want = {}
+        for check, it, tol in ((0, 25, 0.0), (2, 60, 5e-3)):
+            s = atm_j.Settings(max_iter=it, check_termination=check or it,
+                               abs_pri_tol=tol, abs_dua_tol=tol)
+            st = init_batched_j(batch, nx, nu, n, jnp.float64)
+            st = st.replace(x=st.x.at[:, 0, :].set(jnp.asarray(x0s)))
+            want[check] = jax.tree.map(np.asarray, solve_batched_j(
+                st, pj, cjx, s, problem_axes=0, cache_axes=0))
+        pj, cjx = jax.tree.map(np.asarray, (pj, cjx))
+    pt = convert.problem_from_numpy(fields_of(pj), dtype=torch.float64,
+                                    device=DEV)
+    ct = convert.cache_from_numpy(fields_of(cjx), dtype=torch.float64,
+                                  device=DEV)
+    hp = ht.pad_hetero_problem(pt, ct, torch.float64)
+    assert hp.dims == dims
+    for check, it, tol in ((0, 25, 0.0), (2, 60, 5e-3)):
+        w = want[check]
+        res = ht.hetero_solve_plain(
+            torch.as_tensor(x0s), ht.HeteroCarry.zeros(hp), hp, max_iter=it,
+            check_termination=check, abs_pri_tol=tol, abs_dua_tol=tol)
+        np.testing.assert_array_equal(to_np(res.stats[:, 0]).astype(int),
+                                      w.iter.astype(int))
+        if check:
+            np.testing.assert_array_equal(to_np(res.stats[:, 1]) > 0.5,
+                                          w.status == SOLVED)
+        got = dict(U=res.U, X=res.X, **res.carry._asdict(),
+                   res=res.stats[:, 2:6])
+        ref = dict(U=w.u, X=w.x, d=w.d, y=w.y, g=w.g, z=w.z, v=w.v,
+                   res=np.stack([w.primal_residual_state,
+                                 w.dual_residual_state,
+                                 w.primal_residual_input,
+                                 w.dual_residual_input], 1))
+        assert_fields_close({k: to_np(v) for k, v in got.items()}, ref,
+                            atol=1e-9, scaled=True)
+
+
 def test_solve_batched_per_instance_float32_matches_jax():
     pj, cjx, pt, ct, x0, tdt = _scan_pair(False)
     s = atm_j.Settings(max_iter=40, check_termination=2, abs_pri_tol=5e-3,
@@ -409,12 +484,38 @@ def test_gather_repack_and_edge_cases(data):
         ht.hetero_solve(x, cold, hp, max_iter=0, check_termination=1)
     with pytest.raises(ValueError, match="without cones"):
         ht.hetero_solve(x, cold, hp, cone_params=torch.zeros(B, 1, 2))
-    # kernel limits name the tiers that take larger plants
-    with pytest.raises(ValueError, match="instance_ops"):
-        ht.launch_geometry((33, 4, 10))
-    with pytest.raises(ValueError, match="instance_ops"):
-        ht.launch_geometry((32, 32, 400))
-    assert ht.launch_geometry((12, 4, 10)) == (16, 8, 8 * 4 * 1092)
+    # the kernels' plan: past 32 rows a lane owns several; past shared
+    # memory a refusal that names the bytes and the tier taking any size
+    for dims, rows in (((33, 4, 10), 2), ((40, 12, 10), 2),
+                       ((33, 33, 10), 3)):
+        plan = ht.hetero_plan(*dims)
+        assert plan["kernel"] == "run-time" and plan["G"] == 32
+        assert plan["rows_per_lane"] == rows
+        assert plan["bytes_per_instance"] == 4 * ht.inst_floats(*dims, 0)
+        assert plan["bytes_per_instance"] % 4 == 0
+        assert plan["smem_bytes"] == (plan["instances_per_block"]
+                                      * plan["bytes_per_instance"])
+        assert plan["smem_bytes"] <= ht.SMEM_LIMIT_BYTES
+    need = 4 * ht.inst_floats(32, 32, 400, 0)
+    with pytest.raises(ValueError,
+                       match=f'need {need} bytes.*tier="instance_ops"'):
+        ht.hetero_plan(32, 32, 400)
+    # 12/4 runs the compiled body: per instance p|w twice and pterm, then
+    # per knot a record of seven stacked rows of 16 (two slack rows), no
+    # plant rows; the slice padded to 16 floats past a multiple of 32, so
+    # that the two instances of a warp use different banks
+    plan = ht.hetero_plan(12, 4, 10)
+    assert plan["kernel"] == "compiled 12/4" and plan["G"] == 16
+    assert ht.inst_floats(12, 4, 10, 0) == 2 * 16 + 12 + 10 * 7 * 16 == 1_164
+    assert plan["bytes_per_instance"] == 4 * 1_168
+    assert plan["instances_per_block"] == 8
+    assert ht.inst_floats(12, 4, 10, 0, adaptive=False) \
+        == 1_164 - 10 * 16              # one slack row a knot
+    # 8/3 (the design sweep's family) too, its stacked rows padded to 12
+    assert ht.hetero_plan(8, 3, 10)["kernel"] == "compiled 8/3"
+    assert ht.inst_floats(8, 3, 10, 0) == 2 * 12 + 8 + 10 * 7 * 12
+    assert ht.inst_stride(1_004, 16) % 32 == 16
+    assert ht.inst_stride(100, 8) % 32 == 8 and ht.inst_stride(99, 32) == 99
 
 
 def test_pad_from_plants_routes_as_jax(data):
