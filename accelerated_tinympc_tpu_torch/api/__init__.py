@@ -1,5 +1,5 @@
 """Public API layer: the high-level solver object, the fleet of distinct
-plants, and the receding-horizon MPC rollouts."""
+plants, the receding-horizon MPC rollouts, and AOT export."""
 
 from .solver import TinyMPC  # noqa: F401
 from .fleet import FLEET_TIERS, TinyMPCFleet  # noqa: F401
@@ -10,4 +10,10 @@ from .mpc import (  # noqa: F401
     fused_mpc_rollout,
     mpc_rollout,
     tracking_error,
+)
+from .export import (  # noqa: F401
+    export_batched_solve,
+    export_fused_solve,
+    load_exported,
+    save_exported,
 )

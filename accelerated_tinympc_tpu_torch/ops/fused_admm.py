@@ -59,6 +59,7 @@ import torch
 
 from ..precompute import CondensedOperators
 from ..types import DEFAULT_DEVICE, Cache, Problem, _Struct
+from ..utils.debugging import check_outputs
 
 torch.backends.cuda.matmul.allow_tf32 = False  # full-float32 products
 
@@ -697,22 +698,24 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Tensor:
     return t.contiguous()
 
 
-def _kernel_operands(pp: PaddedProblem, device) -> tuple:
-    """Wf, Wb, Wx (padded, :class:`PaddedProblem`), lo, hi, checked."""
-    nx, nu, N = pp.dims
+def _checked_operands(W_f, W_b, W_x, lo, hi, dims, device) -> tuple:
+    """``W_f, W_b, W_x`` (padded to float4 rows, :class:`PaddedProblem`),
+    ``lo``, ``hi``, checked against ``dims`` and ``device``: the kernels
+    read them through raw pointers at these shapes."""
+    nx, nu, N = dims
     r4 = lambda n: (n + 3) & ~3
-    Du, Dz = pp.Du, pp.Dx + pp.Du
+    Du, Dz = (N - 1) * nu, N * nx + (N - 1) * nu
     DuP, DzP = r4(Du), r4(Dz)
     return (
-        _check("pp.W_f", pp.W_f, (DuP, DzP), device),
-        _check("pp.W_b", pp.W_b, (DzP, DuP), device),
-        _check("pp.W_x", pp.W_x, (nx, DzP), device),
-        _check("pp.lo", pp.lo, (Dz,), device),
-        _check("pp.hi", pp.hi, (Dz,), device),
+        _check("W_f", W_f, (DuP, DzP), device),
+        _check("W_b", W_b, (DzP, DuP), device),
+        _check("W_x", W_x, (nx, DzP), device),
+        _check("lo", lo, (Dz,), device),
+        _check("hi", hi, (Dz,), device),
     )
 
 
-def _geometry(pp: PaddedProblem, B: int, device, batch_tile, threads,
+def _geometry(dims: tuple, B: int, device, batch_tile, threads,
               ncp: int = 0, placement: str | None = None,
               register_tile: int | None = None):
     """``(tile, threads, smem bytes, placement, register tile)`` of one
@@ -720,16 +723,16 @@ def _geometry(pp: PaddedProblem, B: int, device, batch_tile, threads,
     tile :func:`choose_register_tile`'s unless given."""
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
-    nx, nu, N = pp.dims
+    nx, nu, N = dims
     if placement is None:
-        placement = choose_placement(pp.dims, limit, ncp)
-    ri = register_tile or choose_register_tile(pp.dims, limit, ncp, placement)
+        placement = choose_placement(dims, limit, ncp)
+    ri = register_tile or choose_register_tile(dims, limit, ncp, placement)
     if batch_tile is None:
-        tile = choose_tile(pp.dims, B, props.multi_processor_count, limit, ncp,
+        tile = choose_tile(dims, B, props.multi_processor_count, limit, ncp,
                            placement, ri)
     else:
         tile = max(ri, -(-int(batch_tile) // ri) * ri)
-        tile = min(tile, choose_tile(pp.dims, 10 ** 9, 1, limit, ncp,
+        tile = min(tile, choose_tile(dims, 10 ** 9, 1, limit, ncp,
                                      placement, ri))
     if threads is None:
         threads = (MAX_THREADS if ri != REGISTER_TILE
@@ -839,7 +842,7 @@ def fused_solve(
         raise ValueError("the fused tier runs at least one iteration; "
                          "use the scan tier for max_iter=0")
     if not x0.is_cuda:
-        return fused_solve_plain(
+        return check_outputs(fused_solve_plain(
             x0, carry, pp, max_iter=max_iter,
             check_termination=check_termination,
             abs_pri_tol=abs_pri_tol, abs_dua_tol=abs_dua_tol,
@@ -847,14 +850,38 @@ def fused_solve(
             alpha=alpha, cone_ops=cone_ops,
             cone_mu_u=cone_mu_u, cone_shift_u=cone_shift_u,
             cone_mu_x=cone_mu_x, cone_shift_x=cone_shift_x,
-        )
+        ), "fused_solve")
 
-    nx, nu, N = pp.dims
-    Dx, Du = pp.Dx, pp.Du
     B = x0.shape[0]
-    dev = x0.device
     mu_rows, shift_rows = _cone_rows(
         cone_ops, cone_mu_u, cone_shift_u, cone_mu_x, cone_shift_x, B)
+    with torch.no_grad():
+        const_d = fold_const_d(pp, xref_q, pterm_c)
+    return check_outputs(_launch_solve(
+        x0, carry, pp.W_f, pp.W_b, pp.W_x, const_d, pp.lo, pp.hi, pp.dims,
+        pp.rho_f,
+        max_iter=max_iter, check_termination=check_termination,
+        warmup_iters=warmup_iters, abs_pri_tol=abs_pri_tol,
+        abs_dua_tol=abs_dua_tol, alpha=alpha, batch_tile=batch_tile,
+        threads=threads, placement=placement, register_tile=register_tile,
+        cone_ops=cone_ops, mu_rows=mu_rows, shift_rows=shift_rows,
+    ), "fused_solve")
+
+
+def _launch_solve(
+    x0, carry, W_f, W_b, W_x, const_d, lo, hi, dims, rho_f, *, max_iter,
+    check_termination, warmup_iters, abs_pri_tol, abs_dua_tol, alpha,
+    batch_tile, threads, placement, register_tile, cone_ops=None,
+    mu_rows=None, shift_rows=None,
+) -> FusedResult:
+    """One launch of K1 (``check_termination == 0``) or K2 on CUDA tensors:
+    checks the operands, sizes the launch (:func:`_geometry`), zeroes the
+    work counter, counts the launch. :func:`fused_solve` and the
+    ``atm_torch::fused_solve`` op both launch through here."""
+    nx, nu, N = dims
+    Dx, Du = N * nx, (N - 1) * nu
+    B = x0.shape[0]
+    dev = x0.device
     cone_idx, cone_par, nc_u, nc_x, _alive = _cone_table(cone_ops, dev)
     coned = cone_idx is not None
     ncp = 0
@@ -868,12 +895,11 @@ def fused_solve(
     G0 = _check("carry.G", carry.G, (B, Dx), dev)
     Z0 = _check("carry.Z", carry.Z, (B, Du), dev)
     V0 = _check("carry.V", carry.V, (B, Dx), dev)
-    with torch.no_grad():
-        const_d = _check("const_d", fold_const_d(pp, xref_q, pterm_c),
-                         (1, Du), dev)
+    const_d = _check("const_d", const_d, (1, Du), dev)
+    W_f, W_b, W_x, lo, hi = _checked_operands(W_f, W_b, W_x, lo, hi, dims,
+                                              dev)
     tile, threads, smem, placement, ri = _geometry(
-        pp, B, dev, batch_tile, threads, ncp, placement, register_tile)
-    W_f, W_b, W_x, lo, hi = _kernel_operands(pp, dev)
+        dims, B, dev, batch_tile, threads, ncp, placement, register_tile)
 
     new = lambda w: torch.empty((B, w), dtype=torch.float32, device=dev)
     U, X, D, Y, G, Z, V = (new(Du), new(Dx), new(Du), new(Du), new(Dx),
@@ -898,7 +924,7 @@ def fused_solve(
             B, nx, nu, N, int(max_iter),
             int(check_termination) if adaptive else 0,
             min(int(warmup_iters), int(max_iter) - 1) if adaptive else 0,
-            float(pp.rho_f), float(alpha),
+            float(rho_f), float(alpha),
             float(abs_pri_tol), float(abs_dua_tol),
             tile, threads, smem, int(placement == "device"), ri, stream,
         )
@@ -908,6 +934,89 @@ def fused_solve(
         + ("_cones" if coned else "")] += 1
     return FusedResult(
         U=U, X=X, carry=FusedCarry(D=D, Y=Y, G=G, Z=Z, V=V), stats=stats)
+
+
+# ------------------------------------------------- the torch.library op --
+# K1/K2 as an operator of its own, ``torch.ops.atm_torch.fused_solve``, so
+# that ``torch.export`` can trace a fused solve into an artifact (a ctypes
+# call is opaque to it; :mod:`..api.export`). It takes the kernel's
+# operands and scalars and returns fresh tensors ``(U, X, D, Y, G, Z, V,
+# stats)``. On CUDA tensors it is the launch of :func:`_launch_solve`; on the
+# CPU it is :func:`fused_solve_plain`. Cones are not among its arguments.
+# ``batch_tile`` -1 leaves the slots per block to the launch.
+
+_Tensors8 = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                  torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _plain_operands(W_f, W_b, W_x, lo, hi, dims, rho_f) -> PaddedProblem:
+    """The blocks of the kernel operands that :func:`fused_solve_plain`
+    reads, cut back out of ``W_f = [W_fd | W_gd]``, ``W_b = [W_q; W_r]``,
+    ``W_x = [W_fx | W_gx]``, ``lo``/``hi`` (the same values, so the same
+    products)."""
+    nx, nu, N = dims
+    Dx, Du = N * nx, (N - 1) * nu
+    Dz = Dx + Du
+    c = lambda a: a.contiguous()
+    return PaddedProblem(
+        W_fx=c(W_x[:, :Dx]), W_fd=c(W_f[:Du, :Dx]), W_gx=c(W_x[:, Dx:Dz]),
+        W_gd=c(W_f[:Du, Dx:Dz]), W_q=c(W_b[:Dx, :Du]), W_r=c(W_b[Dx:Dz, :Du]),
+        W_eq_u=None, W_ep_u=None, xref_q=None, pterm_c=None,
+        u_min=c(lo[None, Dx:]), u_max=c(hi[None, Dx:]),
+        x_min=c(lo[None, :Dx]), x_max=c(hi[None, :Dx]),
+        rho=torch.tensor(rho_f, dtype=lo.dtype, device=lo.device),
+        W_x=W_x, W_f=W_f, W_b=W_b, lo=lo, hi=hi, dims=tuple(dims),
+        rho_f=rho_f)
+
+
+def _op_result(res: FusedResult) -> _Tensors8:
+    c = res.carry
+    return (res.U, res.X, c.D, c.Y, c.G, c.Z, c.V, res.stats)
+
+
+@torch.library.custom_op("atm_torch::fused_solve", mutates_args=(),
+                         device_types="cpu")
+def fused_solve_op(
+    x0: torch.Tensor, D: torch.Tensor, Y: torch.Tensor, G: torch.Tensor,
+    Z: torch.Tensor, V: torch.Tensor, W_f: torch.Tensor, W_b: torch.Tensor,
+    W_x: torch.Tensor, const_d: torch.Tensor, lo: torch.Tensor,
+    hi: torch.Tensor, dims: list[int], rho: float, max_iter: int,
+    check_termination: int, warmup_iters: int, abs_pri_tol: float,
+    abs_dua_tol: float, alpha: float, batch_tile: int,
+) -> _Tensors8:
+    """K1/K2 as a ``torch.library`` op; this body is its CPU version, the
+    plain one."""
+    pp = _plain_operands(W_f, W_b, W_x, lo, hi, dims, rho)
+    res = fused_solve_plain(
+        x0, FusedCarry(D, Y, G, Z, V), pp, max_iter=max_iter,
+        check_termination=check_termination, abs_pri_tol=abs_pri_tol,
+        abs_dua_tol=abs_dua_tol, warmup_iters=warmup_iters, alpha=alpha,
+        const_d=const_d)
+    return _op_result(res)
+
+
+@fused_solve_op.register_kernel("cuda")
+def _fused_solve_op_cuda(x0, D, Y, G, Z, V, W_f, W_b, W_x, const_d, lo, hi,
+                         dims, rho, max_iter, check_termination, warmup_iters,
+                         abs_pri_tol, abs_dua_tol, alpha, batch_tile):
+    res = _launch_solve(
+        x0, FusedCarry(D, Y, G, Z, V), W_f, W_b, W_x, const_d, lo, hi,
+        tuple(dims), rho, max_iter=max_iter,
+        check_termination=check_termination, warmup_iters=warmup_iters,
+        abs_pri_tol=abs_pri_tol, abs_dua_tol=abs_dua_tol, alpha=alpha,
+        batch_tile=None if batch_tile < 0 else batch_tile, threads=None,
+        placement=None, register_tile=None)
+    return _op_result(res)
+
+
+@fused_solve_op.register_fake
+def _fused_solve_op_fake(x0, D, Y, G, Z, V, W_f, W_b, W_x, const_d, lo, hi,
+                         dims, rho, max_iter, check_termination, warmup_iters,
+                         abs_pri_tol, abs_dua_tol, alpha, batch_tile):
+    B = x0.shape[0]
+    return (D.new_empty(D.shape), G.new_empty(G.shape), D.new_empty(D.shape),
+            Y.new_empty(Y.shape), G.new_empty(G.shape), Z.new_empty(Z.shape),
+            V.new_empty(V.shape), x0.new_empty((B, 6)))
 
 
 def unpad_controls(result: FusedResult, pp: PaddedProblem) -> torch.Tensor:

@@ -32,6 +32,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..types import DEFAULT_DEVICE, Problem
+from ..utils.debugging import check_outputs
 from .fused_admm import (
     LAUNCH_COUNTS,
     FusedCarry,
@@ -39,9 +40,9 @@ from .fused_admm import (
     FusedResult,
     PaddedProblem,
     _check,
+    _checked_operands,
     _cone_table,
     _geometry,
-    _kernel_operands,
     _library,
     _raise_on,
     _unsupported,
@@ -197,13 +198,13 @@ def fused_rollout(
         raise ValueError(
             f"const_seq must be ({T}, {Du}), got {tuple(const_seq.shape)}")
     if not x0.is_cuda:
-        return fused_rollout_plain(
+        return check_outputs(fused_rollout_plain(
             x0, carry, pp, rops, T, max_iter=max_iter,
             check_termination=check_termination,
             abs_pri_tol=abs_pri_tol, abs_dua_tol=abs_dua_tol,
             warmup_iters=warmup_iters, const_seq=const_seq, alpha=alpha,
             cone_ops=cone_ops,
-        )
+        ), "fused_rollout")
 
     nx, nu, N = pp.dims
     Dx = pp.Dx
@@ -214,9 +215,10 @@ def fused_rollout(
     Z0 = _check("carry.Z", carry.Z, (B, Du), dev)
     V0 = _check("carry.V", carry.V, (B, Dx), dev)
     tile, threads, smem, placement, ri = _geometry(
-        pp, B, dev, batch_tile, threads, placement=placement,
+        pp.dims, B, dev, batch_tile, threads, placement=placement,
         register_tile=register_tile)
-    W_f, W_b, W_x, lo, hi = _kernel_operands(pp, dev)
+    W_f, W_b, W_x, lo, hi = _checked_operands(pp.W_f, pp.W_b, pp.W_x, pp.lo,
+                                              pp.hi, pp.dims, dev)
     A = _check("rops.A", rops.A, (nx, nx), dev)
     Bm = _check("rops.B", rops.B, (nx, nu), dev)
     if const_seq is None:
@@ -258,4 +260,6 @@ def fused_rollout(
                   + ("_cones" if cone_idx is not None else "")] += 1
     final = FusedResult(
         U=U, X=X, carry=FusedCarry(D=D, Y=Y, G=G, Z=Z, V=V), stats=stats)
-    return RolloutResult(x_final=x_final, us=us, iters=iters, final=final)
+    return check_outputs(
+        RolloutResult(x_final=x_final, us=us, iters=iters, final=final),
+        "fused_rollout")

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..types import Cache, Problem, _Struct
+from ..utils.debugging import check_outputs
 
 torch.backends.cuda.matmul.allow_tf32 = False  # full-float32 products
 
@@ -714,12 +715,12 @@ def hetero_solve(
     if adaptive and max_iter < 1:
         raise ValueError("adaptive hetero solve needs max_iter >= 1")
     if not x0.is_cuda:
-        return hetero_solve_plain(
+        return check_outputs(hetero_solve_plain(
             x0, carry, hp, max_iter=max_iter,
             check_termination=check_termination, abs_pri_tol=abs_pri_tol,
             abs_dua_tol=abs_dua_tol, en_input_bound=en_input_bound,
             en_state_bound=en_state_bound, cones=cones,
-            cone_params=cone_params, cone_masks=cone_masks)
+            cone_params=cone_params, cone_masks=cone_masks), "hetero_solve")
 
     nx, nu, N = hp.dims
     m = N - 1
@@ -774,4 +775,5 @@ def hetero_solve(
     _raise_on(err, "hetero_solve")
     LAUNCH_COUNTS["hetero_solve_adaptive" if adaptive
                   else "hetero_solve_fixed"] += 1
-    return HeteroResult(HeteroCarry(d=d, y=y, g=g, z=z, v=v), U, X, stats)
+    return check_outputs(HeteroResult(
+        HeteroCarry(d=d, y=y, g=g, z=z, v=v), U, X, stats), "hetero_solve")

@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..types import SOLVED, UNSOLVED, Cache, Problem, Settings, State
+from ..utils.debugging import check_outputs
 
 # Stated and set: no TF32 in any product of the plain tiers.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -249,9 +250,9 @@ def solve(
         if settings.check_termination <= 0:
             for _ in range(settings.max_iter):
                 state = step(state)
-            return state
+            return check_outputs(state, "solve")
         for _ in range(settings.max_iter):
             state = step(state)
             if bool((state.status == SOLVED).all()):
                 break
-        return state
+        return check_outputs(state, "solve")

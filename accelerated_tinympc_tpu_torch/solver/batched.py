@@ -20,6 +20,7 @@ from ..types import (
     DEFAULT_DEVICE, SOLVED, UNSOLVED, Cache, Problem, Settings, State,
     init_state,
 )
+from ..utils.debugging import check_outputs
 from .admm import _select, admm_iteration
 
 # Shared-vs-batched problem/cache data.
@@ -83,13 +84,13 @@ def solve_batched(
         if settings.check_termination <= 0:
             for _ in range(settings.max_iter):
                 state = iterate(state)
-            return state
+            return check_outputs(state, "solve_batched")
         for _ in range(settings.max_iter):
             done = state.status == SOLVED
             if bool(done.all()):
                 break
             state = _select(done, state, iterate(state))
-        return state
+        return check_outputs(state, "solve_batched")
 
 
 def batch_stats(state: State, settings: Settings) -> dict[str, torch.Tensor]:

@@ -82,12 +82,15 @@ def _project(v, s, mu, shift):
 def project_cone(w: torch.Tensor, cone: Cone) -> torch.Tensor:
     """Project per-knot vectors ``w (..., dim)`` onto ``cone``. Exact
     Euclidean projection over every leading axis."""
-    ball = list(cone.ball)
+    # One column at a time: an index list would become a tensor constant,
+    # which an exported loop body cannot hold (api/export.py).
+    v = torch.stack([w[..., i] for i in cone.ball], dim=-1)
     v_new, s_new = _project(
-        w[..., ball], w[..., cone.axis] + cone.shift, cone.mu, cone.shift)
+        v, w[..., cone.axis] + cone.shift, cone.mu, cone.shift)
     out = w.clone()
     out[..., cone.axis] = s_new
-    out[..., ball] = v_new
+    for j, i in enumerate(cone.ball):
+        out[..., i] = v_new[..., j]
     return out
 
 

@@ -31,6 +31,11 @@ for batches 512 and 8,192 with both compaction cascades, ``TinyMPC(tier=
 "block")`` against the scan tier, and ``TinyMPCFleet`` on the hstream and
 block tiers at N=256 for 8,192 perturbed quadrotors; the long-horizon
 kernels are held against their plain versions at batch 1,027 first.
+Then the fifth (``fifth_path``): the fused solve exported through the
+``atm_torch::fused_solve`` op (K1 fixed, K2 warm) at batch 65,536, loaded
+and held bit for bit against ``fused_solve``, timed beside it and traced
+with ``torch.profiler``; the scan tier exported at 256; a serialization
+round trip on the card; the six ``examples/torch_*.py`` at their defaults.
 Every phase prints one JSON line with the seconds since the start;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the exit code is non-zero and no result line is printed. Without a CUDA
@@ -44,6 +49,7 @@ from __future__ import annotations
 import copy
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -53,11 +59,6 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden"
-
-# Published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
-# tensor cores, and HBM3 bandwidth. The kernels are FP32-FMA work.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 
 VAL_TOL = 1e-4   # controls and what warm-starts them (U, D, Z, us, x_final)
                  # kernel vs plain, and u0 vs the golden CSVs
@@ -317,48 +318,6 @@ def lander_cones():
     return ConeSet(input_cones=(tilt,), state_cones=(glide,))
 
 
-# ----------------------------------------------------------------- bounds --
-
-def solve_bound(dims, iters_total: float, n_solves: float, batch: int,
-                ticks: int = 0):
-    """Least time the card could take: the larger of bytes / memory rate
-    (each input read once, each output written once) and operations / FP32
-    peak. ``iters_total`` is the sum over instances (and ticks) of the
-    iterations this run's data needed; ``n_solves`` counts the hoisted x0
-    products."""
-    nx, nu, N = dims
-    Dx, Du = N * nx, (N - 1) * nu
-    flops = iters_total * 2 * (Du * Dx + Du * Du + Dx * Du + Du * Du)
-    flops += n_solves * 2 * nx * (Dx + Du)
-    flops += n_solves * 2 * nx * (nx + nu) if ticks else 0
-    carry_in = nx + 3 * Du + 2 * Dx if not ticks else nx + 2 * Du + Dx
-    out = 4 * Du + 3 * Dx + 6 + (ticks * (nu + 1) + nx if ticks else 0)
-    operators = 2 * Du * (Dx + Du) + nx * (Dx + Du) + 2 * (Dx + Du) + Du
-    nbytes = 4 * (batch * (carry_in + out) + operators + ticks * Du)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
-def riccati_bound(nx, nu, steps_total: float, batch: int, inner: int = 0,
-                  warm: bool = False):
-    """Least time for the Riccati kernels: ``steps_total`` is the sum over
-    instances of the steps this run's data needed (fixed-point steps, or
-    Newton outer steps of ``inner`` doublings each); the cache terms cost
-    about one more gain update per instance."""
-    gain = 2 * nu * nx * nx + nu * nu * nx + nu ** 3 // 3 + nu * nu * nx
-    if inner:
-        step = 2 * nx * nu * nx + inner * 3 * nx ** 3 + gain
-    else:
-        step = gain + nx * nu * nx + 2 * nx ** 3
-    flops = 2 * (steps_total * step + batch * (gain + 2 * nx * nx * nu))
-    words_in = nx * nx + nx * nu + nx + nu + 1
-    words_in += (nx * nx + nu * nx) if warm else (nu * nx if inner else 0)
-    words_out = nu * nx + 2 * nx * nx + nu * nu + nx * nu + 1
-    nbytes = 4 * batch * (words_in + words_out)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
 def ptxas_per_kernel(log: str) -> list:
     """Registers, spills and static shared memory of each kernel, from the
     ``-Xptxas -v`` lines of one build log."""
@@ -405,49 +364,238 @@ def cone_excess(W, cone, mu=None, shift=None):
 CONE_TOL = 1e-5   # every final slack satisfies every cone to this
 
 
-def hetero_bound(dims, iters_total: float, batch: int):
-    """Least time for the hetero kernels: 2 m (2 nx nu + nx^2 + nu nx + nu^2
-    + nx^2 + nx nu) FLOP per instance-iteration (forward: Kinf, A, B;
-    backward: B', Quu_inv, AmBKt, Kinf'), ``iters_total`` summed over the
-    instances as this run's data needed; bytes: the per-instance operands,
-    bounds, x0 and carry read once, outputs and carry written once."""
-    nx, nu, N = dims
-    m = N - 1
-    flops = iters_total * 2 * m * (2 * nx * nu + nx * nx + nu * nx + nu * nu
-                                   + nx * nx + nx * nu)
-    words_in = (2 * nx * nx + 2 * nx * nu + nu * nu + 2 * m * nu
-                + 3 * N * nx + 2 * nx + 1 + 3 * m * nu + 2 * N * nx)
-    words_out = m * nu + N * nx + 3 * m * nu + 2 * N * nx + 8
-    nbytes = 4 * batch * (words_in + words_out)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+# The robust sweep's closed loop on the card against its plain versions
+# (K5/K7 against the float32 plain Riccati and hetero solve, sums in
+# another order, over 80 ticks of 50 iterations), on the values it prints
+# to 4 decimals.
+ROBUST_TOL = 1e-3
 
 
-def stream_bound(dims, iters_total: float, batch: int, shared: bool):
-    """Least time for the long-horizon kernels: 2 m (4 nx nu + 2 nx^2 +
-    nu^2) FLOP per instance-iteration (``iters_total`` summed over the
-    instances as this run's data needed), bytes as for every row: x0, the
-    carry, the plant and its cache (once when shared, else per instance),
-    qc, pterm, rho and uniform bounds read once, U, X, the carry and the
-    stats written once. Also returned: the bound with the iterates streamed
-    through device memory every iteration (forward: d, y, g read, y, z, g,
-    v written; backward: y, z, g, v, qc read, d written; 7 m nu + 6 N nx
-    floats per instance-iteration), the least traffic of a design that
-    cannot hold a batch's iterates on chip."""
-    nx, nu, N = dims
-    m = N - 1
-    flops = iters_total * 2 * m * (4 * nx * nu + 2 * nx * nx + nu * nu)
-    plant = (2 * nx * nx + 2 * nx * nu + nu * nu + N * nx + nx + 1
-             + 2 * nx + 2 * nu)
-    words_in = batch * (nx + 3 * m * nu + 2 * N * nx) + (
-        1 if shared else batch) * plant
-    words_out = batch * (m * nu + N * nx + 3 * m * nu + 2 * N * nx + 8)
-    t_ops = flops / PEAK_FP32_FLOPS
-    t_bytes = 4 * (words_in + words_out) / PEAK_BYTES_PER_S
-    t_stream = 4 * iters_total * (7 * m * nu + 6 * N * nx) / PEAK_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes",
-            1e3 * max(t_ops, t_stream))
+def floats_in(line: str) -> list[float]:
+    """The decimal numbers in a printed line, in order."""
+    return [float(v) for v in re.findall(r"-?\d+\.\d+", line)]
+
+
+def run_example(name: str, *args: str) -> tuple[list[str], str | None]:
+    """``examples/<name>`` in this process (``runpy``) with ``args``: its
+    printed lines and the message of the AssertionError it raised, if any
+    (the examples end on their own checks). The CPU tests run the examples
+    through here too."""
+    import contextlib
+    import io
+    import runpy
+
+    argv, out, failed = sys.argv, io.StringIO(), None
+    try:
+        sys.argv = [name, *args]
+        with contextlib.redirect_stdout(out):
+            try:
+                runpy.run_path(str(ROOT / "examples" / name),
+                               run_name="__main__")
+            except AssertionError as e:
+                failed = str(e)
+    finally:
+        sys.argv = argv
+    return out.getvalue().splitlines(), failed
+
+
+def fifth_path(dev: str = "cuda") -> dict:
+    """The utilities, AOT export and the examples at full width: the fused
+    solve (K1 fixed 100 cold, K2 check 1 on the warm start, 65,536
+    quadrotors) exported through the ``atm_torch::fused_solve`` op, saved,
+    loaded and called, bit for bit against ``fused_solve`` and timed
+    against it; a ``torch.profiler`` trace of one artifact call; the scan
+    tier exported at 256 x 10 iterations against the live solve; a
+    serialization round trip of the cache, the problem and a warm State on
+    the card with a health report; the six examples at their defaults, the
+    robust sweep held to its plain versions (``--cpu``) run here on the
+    same inputs. The fused, Riccati and hetero launch counts are set to 0
+    just before and read just after; raises on any failed check."""
+    import shutil
+    import tempfile
+
+    import accelerated_tinympc_tpu_torch as atm
+    from accelerated_tinympc_tpu_torch.api import (
+        export_batched_solve, export_fused_solve, load_exported,
+        save_exported,
+    )
+    from accelerated_tinympc_tpu_torch.ops import FusedCarry, fused_solve
+    from accelerated_tinympc_tpu_torch.ops import fused_admm
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+    from accelerated_tinympc_tpu_torch.ops import riccati_kernel as rk
+    from accelerated_tinympc_tpu_torch.solver.batched import (
+        init_state_batched, solve_batched,
+    )
+    from accelerated_tinympc_tpu_torch.utils import (
+        debug_nans, health_report, load_like, load_problem_cache,
+        save_problem_cache, save_pytree, time_fn, trace,
+    )
+
+    t_start = time.perf_counter()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="atm_fifth_path_"))
+    problem, cache, pp, x0s = flagship(MAIN_BATCH, dev)
+    cold = FusedCarry.zeros(MAIN_BATCH, pp, device=dev)
+    x1, warm = warm_start(problem, pp, x0s, dev)
+    counters = (fused_admm.LAUNCH_COUNTS, rk.LAUNCH_COUNTS, ha.LAUNCH_COUNTS)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    out = {}
+
+    # K1/K2 through the op: export, save, load, call; bits and launches.
+    artifact = {}
+    for label, xs, carry, kw in (
+            ("fixed100_cold", x0s, cold, dict(max_iter=100)),
+            ("adaptive_warm", x1, warm, WARM_KW)):
+        t0 = time.perf_counter()
+        f = tmp / f"fused_{label}.pt2"
+        save_exported(f, export_fused_solve(pp, MAIN_BATCH, **kw))
+        solve = load_exported(f)
+        export_s = time.perf_counter() - t0
+        before = dict(fused_admm.LAUNCH_COUNTS)
+        got = solve(xs, *carry)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in
+                    fused_admm.LAUNCH_COUNTS.items() if v != before[k]}
+        want = fused_solve(xs, carry, pp, **kw)
+        fields = dict(U=want.U, X=want.X, stats=want.stats,
+                      **want.carry._asdict())
+        unequal = [k for k, v in fields.items() if not torch.equal(got[k], v)]
+        kernel = ("fused_solve_adaptive" if kw.get("check_termination")
+                  else "fused_solve_fixed")
+        assert launched == {kernel: 1}, f"artifact {label} launched {launched}"
+        assert not unequal, f"artifact {label}: {unequal} differ from fused_solve"
+        t_art = time_fn(solve, xs, *carry, reps=5)
+        t_dir = time_fn(lambda: fused_solve(xs, carry, pp, **kw), reps=5)
+        artifact[label] = {
+            "bit_exact": True, "launched": launched,
+            "export_save_load_s": round(export_s, 2),
+            "artifact_ms": {"best": 1e3 * t_art["best_s"],
+                            "mean": 1e3 * t_art["mean_s"]},
+            "fused_solve_ms": {"best": 1e3 * t_dir["best_s"],
+                               "mean": 1e3 * t_dir["mean_s"]},
+            "iterations_mean": float(want.stats[:, 0].mean())}
+        if label == "fixed100_cold":
+            fixed_solve = solve
+    out["fused_artifact"] = artifact
+
+    # One artifact call under the profiler: the kernels it names.
+    from torch.autograd import DeviceType
+
+    with trace(str(tmp / "trace")) as prof:
+        fixed_solve(x0s, *cold)
+    dev_time = lambda e: getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+    kernels = sorted({e.name for e in prof.events()
+                      if e.device_type == DeviceType.CUDA})
+    ops = sorted({e.key for e in prof.key_averages()
+                  if "atm_torch" in e.key})
+    files = [p.name for p in (tmp / "trace").iterdir()]
+    out["profiler"] = {
+        "device_kernels": kernels, "custom_ops": ops, "trace_files": files,
+        "device_us": {e.key: dev_time(e) for e in prof.key_averages()
+                      if dev_time(e) > 0}}
+    assert any("fused_solve_fixed_kernel" in k for k in kernels), \
+        f"the trace names no fused_solve_fixed_kernel: {kernels}"
+
+    # The scan tier's artifact at 256 x 10 iterations against the live
+    # solve_batched.
+    n, settings = 256, atm.Settings(max_iter=10, check_termination=0)
+    t0 = time.perf_counter()
+    f = tmp / "scan.pt2"
+    save_exported(f, export_batched_solve(problem, cache, settings, n))
+    scan = load_exported(f)
+    scan_export_s = time.perf_counter() - t0
+    got = scan(x0s[:n].contiguous())
+    st = init_state_batched(n, 12, 4, 10, device=dev)
+    x = st.x.clone()
+    x[:, 0, :] = x0s[:n]
+    live = solve_batched(st.replace(x=x), problem, cache, settings)
+    names = {"iterations": "iter"}
+    scan_err = {k: max_err(v, getattr(live, names.get(k, k)))
+                for k, v in got.items()}
+    scan_exact = all(torch.equal(v, getattr(live, names.get(k, k)))
+                     for k, v in got.items())
+    assert scan_exact, f"scan artifact against the live solve: {scan_err}"
+    out["scan_artifact"] = {"batch": n, "iters": 10, "bit_exact": scan_exact,
+                            "export_save_load_s": round(scan_export_s, 2)}
+
+    # Serialization on the card: cache, problem bundle, a warm State.
+    save_pytree(tmp / "cache.npz", cache)
+    c2 = load_like(tmp / "cache.npz", cache)
+    save_pytree(tmp / "state.npz", (live, x0s[:n]))
+    s2, x2 = load_like(tmp / "state.npz", (live, x0s[:n]))
+    save_problem_cache(tmp / "bundle.npz", problem, cache, settings)
+    p3, c3, s3 = load_problem_cache(tmp / "bundle.npz", device=dev)
+    same = lambda a, b: all(torch.equal(u, v) for u, v in zip(
+        a.tensors().values(), b.tensors().values()))
+    assert same(c2, cache) and same(s2, live) and torch.equal(x2, x0s[:n])
+    assert same(p3, problem) and same(c3, cache) and s3.max_iter == 10
+    assert s2.x.is_cuda and c3.Kinf.is_cuda
+    health = health_report(s2)
+    assert health["all_finite"], health
+    with debug_nans():
+        fused_solve(x0s, cold, pp, max_iter=10)   # finite: no raise
+    out["serialization"] = {"round_trip_bit_exact": True, "health": {
+        k: v for k, v in health.items() if k != "unconverged_instances"}}
+
+    # The six examples at their defaults, on the card.
+    examples = {}
+    for name in ("torch_quadrotor_hovering.py", "torch_quadrotor_tracking.py",
+                 "torch_batch_scenario_mpc.py", "torch_mission_kernel.py",
+                 "torch_adaptive_rho_demo.py", "torch_robust_plant_sweep.py"):
+        before = [dict(c) for c in counters]
+        t0 = time.perf_counter()
+        lines, failed = run_example(name)
+        launched = {k: v - b[k] for c, b in zip(counters, before)
+                    for k, v in c.items() if v != b[k]}
+        examples[name] = {"last_line": lines[-1] if lines else None,
+                          "seconds": round(time.perf_counter() - t0, 2),
+                          "launches": launched}
+        if failed is not None:
+            examples[name]["own_bar_failed"] = failed
+            examples[name]["lines_before"] = lines[-3:]
+        if name == "torch_robust_plant_sweep.py":
+            robust = lines, failed
+    hover = float(examples["torch_quadrotor_hovering.py"]["last_line"]
+                  .split()[-1])
+    assert hover < 0.01, f"hovering final error {hover}"
+    for name, ex in examples.items():
+        if name != "torch_robust_plant_sweep.py":
+            assert "own_bar_failed" not in ex, (name, ex)
+    # The robust sweep's own bar (err < 0.1) fails at its defaults in both
+    # packages (tests/test_torch_examples.py, marked slow, runs both). So
+    # the card's run is held to the plain versions' on the same inputs, in
+    # this run: the example at its defaults with --cpu, tick by tick.
+    t0 = time.perf_counter()
+    plain, plain_failed = run_example("torch_robust_plant_sweep.py", "--cpu")
+    ticks = lambda ls: [floats_in(ln) for ln in ls
+                        if ln.startswith(("tick ", "final tracking"))]
+    card_ticks, plain_ticks = ticks(robust[0]), ticks(plain)
+    worst = max(abs(a - b) for c, p in zip(card_ticks, plain_ticks)
+                for a, b in zip(c, p))
+    examples["torch_robust_plant_sweep.py"]["against_plain"] = {
+        "card_final_error": card_ticks[-1][0],
+        "plain_final_error": plain_ticks[-1][0],
+        "max_abs_err": worst, "tol": ROBUST_TOL,
+        "plain_own_bar_failed": plain_failed,
+        "plain_seconds": round(time.perf_counter() - t0, 2)}
+    assert len(card_ticks) == len(plain_ticks) == 18, (card_ticks, plain)
+    assert worst <= ROBUST_TOL, f"robust sweep card vs plain: {worst}"
+    assert robust[1] == plain_failed, (robust[1], plain_failed)
+    for name, kernel in (("torch_quadrotor_hovering.py", "fused_solve_fixed"),
+                         ("torch_quadrotor_tracking.py", "fused_solve_fixed"),
+                         ("torch_batch_scenario_mpc.py", "fused_solve_fixed"),
+                         ("torch_mission_kernel.py", "fused_rollout"),
+                         ("torch_robust_plant_sweep.py", "hetero_solve_fixed"),
+                         ("torch_robust_plant_sweep.py",
+                          "riccati_fixed_point")):
+        assert examples[name]["launches"].get(kernel, 0) > 0, (name, kernel)
+    out["examples"] = examples
+    out["launches"] = {k: v for c in counters for k, v in c.items() if v}
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = round(time.perf_counter() - t_start, 1)
+    return out
 
 
 def main() -> None:
@@ -471,6 +619,9 @@ def main() -> None:
     from accelerated_tinympc_tpu_torch.api.mpc import fleet_mpc_rollout
     from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
     from accelerated_tinympc_tpu_torch.ops import FusedResult
+    from accelerated_tinympc_tpu_torch.utils.profiling import (
+        hetero_bound, riccati_bound, solve_bound, stream_bound,
+    )
 
     def as_flat(res):
         """A hetero result in the fused tier's flat layout (stats' first six
@@ -702,7 +853,7 @@ def main() -> None:
     # slot); batches smaller than one block's slots; two launches back to
     # back (the work counter starts at 0 in each). All at one launch
     # geometry (the backward product's depth split follows slots and threads).
-    tile_, threads_ = fused_admm._geometry(pp, B, dev, None, None)[:2]
+    tile_, threads_ = fused_admm._geometry(pp.dims, B, dev, None, None)[:2]
     geo = dict(batch_tile=tile_, threads=threads_)
     perm = torch.as_tensor(np.random.default_rng(7).permutation(B),
                            device=dev)
@@ -792,7 +943,7 @@ def main() -> None:
         orops = rollout_ops(oprob, opp, device=dev)
         ox1, owarm = warm_start(oprob, opp, ox, dev)
         assert fused_admm.choose_placement(opp.dims) == "shared", N
-        tile_o, threads_o = fused_admm._geometry(opp, B, dev, None, None)[:2]
+        tile_o, threads_o = fused_admm._geometry(opp.dims, B, dev, None, None)[:2]
         ogeo = dict(batch_tile=tile_o, threads=threads_o)
         op_exact[f"K1 N={N}"] = placement_fields("solve", lambda pl: fused_solve(
             ox, ocold, opp, max_iter=100, placement=pl, **ogeo))
@@ -880,7 +1031,7 @@ def main() -> None:
         _p, _c, opp, oxm = flagship(MB, dev, horizon=N)
         ocold = FusedCarry.zeros(MB, opp, device=dev)
         for pl in ("shared", "device") if N == 18 else ("device",):
-            geo_ = fused_admm._geometry(opp, MB, dev, None, None, 0, pl)
+            geo_ = fused_admm._geometry(opp.dims, MB, dev, None, None, 0, pl)
             op_ms[f"N={N} fixed-100 {pl}"] = {
                 "ms": cuda_ms(lambda: fused_solve(oxm, ocold, opp,
                                                   max_iter=100, placement=pl)),
@@ -2608,6 +2759,11 @@ def main() -> None:
             "iters_mean": iters / LONG_BATCH, **geometry})
     emit("long_horizon_seconds", seconds=round(time.perf_counter() - T_LONG,
                                                1))
+
+    # ----------------------------------------------------------- fifth path
+    # Export (the scan tier; K1/K2 through the torch.library op), the
+    # profiler, serialization and the six examples: fifth_path.
+    emit("fifth_path", batch=MAIN_BATCH, **fifth_path(dev))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -56,6 +56,51 @@ def test_adaptive_kernel_matches_plain(card, n):
     assert float((got.carry.D - want.carry.D)[same].abs().max()) <= ATOL
 
 
+@pytest.mark.parametrize("check", [0, 1], ids=["fixed", "adaptive"])
+def test_exported_fused_solve_is_bit_exact_with_fused_solve(card, tmp_path,
+                                                            check):
+    """``export_fused_solve`` saved and loaded: the artifact launches K1/K2
+    through the ``atm_torch::fused_solve`` op (counted) and gives
+    ``fused_solve``'s bits on every output."""
+    from accelerated_tinympc_tpu_torch.api import (
+        export_fused_solve, load_exported, save_exported,
+    )
+
+    _problem, pp, x0s, cold = card
+    kw = dict(max_iter=60, check_termination=check)
+    f = tmp_path / "fused.pt2"
+    save_exported(f, export_fused_solve(pp, x0s.shape[0], **kw))
+    solve = load_exported(f)
+    name = "fused_solve_adaptive" if check else "fused_solve_fixed"
+    before = fused_admm.LAUNCH_COUNTS[name]
+    out = solve(x0s, *cold)
+    assert fused_admm.LAUNCH_COUNTS[name] == before + 1
+    want = fused_solve(x0s, cold, pp, **kw)
+    for k, v in dict(U=want.U, X=want.X, stats=want.stats,
+                     **want.carry._asdict()).items():
+        assert torch.equal(out[k], v), k
+
+
+def test_artifact_exported_on_the_cpu_refuses_cuda_inputs(card, tmp_path):
+    """An artifact holds its operators on the device it was exported for:
+    exported on the CPU and called with CUDA inputs, the op goes to its
+    CUDA kernel, whose launch finds the operators on the host and raises
+    before any launch."""
+    from accelerated_tinympc_tpu_torch.api import (
+        export_fused_solve, load_exported, save_exported,
+    )
+
+    _problem, pp, x0s, cold = card
+    f = tmp_path / "fused_cpu.pt2"
+    save_exported(f, export_fused_solve(pp, x0s.shape[0], max_iter=10,
+                                        platforms=("cpu",)))
+    solve = load_exported(f)
+    before = dict(fused_admm.LAUNCH_COUNTS)
+    with pytest.raises(ValueError, match="is on cpu"):
+        solve(x0s, *cold)
+    assert fused_admm.LAUNCH_COUNTS == before
+
+
 def _tracking(batch=133):
     problem, cache, x0, Xref_total = atm.models.quadrotor_tracking_setup()
     ops = atm.condensed_operators(cache, problem.A, problem.B,
