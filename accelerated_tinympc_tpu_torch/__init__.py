@@ -31,7 +31,9 @@ from .precompute import (  # noqa: F401
 from .solver import admm  # noqa: F401
 from .solver.admm import solve  # noqa: F401
 from . import models  # noqa: F401
-from . import api, convert, ops, utils  # noqa: F401
-from .api import TinyMPC, TinyMPCFleet, mpc_rollout  # noqa: F401
+from . import api, convert, ops, parallel, utils  # noqa: F401
+from .api import (  # noqa: F401
+    TinyMPC, TinyMPCFleet, mpc_rollout, tiny_codegen,
+)
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
 """Public API layer: the high-level solver object, the fleet of distinct
-plants, the receding-horizon MPC rollouts, and AOT export."""
+plants, the receding-horizon MPC rollouts, offline codegen, and AOT
+export."""
 
 from .solver import TinyMPC  # noqa: F401
 from .fleet import FLEET_TIERS, TinyMPCFleet  # noqa: F401
@@ -11,6 +12,7 @@ from .mpc import (  # noqa: F401
     mpc_rollout,
     tracking_error,
 )
+from .codegen import build_project, tiny_codegen  # noqa: F401
 from .export import (  # noqa: F401
     export_batched_solve,
     export_fused_solve,

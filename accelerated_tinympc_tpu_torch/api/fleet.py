@@ -24,7 +24,9 @@ of :class:`.solver.TinyMPC`:
   dense block operators are read each iteration, so it pays only where the
   plant is shared: ``TinyMPC(tier="block")``).
 
-``mesh=`` raises until the multi-GPU slice (ROADMAP.md slice 11).
+:meth:`TinyMPCFleet.solve_adaptive_rho` takes ``mesh=`` (a
+:func:`..parallel.make_batch_mesh` mesh) and shards the adaptive hetero loop
+over the ranks of a ``torch.distributed`` world.
 
 Caches are built on the device by the Riccati kernels
 (:mod:`..ops.riccati_kernel`, K5 fixed point, K6 Newton-Kleinman) at any
@@ -47,11 +49,6 @@ from ..ops import riccati_kernel as rk
 from ..types import DEFAULT_DEVICE, Cache, Problem, Settings
 
 FLEET_TIERS = ("hetero", "instance_ops", "hstream", "block", "scan")
-
-
-def _later(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"{where} of ROADMAP.md")
 
 
 def _stack_caches(caches) -> Cache:
@@ -124,7 +121,6 @@ class TinyMPCFleet:
         host_precompute: bool = False,
         polish: bool = True,
         device: Any = DEFAULT_DEVICE,
-        mesh: Any = None,
         block: int = 16,
     ) -> "TinyMPCFleet":
         """Construct from per-instance plants: ``A (B, nx, nx)``,
@@ -146,9 +142,6 @@ class TinyMPCFleet:
         dense block of ``tier="block"``."""
         if tier not in FLEET_TIERS:
             raise ValueError(f"tier must be one of {FLEET_TIERS}")
-        if mesh is not None:
-            raise _later("mesh= (batch sharding over several GPUs)",
-                         "slice 11")
         t = lambda a: torch.as_tensor(np.asarray(a) if not isinstance(
             a, torch.Tensor) else a).to(device=device, dtype=torch.float32)
         A, Bm, Q, R = t(A), t(B), t(Q), t(R)
@@ -537,10 +530,17 @@ class TinyMPCFleet:
         JAX package picks it on the TPU), ``"einsum"`` otherwise. The
         adapted caches rebuild the tier's operands; the scan and block tiers
         adopt the scan engine's state as their carry, the kernel tiers start
-        cold. ``mesh=`` raises until the multi-GPU slice."""
-        if mesh is not None:
-            raise _later("mesh= (sharded adaptive rho over several GPUs)",
-                         "slice 11")
+        cold.
+
+        ``mesh`` (a :func:`..parallel.make_batch_mesh` mesh) shards the
+        hetero loop over the ranks (:func:`..parallel.
+        sharded_adaptive_hetero`: each rank adapts its own block of the
+        batch, which must divide by the world size); every rank's fleet then
+        adopts the global caches, controls and states, as the JAX fleet
+        adopts its global arrays. Per-instance cone parameters or geometry
+        are refused under a mesh, as in the JAX package. The scan engine
+        (``engine="scan"``, or ``"auto"`` on the scan and block tiers) runs
+        unsharded, as there."""
         if engine not in ("auto", "einsum", "hetero", "scan"):
             raise ValueError(f"unknown engine {engine!r}")
         if self._x0 is None:
@@ -561,6 +561,35 @@ class TinyMPCFleet:
                 self._carry = res.state
             self._last = (res.state.u, res.state.x)
             solved, rounds = res.solved, res.rounds
+        elif mesh is not None:
+            if self.cone_params is not None or self.cone_masks is not None:
+                raise ValueError(
+                    "per-instance cone params/masks are single-device only "
+                    "(as in the JAX package); drop mesh= or the "
+                    "per-instance cone overrides")
+            from ..parallel.mesh import (
+                gather_batch, shard_batch, sharded_adaptive_hetero,
+            )
+
+            solve = sharded_adaptive_hetero(mesh, self.settings,
+                                            cones=self.cones, **kw)
+            shard = lambda a: shard_batch(a, mesh)
+            res, stats = solve(shard(self._x0), shard(p), shard(p.A),
+                               shard(p.B), shard(p.Q), shard(p.R),
+                               shard(rho))
+            res = gather_batch({k: res[k] for k in (
+                "cache", "U", "X", "rho", "solved", "total_iter")}, mesh)
+            res = {k: v.to(self.device) for k, v in res.items()}
+            self.cache = res["cache"]
+            self._build()
+            self._last = (res["U"], res["X"])
+            return {
+                "rho": res["rho"].cpu().numpy(),
+                "iterations": res["total_iter"].cpu().numpy().astype(
+                    np.int64),
+                "solved": res["solved"].cpu().numpy(),
+                "rounds": int(stats["rounds_max"]),
+            }
         elif engine == "hetero" or (
                 engine == "auto" and self.tier == "hetero"
                 and self.cone_args is None and self._x0.is_cuda):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # needs one CUDA device and nvcc
+    python3 chip_smoke.py            # needs one CUDA device, nvcc and g++
 
 Builds the CUDA kernels from the sources in this checkout (four sources, one
 ``nvcc`` each, started together), holds each kernel against its plain PyTorch
@@ -36,6 +36,14 @@ Then the fifth (``fifth_path``): the fused solve exported through the
 and held bit for bit against ``fused_solve``, timed beside it and traced
 with ``torch.profiler``; the scan tier exported at 256; a serialization
 round trip on the card; the six ``examples/torch_*.py`` at their defaults.
+Then the sixth (``sixth_path``): every ``sharded_*`` entry point of the
+batch mesh in a world of one over NCCL at its path's shapes, bit for bit
+against the unsharded calls, with each stats dict held to its reduction;
+two ranks on the one card over gloo (``--gloo-rank`` child processes,
+65,536 split 32,768 + 32,768), bit for bit against the unsharded calls; the
+quadrotor's generated C++ project built with g++ and run 70 ticks against
+K1 and the golden CSVs; ``NativeSolver.solve_batch`` at 1,024 against the
+fused tier. Each kernel row carries ``sixth_path_launches``.
 Every phase prints one JSON line with the seconds since the start;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the exit code is non-zero and no result line is printed. Without a CUDA
@@ -318,6 +326,58 @@ def lander_cones():
     return ConeSet(input_cones=(tilt,), state_cones=(glide,))
 
 
+def robust_family(batch, seed=0, spread=0.03, dev="cuda"):
+    """The robust sweep's family (examples/robust_plant_sweep.py): the
+    quadrotor's plant perturbed elementwise by ``spread``, instance 0
+    nominal. Returns ``(batch-leading problem, rho (B,), x0s)``, the x0s
+    around the hover reference: the cold solves from the nominal x0 need
+    more than 100 iterations, these exit at different ones."""
+    import accelerated_tinympc_tpu_torch as atm
+
+    prob, cch, x0 = atm.models.quadrotor_hovering_setup(device=dev)
+    rng = np.random.default_rng(seed)
+    A0 = prob.A.double().cpu().numpy()
+    B0 = prob.B.double().cpu().numpy()
+    mulA = 1.0 + spread * rng.standard_normal((batch, 12, 12))
+    mulB = 1.0 + spread * rng.standard_normal((batch, 12, 4))
+    mulA[0] = 1.0
+    mulB[0] = 1.0
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    wide = lambda a: a.expand((batch,) + tuple(a.shape)).contiguous()
+    prob_b = atm.Problem(**{k: wide(v) for k, v in prob.tensors().items()})
+    prob_b = prob_b.replace(A=t(A0[None] * mulA), B=t(B0[None] * mulB))
+    rho = torch.full((batch,), float(cch.rho), device=dev)
+    x0s_ = t(prob.Xref[0].cpu().numpy()[None]
+             + 0.2 * rng.standard_normal((batch, 12)))
+    return prob_b, rho, x0s_
+
+
+def long_plant(N, knot=False, dev="cuda"):
+    """examples/torch_long_horizon.py's plant (random_lti seed 0, nx=8,
+    nu=3, |u| <= 3, |x| <= 30); ``knot``: the input bound tightens from
+    4.5 to 1.5 over the horizon."""
+    import accelerated_tinympc_tpu_torch as atm
+
+    prob, rho = atm.models.random_lti_problem(0, 8, 3, N, device=dev)
+    if knot:
+        lim = prob.u_max * torch.linspace(
+            1.5, 0.5, N - 1, device=dev)[:, None]
+        prob = prob.replace(u_min=-lim, u_max=lim)
+    cch = atm.riccati_cache(prob.A, prob.B, prob.Q, prob.R, rho, device=dev)
+    return prob, cch
+
+
+def at_horizon(prob_b, N):
+    """A batch-leading problem of uniform bounds and reference carried to
+    horizon N (its first knot's rows repeated)."""
+    Bn = prob_b.A.shape[0]
+    rows = lambda a, k: a[:, :1].expand(Bn, k, a.shape[-1]).contiguous()
+    return prob_b.replace(
+        u_min=rows(prob_b.u_min, N - 1), u_max=rows(prob_b.u_max, N - 1),
+        x_min=rows(prob_b.x_min, N), x_max=rows(prob_b.x_max, N),
+        Xref=rows(prob_b.Xref, N), Uref=rows(prob_b.Uref, N - 1))
+
+
 def ptxas_per_kernel(log: str) -> list:
     """Registers, spills and static shared memory of each kernel, from the
     ``-Xptxas -v`` lines of one build log."""
@@ -409,8 +469,8 @@ def fifth_path(dev: str = "cuda") -> dict:
     serialization round trip of the cache, the problem and a warm State on
     the card with a health report; the six examples at their defaults, the
     robust sweep held to its plain versions (``--cpu``) run here on the
-    same inputs. The fused, Riccati and hetero launch counts are set to 0
-    just before and read just after; raises on any failed check."""
+    same inputs. Every launch count is set to 0 just before and read just
+    after; raises on any failed check."""
     import shutil
     import tempfile
 
@@ -421,8 +481,6 @@ def fifth_path(dev: str = "cuda") -> dict:
     )
     from accelerated_tinympc_tpu_torch.ops import FusedCarry, fused_solve
     from accelerated_tinympc_tpu_torch.ops import fused_admm
-    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
-    from accelerated_tinympc_tpu_torch.ops import riccati_kernel as rk
     from accelerated_tinympc_tpu_torch.solver.batched import (
         init_state_batched, solve_batched,
     )
@@ -436,7 +494,7 @@ def fifth_path(dev: str = "cuda") -> dict:
     problem, cache, pp, x0s = flagship(MAIN_BATCH, dev)
     cold = FusedCarry.zeros(MAIN_BATCH, pp, device=dev)
     x1, warm = warm_start(problem, pp, x0s, dev)
-    counters = (fused_admm.LAUNCH_COUNTS, rk.LAUNCH_COUNTS, ha.LAUNCH_COUNTS)
+    counters = _counters()
     for c in counters:
         for k in c:
             c[k] = 0
@@ -593,6 +651,469 @@ def fifth_path(dev: str = "cuda") -> dict:
         assert examples[name]["launches"].get(kernel, 0) > 0, (name, kernel)
     out["examples"] = examples
     out["launches"] = {k: v for c in counters for k, v in c.items() if v}
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = round(time.perf_counter() - t_start, 1)
+    return out
+
+
+# ------------------------------------------------------------- sixth path --
+# The batch mesh (accelerated_tinympc_tpu_torch.parallel), codegen and the
+# native binding, against the card.
+
+CASCADE_KW = dict(max_iter=100, check_termination=1, segment_iters=25)
+RHO_BATCH6 = 16384        # adaptive rho, as the third path
+LONG_BATCH6 = 8192        # the long-horizon kernels, as the fourth path
+ADAPT5 = dict(max_iter=100, check_termination=5, abs_pri_tol=1e-3,
+              abs_dua_tol=1e-3)
+GLOO_TIMEOUT_S = 300      # the two-rank sub-phase, launch to last exit
+GLOO_RANK_DEVICE = "cuda:0"   # both ranks drive the one card
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _main_tile(dims) -> int:
+    """The fused kernels' slots per block at the main batch on this card:
+    passed to every cascade segment, so the survivors run at the main
+    path's launch geometry (and so to its bits) in every bucket."""
+    from accelerated_tinympc_tpu_torch.ops import fused_admm
+
+    props = torch.cuda.get_device_properties(0)
+    return fused_admm.choose_tile(
+        dims, MAIN_BATCH, props.multi_processor_count,
+        getattr(props, "shared_memory_per_block_optin",
+                fused_admm.SMEM_LIMIT_BYTES))
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    """``{field path: tensor}`` of a result (NamedTuples, dicts, the port's
+    dataclasses); other leaves are left out."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix.rstrip("."): tree}
+    if hasattr(tree, "_fields"):
+        items = ((k, getattr(tree, k)) for k in tree._fields)
+    elif isinstance(tree, dict):
+        items = tree.items()
+    elif hasattr(tree, "tensors"):
+        items = tree.tensors().items()
+    else:
+        return {}
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}{k}."))
+    return out
+
+
+def _unequal(got, want) -> list:
+    """The fields of ``got`` whose bits differ from ``want``'s."""
+    g, w = _flat(got), _flat(want)
+    assert set(g) <= set(w) and g, (sorted(g), sorted(w))
+    return [k for k in g if not torch.equal(g[k], w[k])]
+
+
+def _stats_of(kind: str, res) -> dict:
+    """A sharded call's stats recomputed in float64 from the unsharded
+    result: the sums, maxima and means of the JAX package's ``psum``,
+    ``pmax`` and ``pmean`` entries."""
+    if kind == "rollout":
+        it = res.iters.double()
+        r = {"n_total": it.shape[1], "iterations_sum": it.sum(),
+             "iterations_max": it.max(),
+             "last_tick_iterations_mean": it[-1].mean()}
+    elif kind == "adaptive":
+        r = {"n_total": res.total_iter.shape[0],
+             "n_solved": res.solved.double().sum(),
+             "rounds_max": res.rounds, "iterations_max": res.total_iter.max()}
+    else:
+        st = res.stats.double()
+        r = {"n_total": st.shape[0]}
+        if kind == "fused":
+            r.update(n_converged=st[:, 1].sum(), iterations_sum=st[:, 0].sum(),
+                     iterations_max=st[:, 0].max())
+        elif kind == "hetero":
+            r["iterations_max"] = st[:, 0].max()
+        r.update(primal_residual_state_max=st[:, 2].max(),
+                 dual_residual_state_max=st[:, 3].max(),
+                 primal_residual_input_max=st[:, 4].max(),
+                 dual_residual_input_max=st[:, 5].max())
+    return {k: float(v) for k, v in r.items()}
+
+
+def _stats_equal(kind: str, stats: dict, want) -> bool:
+    got = {k: float(v) for k, v in stats.items()}
+    return got == _stats_of(kind, want)
+
+
+def _counters() -> tuple:
+    from accelerated_tinympc_tpu_torch.ops import fused_admm
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+    from accelerated_tinympc_tpu_torch.ops import riccati_kernel as rk
+    from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
+
+    return (fused_admm.LAUNCH_COUNTS, rk.LAUNCH_COUNTS, ha.LAUNCH_COUNTS,
+            sa.LAUNCH_COUNTS)
+
+
+def _launch_ranks(out_dir: pathlib.Path) -> list:
+    """``chip_smoke.py --gloo-rank`` twice on this card; a rank that fails,
+    or the time limit, kills the other. Returns the ranks' reports."""
+    addr = f"127.0.0.1:{_free_port()}"
+    logs = [open(out_dir / f"rank{r}.log", "w+") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         "--gloo-rank", addr, str(r), str(out_dir)],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+    deadline = time.monotonic() + GLOO_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or (
+                    time.monotonic() > deadline):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    tails = []
+    for r, f in enumerate(logs):
+        f.seek(0)
+        tails.append(f"rank {r} exit {procs[r].returncode}: "
+                     + f.read()[-2000:])
+        f.close()
+    assert all(p.returncode == 0 for p in procs), "\n".join(tails)
+    return [json.loads((out_dir / f"rank{r}.json").read_text())
+            for r in range(2)]
+
+
+def gloo_rank(addr: str, rank: int, out_dir: str) -> None:
+    """One of two ranks on one card over gloo (NCCL refuses two ranks on
+    one GPU): the main path's 65,536 split 32,768 + 32,768 (a fixed-100
+    solve, the warm adaptive solve, the cascade) through the sharded entry
+    points. Rank 0 holds the stitched results bit for bit to the unsharded
+    calls and the stats to their reduction; each rank writes
+    ``rank<r>.json``. The kernels are the ones the parent built."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from accelerated_tinympc_tpu_torch import parallel as par
+    from accelerated_tinympc_tpu_torch.ops import FusedCarry, fused_solve
+    from accelerated_tinympc_tpu_torch.solver.cascade import cascade_solve
+
+    dev = GLOO_RANK_DEVICE
+    t_start = time.perf_counter()
+    par.initialize_distributed(
+        addr, 2, rank, device=dev, backend="gloo",
+        timeout=datetime.timedelta(seconds=GLOO_TIMEOUT_S))
+    mesh = par.make_batch_mesh(2, device=dev)
+    problem, _cache, pp, x0s = flagship(MAIN_BATCH, dev)
+    cold = FusedCarry.zeros(MAIN_BATCH, pp, device=dev)
+    x1, warm = warm_start(problem, pp, x0s, dev)
+    tile = _main_tile(pp.dims)
+    sh = lambda t: par.shard_batch(t, mesh)
+    log: list = []
+    calls = {
+        "fixed100": lambda: par.sharded_fused_solve(
+            mesh, pp, max_iter=100)(sh(x0s), sh(cold)),
+        "adaptive_warm": lambda: par.sharded_fused_solve(
+            mesh, pp, **WARM_KW)(sh(x1), sh(warm)),
+        "cascade": lambda: (par.sharded_cascade_solve(
+            mesh, pp, batch_tile=tile, segment_log=log, **CASCADE_KW)(
+            x1, warm), None),
+    }
+    for c in _counters():
+        for k in c:
+            c[k] = 0
+    dist.barrier()
+    runs, ms = {}, {}
+    for name, fn in calls.items():
+        runs[name], ms[name] = timed(fn)
+    launches = {k: v for c in _counters() for k, v in c.items() if v}
+    stitched = {name: (par.gather_batch(res, mesh) if stats is not None
+                       else res) for name, (res, stats) in runs.items()}
+    report = {"rank": rank, "backend": mesh.backend, "ms": ms,
+              "launches": launches, "rows": int(x0s.shape[0] // 2)}
+    if rank == 0:
+        wants = {
+            "fixed100": fused_solve(x0s, cold, pp, max_iter=100),
+            "adaptive_warm": fused_solve(x1, warm, pp, **WARM_KW),
+            "cascade": cascade_solve(x1, warm, pp, batch_tile=tile,
+                                     **CASCADE_KW)}
+        report["unequal"] = {n: _unequal(stitched[n], w)
+                             for n, w in wants.items()}
+        report["stats_equal"] = {
+            n: _stats_equal("fused", runs[n][1], wants[n])
+            for n in ("fixed100", "adaptive_warm")}
+        report["segment_log"] = log
+        report["iterations_mean"] = {
+            n: float(w.stats[:, 0].mean()) for n, w in wants.items()}
+    report["seconds"] = round(time.perf_counter() - t_start, 1)
+    pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sixth_path(dev: str = "cuda") -> dict:
+    """The batch mesh, codegen and the native binding at full width.
+
+    A world of one over NCCL on the card (a process group of one rank, so
+    every collective runs): every ``sharded_*`` entry point at the shapes
+    of its single-device path -- the quadrotor at 65,536 for K1 (fixed
+    100), K2 (the warm start), K3 (70 ticks) and the cascade; the lander's
+    cones for K4 a; the robust family for K7, and at 16,384 for K8, K5 and
+    K6 through ``sharded_adaptive_hetero``; the 8/3/1024 plant at 8,192 for
+    K9 and K10; the robust family at N=256 for K11 and K12 -- each held bit
+    for bit to the same unsharded call and each stats dict to its
+    reduction, recomputed. The launch counts are set to 0 just before the
+    sharded calls and read just after; the unsharded calls come after.
+    Then two ranks on the card over gloo (:func:`gloo_rank`), then the
+    quadrotor's generated C++ project (70 hovering ticks against K1 on the
+    card and the golden CSVs) and ``NativeSolver.solve_batch`` at 1,024
+    against the fused tier. Raises on any failed check."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    import accelerated_tinympc_tpu_torch as atm
+    from accelerated_tinympc_tpu_torch import parallel as par
+    from accelerated_tinympc_tpu_torch.api import build_project, tiny_codegen
+    from accelerated_tinympc_tpu_torch.models import quadrotor as qm
+    from accelerated_tinympc_tpu_torch.native import NativeSolver
+    from accelerated_tinympc_tpu_torch.ops import (
+        FusedCarry, fused_rollout, fused_solve, pad_cones, rollout_ops,
+    )
+    from accelerated_tinympc_tpu_torch.ops import hetero_admm as ha
+    from accelerated_tinympc_tpu_torch.ops import hstream_admm as hs
+    from accelerated_tinympc_tpu_torch.ops import stream_admm as sa
+    from accelerated_tinympc_tpu_torch.solver import (
+        cascade_solve, solve_adaptive_rho_hetero,
+    )
+
+    t_start = time.perf_counter()
+    out = {}
+    # inputs, built before the counts are set to 0
+    problem, cache, pp, x0s = flagship(MAIN_BATCH, dev)
+    cold = FusedCarry.zeros(MAIN_BATCH, pp, device=dev)
+    x1, warm = warm_start(problem, pp, x0s, dev)
+    rops = rollout_ops(problem, pp, device=dev)
+    tile = _main_tile(pp.dims)
+    _lp, _lc, lpp, lx0 = lander(MAIN_BATCH, dev)
+    lcold = FusedCarry.zeros(MAIN_BATCH, lpp, device=dev)
+    lcops = pad_cones(lpp, lander_cones())
+    prob_h, rho_h, x0_h = robust_family(MAIN_BATCH, dev=dev)
+    hp = ha.pad_hetero_from_plants(prob_h.A, prob_h.B, prob_h.Q, prob_h.R,
+                                   rho_h, prob_h)[0]
+    hcold = ha.HeteroCarry.zeros(hp)
+    prob_r, rho_r, _x = robust_family(RHO_BATCH6, seed=6, dev=dev)
+    x0_r = prob_r.Xref[0, 0][None] + 0.2 * torch.as_tensor(
+        np.random.default_rng(0).standard_normal((RHO_BATCH6, 12)),
+        dtype=torch.float32, device=dev)
+    rho0 = rho_r * torch.as_tensor(np.tile(
+        [1.0, 1e-3, 200.0], RHO_BATCH6 // 3 + 1)[:RHO_BATCH6],
+        dtype=torch.float32, device=dev)
+    rho_sets = atm.Settings(abs_pri_tol=1e-2, abs_dua_tol=1e-2,
+                            check_termination=1)
+    adapt_args = (x0_r, prob_r, prob_r.A, prob_r.B, prob_r.Q, prob_r.R, rho0)
+    prob_l, cache_l = long_plant(1024, dev=dev)
+    sp = sa.pad_stream_problem(prob_l, cache_l)
+    sc = np.resize([0.3, 3.0, 10.0], LONG_BATCH6)[:, None]
+    x0_l = torch.as_tensor(
+        sc * np.random.default_rng(11).standard_normal((LONG_BATCH6, 8)),
+        dtype=torch.float32, device=dev)
+    scold = sa.StreamCarry.zeros(LONG_BATCH6, sp)
+    prob_f, rho_f, x0_f = robust_family(LONG_BATCH6, seed=12, dev=dev)
+    hsp = hs.pad_hstream_from_plants(prob_f.A, prob_f.B, prob_f.Q, prob_f.R,
+                                     rho_f, at_horizon(prob_f, 256))[0]
+    hscold = sa.StreamCarry.zeros(LONG_BATCH6, hsp)
+    torch.cuda.synchronize()
+
+    # A world of one over NCCL: initialize_distributed does nothing for one
+    # process (as JAX's), so the group of one is brought up here.
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = par.make_batch_mesh(1)
+        assert (mesh.backend, mesh.device.type) == ("nccl", "cuda"), mesh
+        sh = lambda t: par.shard_batch(t, mesh)
+        log: list = []
+        # name: (sharded call, the same unsharded call, stats kind)
+        cases = {
+            "K1 fixed100": (
+                lambda: par.sharded_fused_solve(mesh, pp, max_iter=100)(
+                    sh(x0s), sh(cold)),
+                lambda: fused_solve(x0s, cold, pp, max_iter=100), "fused"),
+            "K2 adaptive warm": (
+                lambda: par.sharded_fused_solve(mesh, pp, **WARM_KW)(
+                    sh(x1), sh(warm)),
+                lambda: fused_solve(x1, warm, pp, **WARM_KW), "fused"),
+            "K3 rollout70": (
+                lambda: par.sharded_fused_rollout(mesh, pp, rops, 70,
+                                                  **WARM_KW)(sh(x0s), sh(cold)),
+                lambda: fused_rollout(x0s, cold, pp, rops, 70, **WARM_KW),
+                "rollout"),
+            "K2 cascade": (
+                lambda: (par.sharded_cascade_solve(
+                    mesh, pp, batch_tile=tile, segment_log=log,
+                    **CASCADE_KW)(x1, warm), None),
+                lambda: cascade_solve(x1, warm, pp, batch_tile=tile,
+                                      **CASCADE_KW), None),
+            "K4a lander cones": (
+                lambda: par.sharded_fused_solve(
+                    mesh, lpp, cone_ops=lcops, **LANDER_FIXED)(
+                    sh(lx0), sh(lcold)),
+                lambda: fused_solve(lx0, lcold, lpp, cone_ops=lcops,
+                                    **LANDER_FIXED), "fused"),
+            "K7 robust fixed100": (
+                lambda: par.sharded_hetero_solve(mesh, max_iter=100)(
+                    sh(x0_h), sh(hcold), sh(hp)),
+                lambda: ha.hetero_solve(x0_h, hcold, hp, max_iter=100),
+                "hetero"),
+            "K8 K5 K6 adaptive rho": (
+                lambda: par.sharded_adaptive_hetero(
+                    mesh, rho_sets, max_rounds=12)(*map(sh, adapt_args)),
+                lambda: solve_adaptive_rho_hetero(
+                    *adapt_args, rho_sets, max_rounds=12), "adaptive"),
+            "K9 stream fixed100": (
+                lambda: par.sharded_stream_solve(mesh, max_iter=100)(
+                    sh(x0_l), sh(scold), sp),
+                lambda: sa.stream_solve(x0_l, scold, sp, max_iter=100),
+                "stream"),
+            "K10 stream adaptive": (
+                lambda: par.sharded_stream_solve(mesh, **ADAPT5)(
+                    sh(x0_l), sh(scold), sp),
+                lambda: sa.stream_solve(x0_l, scold, sp, **ADAPT5), "stream"),
+            "K11 hstream fixed100": (
+                lambda: par.sharded_hstream_solve(mesh, max_iter=100)(
+                    sh(x0_f), sh(hscold), sh(hsp)),
+                lambda: hs.hstream_solve(x0_f, hscold, hsp, max_iter=100,
+                                         knot_block=16), "stream"),
+            "K12 hstream adaptive": (
+                lambda: par.sharded_hstream_solve(mesh, **ADAPT5)(
+                    sh(x0_f), sh(hscold), sh(hsp)),
+                lambda: hs.hstream_solve(x0_f, hscold, hsp, knot_block=16,
+                                         **ADAPT5), "stream"),
+        }
+        for c in _counters():
+            for k in c:
+                c[k] = 0
+        got, ms = {}, {}
+        for name, (run, _want, _kind) in cases.items():
+            got[name], ms[name] = timed(run)
+        launches = {k: v for c in _counters() for k, v in c.items() if v}
+        world1 = {}
+        for name, (_run, want_fn, kind) in cases.items():
+            (res, stats), want = got[name], None
+            want, want_ms = timed(want_fn)
+            bad = _unequal(res, want if kind != "adaptive" else {
+                k: getattr(want, k) for k in res})
+            world1[name] = {"sharded_ms": ms[name], "unsharded_ms": want_ms,
+                            "bit_exact": not bad}
+            assert not bad, f"sixth path {name}: {bad} differ"
+            if kind is not None:
+                assert _stats_equal(kind, stats, want), (
+                    name, {k: float(v) for k, v in stats.items()},
+                    _stats_of(kind, want))
+            del want
+        world1["K2 cascade"]["segment_log"] = log
+        got = None
+        # what the mesh adds on the host: K1 through the sharded entry and
+        # directly, mean of three after a warm-up
+        k1 = par.sharded_fused_solve(mesh, pp, max_iter=100)
+        out["host_cost_k1_ms"] = {
+            "sharded": cuda_ms(lambda: k1(sh(x0s), sh(cold))),
+            "unsharded": cuda_ms(lambda: fused_solve(x0s, cold, pp,
+                                                     max_iter=100))}
+    finally:
+        dist.destroy_process_group()
+    path_kernels = (
+        "fused_solve_fixed", "fused_solve_adaptive", "fused_rollout",
+        "fused_solve_fixed_cones", "hetero_solve_fixed",
+        "hetero_solve_adaptive", "riccati_fixed_point", "riccati_newton",
+        "stream_solve_fixed", "stream_solve_adaptive", "hstream_solve_fixed",
+        "hstream_solve_adaptive")
+    for k in path_kernels:
+        assert launches.get(k, 0) > 0, f"sixth path never launched {k}"
+    out.update(world_of_one_nccl=world1, launches=launches)
+
+    # Two ranks on this card over gloo (NCCL refuses two ranks on one GPU).
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="atm_sixth_path_"))
+    t0 = time.perf_counter()
+    r0, r1 = _launch_ranks(tmp)
+    assert r0["backend"] == "gloo", r0
+    assert not any(r0["unequal"].values()), r0["unequal"]
+    assert all(r0["stats_equal"].values()), r0["stats_equal"]
+    out["two_ranks_gloo_one_card"] = {
+        "note": "gloo: NCCL refuses two ranks on one GPU",
+        "rows_per_rank": r0["rows"], "bit_exact": True,
+        "ms_rank0": r0["ms"], "ms_rank1": r1["ms"],
+        "launches_rank0": r0["launches"], "launches_rank1": r1["launches"],
+        "segment_log": r0["segment_log"],
+        "iterations_mean": r0["iterations_mean"],
+        "rank_seconds": [r0["seconds"], r1["seconds"]],
+        "wall_seconds": round(time.perf_counter() - t0, 1)}
+
+    # Codegen: the quadrotor's hovering project (the golden harness's
+    # settings: 50 fixed iterations, raw workspace Q), built with g++, 70
+    # ticks, against K1 on the card and the golden CSVs.
+    d = np.load(qm.DATA_DIR / "quadrotor_20hz_params.npz")
+    t0 = time.perf_counter()
+    proj = tiny_codegen(
+        d["Adyn"], d["Bdyn"], d["Q"], d["R"], rho=float(d["rho"]),
+        horizon=10, output_dir=tmp / "quad_project", u_min=-0.5, u_max=0.5,
+        x_min=-5.0, x_max=5.0, Xref=np.tile(qm.HOVER_SETPOINT, (10, 1)),
+        settings=atm.Settings(max_iter=50, check_termination=0),
+        gen_wrapper=False, augment_Q=False)
+    binary = build_project(proj)
+    build_s = time.perf_counter() - t0
+    run = subprocess.run([str(binary), *map(str, qm.HOVER_X0), "70"],
+                         capture_output=True, text=True, check=True)
+    u_cpp = np.array([[float(v) for v in line.split(",")[13:17]]
+                      for line in run.stdout.strip().splitlines()])
+    prob, cch, x0 = atm.models.quadrotor_hovering_setup(device=dev)
+    one = atm.TinyMPC.from_parts(
+        prob, cch, tier="fused", device=dev,
+        settings=atm.Settings(max_iter=50, check_termination=0))
+    one.set_x0(x0)
+    _xf, us_k1 = one.rollout(70, in_kernel=False)
+    golden_u = np.loadtxt(GOLDEN / "hovering_fixed50_traj.csv",
+                          delimiter=",")[:, 13:17]
+    codegen = {
+        "ticks": int(u_cpp.shape[0]), "build_s": round(build_s, 2),
+        "u_err_vs_k1_card": float(np.abs(u_cpp - us_k1.cpu().numpy()).max()),
+        "u_err_vs_golden": float(np.abs(u_cpp - golden_u).max())}
+    assert u_cpp.shape == (70, 4), u_cpp.shape
+    assert codegen["u_err_vs_k1_card"] <= VAL_TOL, codegen
+    assert codegen["u_err_vs_golden"] <= VAL_TOL, codegen
+    out["codegen_quadrotor"] = codegen
+
+    # NativeSolver.solve_batch on 1,024 instances against K1 on the card.
+    n = 1024
+    f64 = lambda t: t.double().cpu().numpy()
+    ns = NativeSolver(f64(problem.A), f64(problem.B), f64(problem.Q),
+                      f64(problem.R), float(cache.rho), 10, max_iter=100,
+                      check_termination=0)
+    ns.set_bounds(u_min=f64(problem.u_min), u_max=f64(problem.u_max),
+                  x_min=f64(problem.x_min), x_max=f64(problem.x_max))
+    ns.set_xref(f64(problem.Xref))
+    t0 = time.perf_counter()
+    u_nat, iters, _status = ns.solve_batch(f64(x0s[:n]))
+    native_s = time.perf_counter() - t0
+    card = fused_solve(x0s[:n].contiguous(),
+                       FusedCarry.zeros(n, pp, device=dev), pp, max_iter=100)
+    err = float(np.abs(u_nat - f64(card.U).reshape(n, 9, 4)).max())
+    out["native_batch"] = {"batch": n, "u_err_vs_fused_card": err,
+                           "native_host_s": round(native_s, 3),
+                           "iterations": int(iters.max())}
+    assert err <= VAL_TOL, out["native_batch"]
     shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = round(time.perf_counter() - t_start, 1)
     return out
@@ -1315,26 +1836,6 @@ def main() -> None:
     # (b) examples/fleet_sweep.py's (64 random plants nx=8, nu=3, inputs in
     # [-2, 2], a thrust cone with per-instance mu and, for half the fleet,
     # the axis on another input), (c) a ragged shape (nx=5, nu=2, N=7).
-    def robust_family(batch, seed=0, spread=0.03):
-        prob, cch, x0 = atm.models.quadrotor_hovering_setup(device=dev)
-        rng = np.random.default_rng(seed)
-        A0 = prob.A.double().cpu().numpy()
-        B0 = prob.B.double().cpu().numpy()
-        mulA = 1.0 + spread * rng.standard_normal((batch, 12, 12))
-        mulB = 1.0 + spread * rng.standard_normal((batch, 12, 4))
-        mulA[0] = 1.0
-        mulB[0] = 1.0
-        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
-        wide = lambda a: a.expand((batch,) + tuple(a.shape)).contiguous()
-        prob_b = atm.Problem(**{k: wide(v) for k, v in prob.tensors().items()})
-        prob_b = prob_b.replace(A=t(A0[None] * mulA), B=t(B0[None] * mulB))
-        rho = torch.full((batch,), float(cch.rho), device=dev)
-        # around the hover reference: the cold solves from the nominal x0
-        # need more than 100 iterations, these exit at different ones
-        x0s_ = t(prob.Xref[0].cpu().numpy()[None]
-                 + 0.2 * rng.standard_normal((batch, 12)))
-        return prob_b, rho, x0s_
-
     def fleet_family(batch, seed=0):
         from accelerated_tinympc_tpu_torch.models import random_lti_problem
 
@@ -2293,34 +2794,11 @@ def main() -> None:
     LONG_BATCH = 8192
     T_LONG = time.perf_counter()
 
-    def long_plant(N, knot=False):
-        """examples/torch_long_horizon.py's plant (random_lti seed 0, nx=8,
-        nu=3, |u| <= 3, |x| <= 30); ``knot``: the input bound tightens from
-        4.5 to 1.5 over the horizon."""
-        prob, rho = atm.models.random_lti_problem(0, 8, 3, N, device=dev)
-        if knot:
-            lim = prob.u_max * torch.linspace(
-                1.5, 0.5, N - 1, device=dev)[:, None]
-            prob = prob.replace(u_min=-lim, u_max=lim)
-        cch = atm.riccati_cache(prob.A, prob.B, prob.Q, prob.R, rho,
-                                device=dev)
-        return prob, cch
-
     def spread_x0(batch, nx, scales, seed=1):
         rng = np.random.default_rng(seed)
         sc = np.resize(np.asarray(scales, np.float64), batch)[:, None]
         return torch.as_tensor(sc * rng.standard_normal((batch, nx)),
                                dtype=torch.float32, device=dev)
-
-    def at_horizon(prob_b, N):
-        """A batch-leading problem of uniform bounds and reference carried
-        to horizon N (its first knot's rows repeated)."""
-        Bn = prob_b.A.shape[0]
-        rows = lambda a, k: a[:, :1].expand(Bn, k, a.shape[-1]).contiguous()
-        return prob_b.replace(
-            u_min=rows(prob_b.u_min, N - 1), u_max=rows(prob_b.u_max, N - 1),
-            x_min=rows(prob_b.x_min, N), x_max=rows(prob_b.x_max, N),
-            Xref=rows(prob_b.Xref, N), Uref=rows(prob_b.Uref, N - 1))
 
     def to64(a):
         return a.double() if isinstance(a, torch.Tensor) else a
@@ -2765,6 +3243,14 @@ def main() -> None:
     # profiler, serialization and the six examples: fifth_path.
     emit("fifth_path", batch=MAIN_BATCH, **fifth_path(dev))
 
+    # ----------------------------------------------------------- sixth path
+    # The batch mesh (a world of one over NCCL, two ranks over gloo),
+    # codegen and the native binding: sixth_path.
+    six = sixth_path(dev)
+    emit("sixth_path", batch=MAIN_BATCH, **six)
+    for row in kernels:
+        row["sixth_path_launches"] = six["launches"].get(row["name"], 0)
+
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2773,4 +3259,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

@@ -163,15 +163,16 @@ def test_other_cascades_wait_for_their_kernels(name):
     """The stream and hstream cascades, and the fleet tier that runs the
     hstream one, waited for their kernels; they are ported now
     (tests/test_torch_stream.py, test_torch_hstream.py), so each case holds
-    what is still refused there: the fleet's mesh= (the multi-GPU slice), a
-    segment off the check cadence, a shrinking segment."""
+    what is refused there: the fleet setup's mesh= (the JAX fleet's setup
+    takes none either), a segment off the check cadence, a shrinking
+    segment."""
     z = np.zeros((2, 3, 3))
     if name == "fleet_tier_hstream":
         f = atm_t.TinyMPCFleet.setup(
             z, np.zeros((2, 3, 1)), np.ones((2, 3)), np.ones((2, 1)),
             1.0, 5, tier="hstream", device=DEV)
         assert f._hp.dims == (3, 1, 5)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(TypeError, match="mesh"):   # as JAX's setup
             atm_t.TinyMPCFleet.setup(
                 z, np.zeros((2, 3, 1)), np.ones((2, 3)), np.ones((2, 1)),
                 1.0, 5, tier="hstream", device=DEV, mesh=object())

@@ -220,8 +220,9 @@ def test_adaptive_rho_engines_match_jax(plants, engine, jengine, jtier):
 
 def test_auto_engine_and_unported_paths(plants, monkeypatch):
     """``engine="auto"`` on CPU tensors is the einsum loop for the hetero
-    tier (JAX: off the TPU); the long-horizon tiers, ``mesh=`` and alpha on
-    the hetero/instance-ops tiers raise."""
+    tier (JAX: off the TPU); ``solve_adaptive_rho(mesh=)`` runs the sharded
+    loop; ``setup(mesh=)`` (as in the JAX fleet) and alpha on the
+    hetero/instance-ops tiers raise."""
     from accelerated_tinympc_tpu_torch.solver import batched_ops
 
     A, Bm, Q, R, x0s = plants
@@ -240,16 +241,21 @@ def test_auto_engine_and_unported_paths(plants, monkeypatch):
     f.solve_adaptive_rho(engine="scan", max_rounds=1)
     assert isinstance(f._carry, atm_t.ops.HeteroCarry)
     f.solve()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        f.solve_adaptive_rho(mesh=object())
-    for tier in ("hstream", "block"):  # ported; mesh= still refused
+    # mesh= on solve_adaptive_rho runs the sharded hetero loop (a world of
+    # one here; two ranks in tests/test_torch_mesh.py); setup takes no
+    # mesh=, as the JAX fleet's setup takes none
+    from accelerated_tinympc_tpu_torch.parallel import make_batch_mesh
+
+    out = f.solve_adaptive_rho(mesh=make_batch_mesh(device=DEV),
+                               max_rounds=2)
+    assert out["rho"].shape == (B,) and out["rounds"] <= 2
+    assert isinstance(f._carry, atm_t.ops.HeteroCarry)
+    f.solve()
+    for tier in ("hetero", "hstream", "block"):
         atm_t.TinyMPCFleet.setup(A, Bm, Q, R, 1.0, N, tier=tier, device=DEV)
-        with pytest.raises(NotImplementedError, match="slice 11"):
+        with pytest.raises(TypeError, match="mesh"):
             atm_t.TinyMPCFleet.setup(A, Bm, Q, R, 1.0, N, tier=tier,
                                      mesh=object(), device=DEV)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        atm_t.TinyMPCFleet.setup(A, Bm, Q, R, 1.0, N, mesh=object(),
-                                 device=DEV)
     for tier in ("hetero", "instance_ops"):
         g = atm_t.TinyMPCFleet.setup(
             A, Bm, Q, R, 1.0, N, tier=tier, polish=False, device=DEV,

@@ -989,3 +989,33 @@ def test_long_horizon_and_fleet_kernels_take_ten_cones(card, kernel, mode):
     cold = sa.StreamCarry.zeros(133, ops)
     _assert_stream_close(solve(x0, cold, ops, **kw),
                          plain(x0, cold, ops, **kw))
+
+
+@pytest.mark.parametrize("check", [0, 1], ids=["fixed", "adaptive"])
+def test_world_of_one_sharded_fused_solve_is_fused_solve(card, check):
+    """A world of one on the card (no process group): ``sharded_fused_solve``
+    launches K1/K2 once on the whole batch and gives ``fused_solve``'s bits;
+    its stats are the reduction of those outputs."""
+    from accelerated_tinympc_tpu_torch.parallel import (
+        make_batch_mesh, shard_batch, sharded_fused_solve,
+    )
+
+    _problem, pp, x0s, cold = card
+    kw = dict(max_iter=60, check_termination=check)
+    mesh = make_batch_mesh()
+    assert mesh.size == 1 and mesh.device.type == "cuda"
+    name = "fused_solve_adaptive" if check else "fused_solve_fixed"
+    before = fused_admm.LAUNCH_COUNTS[name]
+    got, stats = sharded_fused_solve(mesh, pp, **kw)(
+        shard_batch(x0s, mesh), shard_batch(cold, mesh))
+    assert fused_admm.LAUNCH_COUNTS[name] == before + 1
+    want = fused_solve(x0s, cold, pp, **kw)
+    for k, v in dict(U=want.U, X=want.X, stats=want.stats,
+                     **want.carry._asdict()).items():
+        g = got.carry._asdict()[k] if k in want.carry._fields else getattr(
+            got, k)
+        assert torch.equal(g, v), k
+    assert float(stats["n_total"]) == x0s.shape[0]
+    assert float(stats["iterations_sum"]) == float(want.stats[:, 0].sum())
+    assert float(stats["dual_residual_input_max"]) == float(
+        want.stats[:, 5].max())
