@@ -161,7 +161,8 @@ def fused_mpc_rollout(
     the whole mission in one launch
     (:func:`..ops.fused_rollout.fused_rollout`). ``cone_ops``
     (:func:`..ops.fused_admm.pad_cones`) adds second-order cones to every
-    tick's slack stage on either path.
+    tick's slack stage on either path. ``algo``/``polish`` are
+    :func:`..ops.fused_admm.fused_solve`'s, per tick, on either path.
     """
     from ..ops.fused_admm import (
         FusedCarry, fused_solve, ref_vectors, unpad_controls,

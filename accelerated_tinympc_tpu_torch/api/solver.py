@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.fused_admm import (
+    ALGOS,
     FusedCarry,
     PaddedProblem,
     fused_solve,
@@ -40,11 +41,6 @@ from ..types import (
 TIERS = ("scan", "condensed", "fused", "block")
 
 
-def _later(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"{where} of ROADMAP.md")
-
-
 @dataclasses.dataclass
 class TinyMPC:
     """One MPC problem bound to a solver tier and (optional) batch.
@@ -60,7 +56,10 @@ class TinyMPC:
     batch: int | None = None          # None = single instance
     tier: str = "scan"
     device: Any = DEFAULT_DEVICE
-    algo: str = "f32"                 # fused-tier arithmetic; only "f32" yet
+    # Fused-tier arithmetic: "f32", or "bf16x3" (split-bf16 products on the
+    # tensor cores, ops/fused_admm.fused_solve); stored on every tier, read
+    # by the fused calls and the cascade (their default polish).
+    algo: str = "f32"
     # Second-order-cone constraints (solver/cones.py) on every tier; the
     # fused tier projects inside the kernel (ops/fused_admm.pad_cones).
     cones: Any = None
@@ -161,7 +160,6 @@ class TinyMPC:
         tier: str = "scan",
         device: Any = DEFAULT_DEVICE,
         algo: str = "f32",
-        polish: int | None = None,
         cones: Any = None,
         cone_mu=None,
         cone_shift=None,
@@ -171,14 +169,16 @@ class TinyMPC:
         block: int = 32,
     ) -> "TinyMPC":
         """Bind a problem and its cache to a tier. ``problem``/``cache`` are
-        moved to ``device``. What the port does not do yet raises
-        ``NotImplementedError`` here, naming the ROADMAP slice that brings
-        it. ``cones`` (:class:`..solver.cones.ConeSet`) adds second-order
+        moved to ``device``. ``cones`` (:class:`..solver.cones.ConeSet`) adds second-order
         cones on every tier; ``cone_mu``/``cone_shift``/``cone_mu_x``/
         ``cone_shift_x`` (``(n_cones, batch)``) override their parameters
         per instance on the batched fused tier; ``compaction_segment > 0``
         runs adaptive fused solves through the compaction cascade.
-        ``block`` is the knots per dense block of ``tier="block"``."""
+        ``block`` is the knots per dense block of ``tier="block"``.
+        ``algo`` (``"f32"`` or ``"bf16x3"``) is the fused tier's arithmetic
+        (:func:`..ops.fused_admm.fused_solve`); every tier takes it, and
+        only the fused calls read it. As in the JAX package there is no
+        ``polish`` here: the fused calls run the default."""
         if tier not in TIERS:
             raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
         has_cp = any(a is not None for a in
@@ -190,13 +190,9 @@ class TinyMPC:
             if tier != "fused" or batch is None:
                 raise ValueError("per-instance cone parameters need the "
                                  "batched fused tier (tier='fused', batch=B)")
-        if algo == "bf16x3" or polish is not None:
-            raise _later(
-                "algo='bf16x3'/polish (a TPU MXU arithmetic mode; its Hopper "
-                "counterpart is a split-operand tensor-core mode)",
-                "'Hopper arithmetic modes for K1-K3'")
-        if algo != "f32":
-            raise ValueError(f"unknown algo {algo!r}; use 'f32'")
+        if algo not in ALGOS:
+            raise ValueError(
+                f"unknown algo {algo!r}; use one of {ALGOS}")
         self = cls(
             problem=problem.to(device=device),
             cache=cache.to(device=device),

@@ -68,6 +68,21 @@
 //     sees violated. The residual maxima are reduced on the recording
 //     iteration (the last check, or the last iteration of a fixed solve)
 //     and, for a frozen slot, when it is retired.
+//   * Split-bf16 mode (template parameter SPLIT; replaces the TPU package's
+//     algo="bf16x3", ops/fused_admm.py _split_bf16/_dot3/_make_ws): the
+//     iterations a slot's schedule names (F_SPLIT) run both products as
+//     three bf16 passes (hi.hi + (hi.lo + lo.hi)) on the tensor cores,
+//     mma.sync m16n8k16 with float32 accumulators, before the stages that
+//     use them (split_forward, split_backward). The operator is the A
+//     operand (16 of its columns a tile, split once per launch into
+//     fragment order, split_operators_kernel in fused_admm_bf16x3.cu) and
+//     8 slots are the B operand, split in registers from the slot rows.
+//     Slots refill independently, so one block iteration holds slots on
+//     split and on float32 iterations: the mma passes write only the rows
+//     of split slots (the forward product into S, which forward_stage reads
+//     back as its product; the backward one as D), and the FFMA code runs
+//     the float32 rows with the float32 kernels' arithmetic (a register
+//     tile with no float32 row skips its FFMAs).
 //   * Slacks are double-buffered per slot (zpar) so that the check
 //     iteration can read the old slack for the dual residual and still leave
 //     it in place for a slot that freezes.
@@ -92,7 +107,9 @@
 // hoisted const_d.
 
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 #include <type_traits>
 
 namespace atm {
@@ -139,6 +156,7 @@ constexpr int F_CHECK = 1;   // a convergence check
 constexpr int F_RECORD = 2;  // accumulate the residual maxima
 constexpr int F_EMIT = 4;    // write U, X to device memory (the slot's last
                              // iteration of its last solve)
+constexpr int F_SPLIT = 8;   // split-bf16 products (SPLIT kernels only)
 // Why a slot is retired (Smem::ret).
 constexpr int R_STAY = 0, R_RETIRE = 1, R_RETIRE_EMIT = 2;
 
@@ -151,6 +169,7 @@ struct Dims {
   int ncp;          // cones with per-instance mu/shift rows (0 or all)
   int gops;         // 1: the operators are read from device memory
   int ri;           // slots per register tile (8 or 4)
+  int split;        // 1: the split-bf16 kernels (operator fragments, bsp)
 };
 
 // The cones of one problem, input cones first, then state cones, in device
@@ -168,7 +187,7 @@ __host__ __device__ inline int r4(int n) { return (n + 3) & ~3; }
 
 __host__ __device__ inline Dims make_dims(int nx, int nu, int N, int tile,
                                           int ncp = 0, int gops = 0,
-                                          int ri = 8) {
+                                          int ri = 8, int split = 0) {
   Dims d;
   d.nx = nx; d.nu = nu; d.N = N;
   d.Dx = N * nx; d.Du = (N - 1) * nu; d.Dz = d.Dx + d.Du;
@@ -178,7 +197,22 @@ __host__ __device__ inline Dims make_dims(int nx, int nu, int N, int tile,
   d.ncp = ncp;
   d.gops = gops;
   d.ri = ri;
+  d.split = split;
   return d;
+}
+
+// Split-bf16 operator fragments: the forward product's A operand is Wf^T
+// (Dz rows, depth Du), the backward one's Wb^T (Du rows, depth Dz), each in
+// tiles of 16 rows x 16 depth. A tile is 256 words: the hi halves of the
+// four A registers of lane l at words 4l..4l+3, the lo halves at 128 + 4l
+// (one uint4 load per lane for each). Forward tiles first, tile (mt, kt) at
+// mt * KT + kt.
+__host__ __device__ inline int split_mt_f(const Dims& d) { return (d.Dz + 15) / 16; }
+__host__ __device__ inline int split_kt_f(const Dims& d) { return (d.Du + 15) / 16; }
+__host__ __device__ inline int split_mt_b(const Dims& d) { return (d.Du + 15) / 16; }
+__host__ __device__ inline int split_kt_b(const Dims& d) { return (d.Dz + 15) / 16; }
+__host__ __device__ inline int split_words(const Dims& d) {
+  return 256 * (split_mt_f(d) * split_kt_f(d) + split_mt_b(d) * split_kt_b(d));
 }
 
 // Offsets, in 4-byte words, of every region of the block's dynamic shared
@@ -189,6 +223,7 @@ struct Layout {
   int D, cd, S, YG, ZV, Xb, x0, u0, stat;      // per-slot floats
   int res, done, zpar, viol, itc, flags, inst, tick, ret, list, nref;
   int cmu, csh;                                // per-slot cone mu, shift
+  int W3, bsp;                                 // split-bf16 kernels only
   int total;
 };
 
@@ -226,6 +261,10 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
   L.nref = o; o += 4;
   L.cmu = o;  o += r4(d.ncp * t);       // [cone][slot]
   L.csh = o;  o += r4(d.ncp * t);
+  // Split-bf16 kernels: the operator fragments (staged unless read from
+  // device memory) and each slot's split flag of its running iteration.
+  L.W3 = o;   o += d.split * staged * split_words(d);
+  L.bsp = o;  o += d.split * t;
   L.total = o;
   return L;
 }
@@ -236,6 +275,7 @@ struct Args {
   const float *x0, *D0, *Y0, *G0, *Z0, *V0;
   // operators and vectors shared by the batch
   const float *Wf, *Wb, *Wx;    // (DuP,DzP), (DzP,DuP), (nx,DzP), zero padded
+  uint32_t* W3;                 // split-bf16 operator fragments (split_words)
   const float *cd;              // (Du) const_d, or (ticks,Du) when tracking
   const float *lo, *hi;         // (Dz) bounds over z = [x | u]
   const float *A, *Bm;          // plant (nx,nx), (nx,nu); rollout only
@@ -252,6 +292,7 @@ struct Args {
   int *counter;                 // work counter, 0 at launch
   int B, ticks, tracking;
   int max_iter, check_every, warmup;
+  int n3;                       // split-bf16, fixed: iterations 1..n3 split
   float rho, alpha, pri_tol, dua_tol;
   Dims d;
 };
@@ -263,6 +304,8 @@ struct Smem {
   int *res, *done, *zpar, *viol, *itc, *flags, *inst, *tick, *ret;
   int *list, *nref;
   float *cmu, *csh;
+  const uint4 *W3f, *W3b;      // split operator fragments (forward, backward)
+  int* bsp;                    // split flag of each slot's running iteration
 };
 
 template <bool GOPS>
@@ -285,6 +328,14 @@ __device__ inline Smem carve(const Args& a, float* base, const Layout& L) {
   s.inst = I(L.inst); s.tick = I(L.tick); s.ret = I(L.ret);
   s.list = I(L.list); s.nref = I(L.nref);
   s.cmu = base + L.cmu; s.csh = base + L.csh;
+  s.W3f = s.W3b = nullptr;
+  if (a.d.split) {
+    const uint4* w3 = GOPS ? reinterpret_cast<const uint4*>(a.W3)
+                           : reinterpret_cast<const uint4*>(base + L.W3);
+    s.W3f = w3;
+    s.W3b = w3 + 64 * split_mt_f(a.d) * split_kt_f(a.d);
+  }
+  s.bsp = I(L.bsp);
   return s;
 }
 
@@ -318,6 +369,11 @@ __device__ inline void stage_block(const Args& a, const Layout& L,
     for (int i = tid; i < d.DuP * d.DzP; i += nt) base[L.Wf + i] = a.Wf[i];
     for (int i = tid; i < d.DzP * d.DuP; i += nt) base[L.Wb + i] = a.Wb[i];
     for (int i = tid; i < d.nx * d.DzP; i += nt) base[L.Wx + i] = a.Wx[i];
+    if (d.split) {
+      const uint4* src = reinterpret_cast<const uint4*>(a.W3);
+      uint4* dst = reinterpret_cast<uint4*>(base + L.W3);
+      for (int i = tid; i < split_words(d) / 4; i += nt) dst[i] = src[i];
+    }
   }
   for (int i = tid; i < d.Dz; i += nt) { s.lo[i] = a.lo[i]; s.hi[i] = a.hi[i]; }
   if (a.A != nullptr) {
@@ -327,7 +383,11 @@ __device__ inline void stage_block(const Args& a, const Layout& L,
 }
 
 // Flags of a slot's iteration `it` (1-based). final_solve: the slot's
-// result is returned (every solve; the last tick of a mission).
+// result is returned (every solve; the last tick of a mission). Split-bf16
+// kernels: the TPU package's schedules (_fixed_core, _adaptive_core): a
+// fixed solve splits its first n3 = max_iter - max(1, polish) iterations,
+// an adaptive one every iteration but the checks past the warmup and the
+// one at the cap (so every check, and every result, is a float32 one).
 template <bool ADAPTIVE>
 __device__ inline int iteration_flags(const Args& a, int it, bool final_solve) {
   const bool last = it == a.max_iter;
@@ -335,8 +395,12 @@ __device__ inline int iteration_flags(const Args& a, int it, bool final_solve) {
   const bool record =
       ADAPTIVE ? check && it == (a.max_iter / a.check_every) * a.check_every
                : last;
+  const bool split =
+      a.d.split &&
+      (ADAPTIVE ? !(it > a.warmup && (it % a.check_every == 0 || last))
+                : it <= a.n3);
   return (check ? F_CHECK : 0) | (record ? F_RECORD : 0) |
-         (last && final_solve ? F_EMIT : 0);
+         (last && final_solve ? F_EMIT : 0) | (split ? F_SPLIT : 0);
 }
 
 // y[j] = sum_k x[k] W[k][j] for j < n (W's rows ldw apart), by one warp,
@@ -400,6 +464,136 @@ __device__ inline void slot_xbub(const Args& a, const Smem& s, int i) {
                    [&](int j, float v) { xb[j] = v; });
 }
 
+// ------------------------------------------------ split-bf16 products --
+
+// (x0, x1) as bf16 pairs: hi = bf16(x) (round to nearest even), lo = bf16(x
+// - hi) (x - hi is exact in float32), x0 in the low half of each word, as
+// an mma fragment register holds a pair of adjacent depth entries.
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// c += A B for one m16n8k16 tile: A (16 x 16 bf16, row) in four registers,
+// B (16 x 8 bf16, col) in two, c float32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+template <bool GOPS>
+__device__ __forceinline__ uint4 ldfrag(const uint4* p) {
+  if constexpr (GOPS) return __ldg(p);
+  else return *p;
+}
+
+// P[i][m] = sum_{k < K} x[i][k] Op[k][m] for the slots i < tile that sel(i)
+// names and m < MT * 16, in three bf16 passes: hh = xh Oh, then xh Ol and
+// xl Oh into a second accumulator, P = hh + that (the TPU package's _dot3
+// grouping; lo lo dropped). x's rows lie ldx floats apart (ldx >= K,
+// rounded up to even, zero beyond K). One warp per (tile of 16 operator
+// columns, 8 slots): the slots are the B operand, split here from float2
+// loads of their rows; frag holds the operator's fragments (split_words).
+// emit(i, m, P) takes each result of a selected slot. A tile of slots none
+// of which is selected is skipped (warp-uniform).
+template <bool GOPS, typename Sel, typename Emit>
+__device__ inline void split_product(const float* x, int ldx, int K, int MT,
+                                     int KT, const uint4* frag, int tile,
+                                     Sel&& sel, Emit&& emit) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int NT = (tile + 7) >> 3;
+  for (int item = warp; item < MT * NT; item += nwarps) {
+    const int nt = item / MT, mt = item - nt * MT;
+    const int slot = nt * 8 + g;
+    const bool in = slot < tile;
+    if (!__any_sync(0xffffffffu, in && sel(slot))) continue;
+    const float* xr = x + (size_t)(in ? slot : 0) * ldx;
+    // Each k-step's three passes into fresh accumulators, added to the
+    // running sums by float32 adds: the tensor cores' accumulation rounds
+    // toward zero, and a running sum kept inside them drifted further from
+    // float64 than the plain versions' float32 sums (PERF.md).
+    float hh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float cr[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const uint4* f = frag + (size_t)mt * KT * 64;
+    for (int kt = 0; kt < KT; ++kt, f += 64) {
+      const int k0 = kt * 16 + 2 * t;
+      const float2 z = make_float2(0.0f, 0.0f);
+      const float2 v0 =
+          in && k0 < K ? *reinterpret_cast<const float2*>(xr + k0) : z;
+      const float2 v1 =
+          in && k0 + 8 < K ? *reinterpret_cast<const float2*>(xr + k0 + 8)
+                           : z;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_pair(v0.x, v0.y, bh0, bl0);
+      split_pair(v1.x, v1.y, bh1, bl1);
+      const uint4 ah = ldfrag<GOPS>(f + lane);
+      const uint4 al = ldfrag<GOPS>(f + 32 + lane);
+      float ph[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float pc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_bf16(ph, ah, bh0, bh1);
+      mma_bf16(pc, ah, bl0, bl1);
+      mma_bf16(pc, al, bh0, bh1);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        hh[q] += ph[q];
+        cr[q] += pc[q];
+      }
+    }
+    // c0, c1: operator column mt*16 + g, slots 2t, 2t + 1; c2, c3: column
+    // + 8.
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = nt * 8 + 2 * t + (q & 1);
+      const int m = mt * 16 + g + (q >= 2 ? 8 : 0);
+      if (i < tile && sel(i)) emit(i, m, hh[q] + cr[q]);
+    }
+  }
+}
+
+// The forward product of the slots on a split iteration, into their S rows
+// (forward_stage<..., true> reads it back as its product); and each slot's
+// split flag for the backward stage (bsp: decide_stage has moved the flags
+// on to the next iteration by then).
+template <bool GOPS>
+__device__ inline void split_forward(const Args& a, const Smem& s) {
+  const Dims& d = a.d;
+  if (threadIdx.x < d.tile) {
+    const int i = threadIdx.x;
+    s.bsp[i] = s.done[i] == LIVE && (s.flags[i] & F_SPLIT) != 0;
+  }
+  auto sel = [&](int i) {
+    return s.done[i] == LIVE && (s.flags[i] & F_SPLIT) != 0;
+  };
+  split_product<GOPS>(s.D, d.DuP, d.Du, split_mt_f(d), split_kt_f(d), s.W3f,
+                      d.tile, sel, [&](int i, int m, float v) {
+                        if (m < d.DzP) s.S[i * d.DzP + m] = v;
+                      });
+}
+
+// The backward product of the slots on a split iteration: D = S Wb +
+// const_d (a split iteration is never a check or the cap, so such a slot
+// is live). backward_stage<..., true> skips these rows.
+template <bool GOPS>
+__device__ inline void split_backward(const Args& a, const Smem& s) {
+  const Dims& d = a.d;
+  auto sel = [&](int i) { return s.bsp[i] != 0; };
+  split_product<GOPS>(s.S, d.DzP, d.Dz, split_mt_b(d), split_kt_b(d), s.W3b,
+                      d.tile, sel, [&](int i, int m, float v) {
+                        if (m < d.DuP)
+                          s.D[i * d.DuP + m] = v + s.cd[i * d.DuP + m];
+                      });
+}
+
 // ----------------------------------------------------------------- stages --
 
 // Forward product fused with slack projection, dual ascent and residuals.
@@ -415,7 +609,9 @@ __device__ inline void slot_xbub(const Args& a, const Smem& s, int i) {
 // pre-projection iterate in S (and in u0, U, X where asked), t = relaxed
 // iterate + old dual in YG and the clipped slack in the new slack buffer,
 // for cone_stage and finish_stage.
-template <int RI, bool CONES, bool KEEP_U0, bool GOPS>
+// SPLIT: the rows of slots on a split iteration take their product from S
+// (split_forward); a register tile runs its FFMAs only for a float32 row.
+template <int RI, bool CONES, bool KEEP_U0, bool GOPS, bool SPLIT = false>
 __device__ inline void forward_stage(const Args& a, const Smem& s) {
   const Dims& d = a.d;
   const int lane = threadIdx.x & 31;
@@ -430,15 +626,18 @@ __device__ inline void forward_stage(const Args& a, const Smem& s) {
     const int item = active ? raw : nitems - 1;
     const int g = item / ncg, cg = item - g * ncg;
     const int i0 = g * RI, j0 = cg * TJ;
-    bool dn[RI];
+    bool dn[RI], sp[RI];
     int fl[RI];
-    bool live = false;
+    bool live = false, f32row = false;
     int anyfl = 0;
 #pragma unroll
     for (int r = 0; r < RI; ++r) {
       dn[r] = !active || s.done[i0 + r] != LIVE;
       fl[r] = dn[r] ? 0 : s.flags[i0 + r];
+      sp[r] = SPLIT && (fl[r] & F_SPLIT) != 0;
+      if constexpr (SPLIT) fl[r] &= ~F_SPLIT;
       live |= !dn[r];
+      f32row |= !dn[r] && !sp[r];
       anyfl |= fl[r];
     }
     if (!__any_sync(0xffffffffu, live)) continue;  // warp-uniform
@@ -447,7 +646,7 @@ __device__ inline void forward_stage(const Args& a, const Smem& s) {
     for (int r = 0; r < RI; ++r)
 #pragma unroll
       for (int c = 0; c < TJ; ++c) acc[r][c] = 0.0f;
-    if (live) {
+    if (SPLIT ? f32row : live) {
       const float* Dg = s.D + i0 * d.DuP;
       const float* Wc = s.Wf + j0;
       if constexpr (RI == 4) {
@@ -509,6 +708,15 @@ __device__ inline void forward_stage(const Args& a, const Smem& s) {
             }
           }
         }
+      }
+    }
+    if constexpr (SPLIT) {
+#pragma unroll
+      for (int r = 0; r < RI; ++r) {
+        if (!sp[r]) continue;
+        const float4 p =
+            *reinterpret_cast<const float4*>(s.S + (i0 + r) * d.DzP + j0);
+        acc[r][0] = p.x; acc[r][1] = p.y; acc[r][2] = p.z; acc[r][3] = p.w;
       }
     }
     const float4 l4 = *reinterpret_cast<const float4*>(s.lo + j0);
@@ -804,8 +1012,9 @@ __device__ inline int decide_stage(const Args& a, const Smem& s) {
 // x TJ adjacent columns; its depth Dz is split over ksplit adjacent lanes
 // (k-steps h, h + ksplit, ...), whose partial sums meet in a butterfly of
 // shuffles (a fixed order). A lane sums its k-steps in blocks of BWD_BLOCK
-// (see there). Frozen slots keep their D.
-template <int RI, bool GOPS>
+// (see there). Frozen slots keep their D. SPLIT: the rows of slots on a
+// split iteration are split_backward's.
+template <int RI, bool GOPS, bool SPLIT = false>
 __device__ inline void backward_stage(const Args& a, const Smem& s) {
   const Dims& d = a.d;
   const int H = d.ksplit;
@@ -824,7 +1033,8 @@ __device__ inline void backward_stage(const Args& a, const Smem& s) {
     bool live = false;
 #pragma unroll
     for (int r = 0; r < RI; ++r) {
-      dn[r] = !active || s.done[i0 + r] == DONE;
+      dn[r] = !active || s.done[i0 + r] == DONE ||
+              (SPLIT && d.split && s.bsp[i0 + r] != 0);
       live |= !dn[r];
     }
     if (!__any_sync(0xffffffffu, live)) continue;  // warp-uniform
@@ -1123,8 +1333,10 @@ __device__ inline int refill_stage(const Args& a, const Smem& s, int n,
 // (retire_slot) need no cone code, since the new slacks they read are the
 // projected ones. GOPS: the operators are read from device memory (the
 // caller's padded copies) instead of being staged. RI: slots per register
-// tile.
-template <int RI, bool ADAPTIVE, bool CONES, bool ROLLOUT, bool GOPS>
+// tile. SPLIT: the split-bf16 kernels (the mma passes before each
+// product's stage).
+template <int RI, bool ADAPTIVE, bool CONES, bool ROLLOUT, bool GOPS,
+          bool SPLIT = false>
 __device__ inline void run_block(const Args& a, float* base) {
   const Layout L = make_layout(a.d);
   const Smem s = carve<GOPS>(a, base, L);
@@ -1135,8 +1347,15 @@ __device__ inline void run_block(const Args& a, float* base) {
   constexpr bool LONG = RI == 4;   // long-depth sums (FWD_CHAIN)
   int live =
       refill_stage<ADAPTIVE, ROLLOUT, GOPS, LONG>(a, s, a.d.tile, true);
+  // A split launch whose schedule splits no iteration (d.split = 0) has
+  // no fragments and no bsp: it runs the float32 stages alone.
+  const bool split = SPLIT && a.d.split;
   while (live > 0) {
-    forward_stage<RI, CONES, ROLLOUT, GOPS>(a, s);
+    if (split) {
+      split_forward<GOPS>(a, s);
+      __syncthreads();
+    }
+    forward_stage<RI, CONES, ROLLOUT, GOPS, SPLIT>(a, s);
     __syncthreads();
     if constexpr (CONES) {
       cone_stage(a, s);
@@ -1150,10 +1369,12 @@ __device__ inline void run_block(const Args& a, float* base) {
     live = decide_stage<ADAPTIVE, ROLLOUT>(a, s);
     if (ADAPTIVE) {
       live = __syncthreads_count(live);
-      backward_stage<RI, GOPS>(a, s);
+      backward_stage<RI, GOPS, SPLIT>(a, s);
+      if (split) split_backward<GOPS>(a, s);
       __syncthreads();
     } else {
-      backward_stage<RI, GOPS>(a, s);
+      backward_stage<RI, GOPS, SPLIT>(a, s);
+      if (split) split_backward<GOPS>(a, s);
       live = __syncthreads_count(live);
     }
     const int nret = *s.nref;   // slots waiting to be retired

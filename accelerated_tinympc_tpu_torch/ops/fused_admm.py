@@ -74,7 +74,23 @@ LAUNCH_COUNTS = {
     "fused_solve_adaptive_cones": 0,
     "fused_rollout_cones": 0,
     "fused_rollout_fixed_cones": 0,
+    # the split-bf16 kernels (algo="bf16x3"), the same eight
+    "fused_solve_fixed_bf16x3": 0,
+    "fused_solve_adaptive_bf16x3": 0,
+    "fused_rollout_bf16x3": 0,
+    "fused_rollout_fixed_bf16x3": 0,
+    "fused_solve_fixed_cones_bf16x3": 0,
+    "fused_solve_adaptive_cones_bf16x3": 0,
+    "fused_rollout_cones_bf16x3": 0,
+    "fused_rollout_fixed_cones_bf16x3": 0,
 }
+
+
+def kernel_name(base: str, coned: bool, algo: str) -> str:
+    """The :data:`LAUNCH_COUNTS` key of a launch: ``base`` (e.g.
+    ``"fused_solve_fixed"``), then ``_cones`` and ``_bf16x3``."""
+    return base + ("_cones" if coned else "") + (
+        "_bf16x3" if algo == "bf16x3" else "")
 
 # Kernel geometry. Slots per block are a multiple of the register tile (8
 # slots; 4 where one tile of 8 slots' state does not fit even with the
@@ -408,15 +424,58 @@ class FusedResult(NamedTuple):
 
 # ------------------------------------------------------------ plain version --
 
-def _iteration(D, Y, G, Z, V, pp: PaddedProblem, Xb, Ub, const_d, alpha,
+ALGOS = ("f32", "bf16x3")
+
+
+def split_bf16(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-term bf16 decomposition ``w ~= hi + lo``: ``hi = bf16(w)`` (round
+    to nearest even) carries the top 8 significand bits, ``lo = bf16(w -
+    hi)`` the next 8 (the JAX package's ``_split_bf16``)."""
+    hi = w.to(torch.bfloat16)
+    lo = (w - hi.to(w.dtype)).to(torch.bfloat16)
+    return hi, lo
+
+
+def dot3(x: torch.Tensor, w: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """``x @ w`` in three bf16 passes with sums in ``x``'s type: ``x`` is
+    split as :func:`split_bf16`, ``w`` comes split, and the result is
+    ``xh wh + (xh wl + xl wh)`` (the ``lo lo`` term dropped), the grouping
+    of the JAX package's ``_dot3``. Each bf16 product is exact in float32,
+    so the passes run as float32 (float64 for float64 ``x``) products of
+    the bf16 values."""
+    wh, wl = w
+    xh, xl = split_bf16(x)
+    dot = lambda a, b: torch.matmul(a.to(x.dtype), b.to(x.dtype))
+    return dot(xh, wh) + (dot(xh, wl) + dot(xl, wh))
+
+
+def _dot(x: torch.Tensor, w) -> torch.Tensor:
+    """An f32 operator (a tensor) or a split one (an ``(hi, lo)`` pair)."""
+    return dot3(x, w) if isinstance(w, tuple) else torch.matmul(x, w)
+
+
+def _operator_sets(pp: PaddedProblem, algo: str) -> tuple[tuple, tuple]:
+    """``(split set, f32 set)`` of the in-loop operators ``(W_fd, W_gd, W_q,
+    W_r)``; with ``algo="bf16x3"`` the split set holds ``(hi, lo)`` pairs,
+    split once per solve, else it is the f32 set again."""
+    f32 = (pp.W_fd, pp.W_gd, pp.W_q, pp.W_r)
+    if algo == "bf16x3":
+        return tuple(split_bf16(w) for w in f32), f32
+    return f32, f32
+
+
+def _iteration(D, Y, G, Z, V, W, pp: PaddedProblem, Xb, Ub, const_d, alpha,
                cone_u=None, cone_x=None):
     """One folded condensed ADMM iteration on ``(B, .)`` tensors -- the
     arithmetic of the kernel's forward/clip/dual/backward stages. Stage order
-    is the reference's (src/tinympc/admm.cpp:117-150). ``cone_u``/``cone_x``
-    project the clipped slacks onto the cones (composition after the box
-    clip, as :func:`..solver.cones.cone_slack_update`)."""
-    X = Xb + torch.matmul(D, pp.W_fd)
-    U = Ub + torch.matmul(D, pp.W_gd)
+    is the reference's (src/tinympc/admm.cpp:117-150). ``W = (W_fd, W_gd,
+    W_q, W_r)`` is the iteration's operator set: tensors (float32 products)
+    or ``(hi, lo)`` pairs (:func:`dot3`). ``cone_u``/``cone_x`` project the
+    clipped slacks onto the cones (composition after the box clip, as
+    :func:`..solver.cones.cone_slack_update`)."""
+    W_fd, W_gd, W_q, W_r = W
+    X = Xb + _dot(D, W_fd)
+    U = Ub + _dot(D, W_gd)
     if alpha != 1.0:
         Ur = alpha * U + (1.0 - alpha) * Z
         Xr = alpha * X + (1.0 - alpha) * V
@@ -432,9 +491,45 @@ def _iteration(D, Y, G, Z, V, pp: PaddedProblem, Xb, Ub, const_d, alpha,
     if cone_x is not None:
         Vnew = cone_x(Vnew)
     Gn = T - Vnew
-    Dn = (torch.matmul(Vnew - Gn, pp.W_q)
-          + torch.matmul(Znew - Yn, pp.W_r) + const_d)
+    Dn = _dot(Vnew - Gn, W_q) + _dot(Znew - Yn, W_r) + const_d
     return Dn, Yn, Gn, Znew, Vnew, U, X
+
+
+def split_iteration(it: int, *, algo: str = "f32", max_iter: int = 100,
+                    check_termination: int = 0, warmup_iters: int = 0,
+                    polish: int = 8) -> bool:
+    """Whether iteration ``it`` (1-based) of a solve runs the split products
+    (the JAX package's ``_fixed_core`` / ``_adaptive_core`` schedules).
+    Fixed: the first ``max_iter - max(1, polish)`` iterations. Adaptive:
+    every iteration but the checks past the warmup and the one at the cap
+    (``polish`` is not read). Always False for ``algo="f32"``."""
+    if algo != "bf16x3":
+        return False
+    if check_termination <= 0:
+        return it <= fixed_split_iterations(max_iter, polish, algo)
+    warmup = min(warmup_iters, max_iter - 1)
+    return not (it > warmup and (it % check_termination == 0
+                                 or it == max_iter))
+
+
+def fixed_split_iterations(max_iter: int, polish: int, algo: str) -> int:
+    """Iterations of a fixed ``algo="bf16x3"`` solve that run split (the
+    first ``n3``; 0 for ``algo="f32"``), the kernels' ``n3``."""
+    return max(0, max_iter - max(1, polish)) if algo == "bf16x3" else 0
+
+
+def schedule_splits(algo: str, max_iter: int, check_termination: int = 0,
+                    warmup_iters: int = 0, polish: int = 8) -> bool:
+    """Whether a solve of this schedule runs any split iteration (some
+    iteration :func:`split_iteration` names): a fixed one when ``polish <
+    max_iter``; an adaptive one when it has a warmup or checks less often
+    than every iteration."""
+    if algo != "bf16x3":
+        return False
+    if check_termination <= 0:
+        return fixed_split_iterations(max_iter, polish, algo) > 0
+    return max_iter >= 2 and (min(warmup_iters, max_iter - 1) >= 1
+                              or check_termination >= 2)
 
 
 def _residuals(X, U, Z, V, Znew, Vnew, rho):
@@ -454,12 +549,19 @@ def fused_solve_plain(
     const_d: torch.Tensor | None = None,
     cone_ops: FusedConeOps | None = None,
     cone_mu_u=None, cone_shift_u=None, cone_mu_x=None, cone_shift_x=None,
+    algo: str = "f32", polish: int = 8,
 ) -> FusedResult:
     """Plain PyTorch version of the fused solve (fixed and adaptive): the
     kernel's arithmetic, stage by stage, on whole-batch tensors. Runs on any
     device and in float32 or float64. ``const_d`` (``(1, Du)``) gives the
     folded reference constant directly, as the rollout streams it. The cone
-    arguments are those of :func:`fused_solve`."""
+    arguments are those of :func:`fused_solve`.
+
+    ``algo="bf16x3"`` runs the iterations that :func:`split_iteration`
+    names with :func:`dot3` products (operators split once per solve, the
+    iterate at every product) and the others, and the hoisted x0 products,
+    in the input's type. float64 inputs take the same bf16 splits with
+    float64 sums (the JAX fused tier has no float64)."""
     mu_rows, shift_rows = _cone_rows(
         cone_ops, cone_mu_u, cone_shift_u, cone_mu_x, cone_shift_x,
         x0.shape[0])
@@ -473,14 +575,19 @@ def fused_solve_plain(
         Ub = torch.matmul(x0, pp.W_gx)
         D, Y, G, Z, V = carry
         B = x0.shape[0]
-        step = lambda D, Y, G, Z, V: _iteration(
-            D, Y, G, Z, V, pp, Xb, Ub, const_d, alpha, cone_u, cone_x)
+        W3, Wf = _operator_sets(pp, algo)
+        sched = dict(algo=algo, max_iter=max_iter,
+                     check_termination=check_termination,
+                     warmup_iters=warmup_iters, polish=polish)
+        step = lambda it, D, Y, G, Z, V: _iteration(
+            D, Y, G, Z, V, W3 if split_iteration(it, **sched) else Wf, pp,
+            Xb, Ub, const_d, alpha, cone_u, cone_x)
         stats = torch.zeros((B, 6), dtype=x0.dtype, device=x0.device)
 
         if check_termination <= 0:
-            for _ in range(max_iter - 1):
-                D, Y, G, Z, V, _U, _X = step(D, Y, G, Z, V)
-            Dn, Yn, Gn, Znew, Vnew, U, X = step(D, Y, G, Z, V)
+            for it in range(1, max_iter):
+                D, Y, G, Z, V, _U, _X = step(it, D, Y, G, Z, V)
+            Dn, Yn, Gn, Znew, Vnew, U, X = step(max_iter, D, Y, G, Z, V)
             # Residuals of the final iteration against the pre-save slacks.
             stats[:, 0] = max_iter
             for k, r in enumerate(
@@ -499,7 +606,7 @@ def fused_solve_plain(
         X = torch.zeros_like(G)
         col = lambda m: m[:, None]
         for it in range(1, max_iter + 1):
-            Dn, Yn, Gn, Znew, Vnew, Un, Xn = step(D, Y, G, Z, V)
+            Dn, Yn, Gn, Znew, Vnew, Un, Xn = step(it, D, Y, G, Z, V)
             live = ~done
             newly = torch.zeros_like(done)
             if it > warmup and it % check_termination == 0:
@@ -530,15 +637,29 @@ def fused_solve_plain(
 
 # ------------------------------------------------------------------ kernel --
 
+def split_words(nx: int, nu: int, horizon: int) -> int:
+    """32-bit words of the split-bf16 operator fragments (``split_words``
+    in ``csrc/admm_iteration.cuh``): Wf^T and Wb^T in tiles of 16 rows by
+    16 depth, 256 words (hi and lo halves) a tile."""
+    Dx, Du = horizon * nx, (horizon - 1) * nu
+    t = lambda n: -(-n // 16)
+    Dz = Dx + Du
+    return 256 * (t(Dz) * t(Du) + t(Du) * t(Dz))
+
+
 def kernel_smem_bytes(nx: int, nu: int, horizon: int, tile: int,
-                      ncp: int = 0, placement: str = "shared") -> int:
+                      ncp: int = 0, placement: str = "shared",
+                      split: bool = False) -> int:
     """Dynamic shared memory one block needs: mirrors ``make_layout`` in
     ``csrc/admm_iteration.cuh`` (the C entry refuses a launch when the two
     disagree). ``ncp`` is the number of cones with per-instance mu/shift
     rows (0 for static cone parameters and for box-only solves): the coned
     kernels need nothing else beyond the box layout. ``placement="device"``
     leaves the operators Wf, Wb, Wx out (the kernels read them from device
-    memory)."""
+    memory). ``split`` (the ``algo="bf16x3"`` kernels) adds the split
+    operator fragments beside the float32 operators (:func:`split_words`;
+    with them in device memory too at ``placement="device"``) and a flag
+    per slot."""
     if placement not in PLACEMENTS:
         raise ValueError(f"placement must be one of {PLACEMENTS}")
     r4 = lambda n: (n + 3) & ~3
@@ -554,6 +675,9 @@ def kernel_smem_bytes(nx: int, nu: int, horizon: int, tile: int,
         + 9 * tile + 4                             # per-slot ints, nref
         + 2 * r4(ncp * tile)
     )
+    if split:
+        words += tile + (split_words(nx, nu, horizon)
+                         if placement == "shared" else 0)
     return 4 * words
 
 
@@ -585,17 +709,20 @@ def tpu_horizon_limit(nx: int, nu: int) -> int:
 
 
 def choose_placement(dims: tuple, limit: int = SMEM_LIMIT_BYTES,
-                     ncp: int = 0) -> str:
+                     ncp: int = 0, split: bool = False) -> str:
     """Where the kernels keep the condensed operators: ``"shared"`` wherever
     they fit beside one register tile of 8 slots (every shape that ran
     before the device placement keeps its kernel), else ``"device"`` (read
     from device memory, resident in L2) while one register tile of per-slot
     state fits, of 8 slots or else of 4. Raises past that, with the bytes
-    needed."""
+    needed. ``split``: the ``algo="bf16x3"`` kernels' layout (the split
+    operators count beside the float32 ones)."""
     nx, nu, N = dims
-    if kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp) <= limit:
+    if kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp, "shared",
+                         split) <= limit:
         return "shared"
-    need = kernel_smem_bytes(nx, nu, N, REGISTER_TILES[-1], ncp, "device")
+    need = kernel_smem_bytes(nx, nu, N, REGISTER_TILES[-1], ncp, "device",
+                             split)
     if need <= limit:
         return "device"
     raise ValueError(
@@ -608,20 +735,21 @@ def choose_placement(dims: tuple, limit: int = SMEM_LIMIT_BYTES,
 
 
 def choose_register_tile(dims: tuple, limit: int = SMEM_LIMIT_BYTES,
-                         ncp: int = 0, placement: str | None = None) -> int:
+                         ncp: int = 0, placement: str | None = None,
+                         split: bool = False) -> int:
     """Slots per register tile at ``placement`` (default
     :func:`choose_placement`): 8 wherever one such tile fits (every shape
     that ran before keeps its kernel), else 4, which only the device
     placement takes. Raises if neither fits."""
     nx, nu, N = dims
     if placement is None:
-        placement = choose_placement(dims, limit, ncp)
+        placement = choose_placement(dims, limit, ncp, split)
     for ri in REGISTER_TILES:
         if ri != REGISTER_TILE and placement != "device":
             break
-        if kernel_smem_bytes(nx, nu, N, ri, ncp, placement) <= limit:
+        if kernel_smem_bytes(nx, nu, N, ri, ncp, placement, split) <= limit:
             return ri
-    need = kernel_smem_bytes(nx, nu, N, ri, ncp, placement)
+    need = kernel_smem_bytes(nx, nu, N, ri, ncp, placement, split)
     raise ValueError(
         f"one register tile of {ri} slots at nx={nx}, nu={nu}, horizon={N} "
         f"needs {need} bytes of shared memory with the operators in "
@@ -631,21 +759,23 @@ def choose_register_tile(dims: tuple, limit: int = SMEM_LIMIT_BYTES,
 def choose_tile(dims: tuple, batch: int, n_sm: int = 132,
                 limit: int = SMEM_LIMIT_BYTES, ncp: int = 0,
                 placement: str | None = None,
-                register_tile: int | None = None) -> int:
+                register_tile: int | None = None,
+                split: bool = False) -> int:
     """Slots per block: the largest multiple of the register tile that fits
     shared memory, not more than spreads the batch over all SMs, at
     ``placement`` (default: :func:`choose_placement`, which raises if even
     one register tile does not fit) and ``register_tile`` slots per register
-    tile (default: :func:`choose_register_tile`)."""
+    tile (default: :func:`choose_register_tile`); ``split`` as there."""
     nx, nu, N = dims
     if placement is None:
-        placement = choose_placement(dims, limit, ncp)
-    ri = register_tile or choose_register_tile(dims, limit, ncp, placement)
+        placement = choose_placement(dims, limit, ncp, split)
+    ri = register_tile or choose_register_tile(dims, limit, ncp, placement,
+                                               split)
     if ri not in REGISTER_TILES or (ri != REGISTER_TILE
                                     and placement != "device"):
         raise ValueError(f"register tiles of {ri} slots: take 8, or 4 with "
                          "the operators in device memory")
-    need = kernel_smem_bytes(nx, nu, N, ri, ncp, placement)
+    need = kernel_smem_bytes(nx, nu, N, ri, ncp, placement, split)
     if need > limit:
         raise ValueError(
             f"one register tile of {ri} slots at nx={nx}, nu={nu}, "
@@ -653,7 +783,8 @@ def choose_tile(dims: tuple, batch: int, n_sm: int = 132,
             f"operators in {placement} memory (limit {limit})")
     fit = ri
     while (fit + ri <= MAX_TILE and
-           kernel_smem_bytes(nx, nu, N, fit + ri, ncp, placement) <= limit):
+           kernel_smem_bytes(nx, nu, N, fit + ri, ncp, placement,
+                             split) <= limit):
         fit += ri
     per_sm = -(-batch // n_sm)
     want = -(-per_sm // ri) * ri
@@ -663,22 +794,28 @@ def choose_tile(dims: tuple, batch: int, n_sm: int = 132,
 _F, _I, _P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 
 
-def _library() -> ctypes.CDLL:
-    """Load (building at first use) the kernels and declare their C
-    signatures; every pointer and the stream are ``c_void_p``."""
+def _library(algo: str = "f32") -> ctypes.CDLL:
+    """Load (building at first use) the kernels of ``algo`` (the float32
+    ones from ``csrc/fused_admm.cu``, the split-bf16 ones from
+    ``csrc/fused_admm_bf16x3.cu``; both export the same C entries) and
+    declare their C signatures; every pointer and the stream are
+    ``c_void_p``."""
     from ._build import load_library
 
-    lib = load_library("fused_admm")
+    lib = load_library("fused_admm_bf16x3" if algo == "bf16x3"
+                       else "fused_admm")
     if not getattr(lib, "_atm_declared", False):
         lib.atm_fused_smem_bytes.argtypes = [_I] * 6
         lib.atm_fused_smem_bytes.restype = _I
+        lib.atm_fused_split_words.argtypes = [_I] * 3
+        lib.atm_fused_split_words.restype = _I
         lib.atm_fused_solve.argtypes = (
             [_P] * 22 + [_I] * 2 + [_P] * 3 + [_I] * 7 + [_F] * 4 + [_I] * 5
-            + [_P])
+            + [_P, _I, _P])
         lib.atm_fused_solve.restype = _I
         lib.atm_fused_rollout.argtypes = (
             [_P] * 25 + [_I] * 2 + [_P] + [_I] * 9 + [_F] * 4 + [_I] * 5
-            + [_P])
+            + [_P, _I, _P])
         lib.atm_fused_rollout.restype = _I
         lib._atm_declared = True
     return lib
@@ -717,29 +854,46 @@ def _checked_operands(W_f, W_b, W_x, lo, hi, dims, device) -> tuple:
 
 def _geometry(dims: tuple, B: int, device, batch_tile, threads,
               ncp: int = 0, placement: str | None = None,
-              register_tile: int | None = None):
+              register_tile: int | None = None, split: bool = False):
     """``(tile, threads, smem bytes, placement, register tile)`` of one
     launch; the placement is :func:`choose_placement`'s and the register
-    tile :func:`choose_register_tile`'s unless given."""
+    tile :func:`choose_register_tile`'s unless given. ``split``: the
+    ``algo="bf16x3"`` kernels."""
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
     nx, nu, N = dims
     if placement is None:
-        placement = choose_placement(dims, limit, ncp)
-    ri = register_tile or choose_register_tile(dims, limit, ncp, placement)
+        placement = choose_placement(dims, limit, ncp, split)
+    ri = register_tile or choose_register_tile(dims, limit, ncp, placement,
+                                               split)
     if batch_tile is None:
         tile = choose_tile(dims, B, props.multi_processor_count, limit, ncp,
-                           placement, ri)
+                           placement, ri, split)
     else:
         tile = max(ri, -(-int(batch_tile) // ri) * ri)
         tile = min(tile, choose_tile(dims, 10 ** 9, 1, limit, ncp,
-                                     placement, ri))
+                                     placement, ri, split))
     if threads is None:
         threads = (MAX_THREADS if ri != REGISTER_TILE
                    else min(MAX_THREADS, THREADS_PER_INSTANCE * tile))
     threads = max(int(threads), -(-tile // 32) * 32)
-    return (tile, threads, kernel_smem_bytes(nx, nu, N, tile, ncp, placement),
+    return (tile, threads,
+            kernel_smem_bytes(nx, nu, N, tile, ncp, placement, split),
             placement, ri)
+
+
+def _split_scratch(lib, dims: tuple, splits: bool, device):
+    """The split-bf16 kernels' scratch for the operator fragments, split
+    once per launch; ``None`` where the launch splits no iteration (the
+    float32 kernels, and a split-bf16 schedule without split iterations,
+    whose layout then holds no fragments)."""
+    if not splits:
+        return None
+    words = lib.atm_fused_split_words(*dims)
+    if words != split_words(*dims):
+        raise RuntimeError("split_words of the wrapper and the kernel "
+                           f"disagree ({split_words(*dims)} vs {words})")
+    return torch.empty(words, dtype=torch.int32, device=device)
 
 
 def work_counter(device) -> torch.Tensor:
@@ -770,14 +924,9 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def _unsupported(algo, polish) -> None:
-    if algo == "bf16x3":
-        raise NotImplementedError(
-            "algo='bf16x3' is the TPU's split-operand MXU mode; its Hopper "
-            "counterpart (a split-operand tensor-core mode) comes with the "
-            "'Hopper arithmetic modes for K1-K3' item of ROADMAP.md")
-    if algo != "f32":
-        raise ValueError(f"unknown algo {algo!r}; use 'f32'")
+def _check_algo(algo: str) -> None:
+    if algo not in ALGOS:
+        raise ValueError(f"unknown algo {algo!r}; use 'f32' or 'bf16x3'")
 
 
 def fused_solve(
@@ -832,12 +981,19 @@ def fused_solve(
     same bits where it fits, at one launch geometry (the backward product's
     depth split follows slots and threads).
 
+    ``algo="bf16x3"`` is the JAX package's split-operand mode: the
+    iterations that :func:`split_iteration` names run their two products
+    as three bf16 passes with float32 sums (:func:`dot3`; on the card
+    ``mma.sync`` bf16 tensor-core products, ``csrc/fused_admm_bf16x3.cu``),
+    the others in float32: fixed solves the last ``polish`` iterations,
+    adaptive solves every check past the warmup and the iteration at the
+    cap, so the residuals that decide a freeze are float32 ones. The hoisted
+    x0 products stay float32. An unknown ``algo`` raises ``ValueError``.
+
     Tensors on the CPU go through :func:`fused_solve_plain`; tensors on a
-    CUDA device launch the kernel (float32 only) or raise. ``algo='bf16x3'``
-    raises ``NotImplementedError`` for now (``polish`` is that mode's knob
-    and is not read).
+    CUDA device launch the kernel (float32 only) or raise.
     """
-    _unsupported(algo, polish)
+    _check_algo(algo)
     if max_iter < 1:
         raise ValueError("the fused tier runs at least one iteration; "
                          "use the scan tier for max_iter=0")
@@ -850,6 +1006,7 @@ def fused_solve(
             alpha=alpha, cone_ops=cone_ops,
             cone_mu_u=cone_mu_u, cone_shift_u=cone_shift_u,
             cone_mu_x=cone_mu_x, cone_shift_x=cone_shift_x,
+            algo=algo, polish=polish,
         ), "fused_solve")
 
     B = x0.shape[0]
@@ -865,6 +1022,7 @@ def fused_solve(
         abs_dua_tol=abs_dua_tol, alpha=alpha, batch_tile=batch_tile,
         threads=threads, placement=placement, register_tile=register_tile,
         cone_ops=cone_ops, mu_rows=mu_rows, shift_rows=shift_rows,
+        algo=algo, polish=polish,
     ), "fused_solve")
 
 
@@ -872,12 +1030,13 @@ def _launch_solve(
     x0, carry, W_f, W_b, W_x, const_d, lo, hi, dims, rho_f, *, max_iter,
     check_termination, warmup_iters, abs_pri_tol, abs_dua_tol, alpha,
     batch_tile, threads, placement, register_tile, cone_ops=None,
-    mu_rows=None, shift_rows=None,
+    mu_rows=None, shift_rows=None, algo="f32", polish=8,
 ) -> FusedResult:
-    """One launch of K1 (``check_termination == 0``) or K2 on CUDA tensors:
-    checks the operands, sizes the launch (:func:`_geometry`), zeroes the
-    work counter, counts the launch. :func:`fused_solve` and the
-    ``atm_torch::fused_solve`` op both launch through here."""
+    """One launch of K1 (``check_termination == 0``) or K2 on CUDA tensors,
+    float32 or split-bf16 (``algo``): checks the operands, sizes the launch
+    (:func:`_geometry`), zeroes the work counter, counts the launch.
+    :func:`fused_solve` and the ``atm_torch::fused_solve`` op both launch
+    through here."""
     nx, nu, N = dims
     Dx, Du = N * nx, (N - 1) * nu
     B = x0.shape[0]
@@ -898,8 +1057,11 @@ def _launch_solve(
     const_d = _check("const_d", const_d, (1, Du), dev)
     W_f, W_b, W_x, lo, hi = _checked_operands(W_f, W_b, W_x, lo, hi, dims,
                                               dev)
+    splits = schedule_splits(algo, max_iter, check_termination,
+                             warmup_iters, polish)
     tile, threads, smem, placement, ri = _geometry(
-        dims, B, dev, batch_tile, threads, ncp, placement, register_tile)
+        dims, B, dev, batch_tile, threads, ncp, placement, register_tile,
+        splits)
 
     new = lambda w: torch.empty((B, w), dtype=torch.float32, device=dev)
     U, X, D, Y, G, Z, V = (new(Du), new(Dx), new(Du), new(Du), new(Dx),
@@ -907,7 +1069,8 @@ def _launch_solve(
     stats = new(6)
     adaptive = check_termination > 0
     counter = work_counter(dev)
-    lib = _library()
+    lib = _library(algo)
+    w3 = _split_scratch(lib, dims, splits, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.atm_fused_solve(
@@ -926,12 +1089,15 @@ def _launch_solve(
             min(int(warmup_iters), int(max_iter) - 1) if adaptive else 0,
             float(rho_f), float(alpha),
             float(abs_pri_tol), float(abs_dua_tol),
-            tile, threads, smem, int(placement == "device"), ri, stream,
+            tile, threads, smem, int(placement == "device"), ri,
+            None if w3 is None else w3.data_ptr(),
+            0 if adaptive else fixed_split_iterations(max_iter, polish, algo),
+            stream,
         )
     _raise_on(err, "fused_solve")
-    LAUNCH_COUNTS[
-        ("fused_solve_adaptive" if adaptive else "fused_solve_fixed")
-        + ("_cones" if coned else "")] += 1
+    LAUNCH_COUNTS[kernel_name(
+        "fused_solve_adaptive" if adaptive else "fused_solve_fixed", coned,
+        algo)] += 1
     return FusedResult(
         U=U, X=X, carry=FusedCarry(D=D, Y=Y, G=G, Z=Z, V=V), stats=stats)
 

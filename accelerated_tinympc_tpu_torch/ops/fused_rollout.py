@@ -44,8 +44,12 @@ from .fused_admm import (
     _cone_table,
     _geometry,
     _library,
+    _split_scratch,
+    fixed_split_iterations,
+    kernel_name,
+    schedule_splits,
     _raise_on,
-    _unsupported,
+    _check_algo,
     work_counter,
     fold_const_d,
     fused_solve_plain,
@@ -118,10 +122,12 @@ def fused_rollout_plain(
     abs_pri_tol: float = 1e-3, abs_dua_tol: float = 1e-3,
     warmup_iters: int = 0, const_seq: torch.Tensor | None = None,
     alpha: float = 1.0, cone_ops: FusedConeOps | None = None,
+    algo: str = "f32", polish: int = 8,
 ) -> RolloutResult:
     """Plain PyTorch version of the in-kernel rollout: the kernel's tick loop
     on whole-batch tensors, each tick through :func:`fused_solve_plain`
-    (with ``cone_ops``: coned solves)."""
+    (with ``cone_ops``: coned solves; ``algo``/``polish``: each tick's
+    schedule of split iterations)."""
     _validate(max_iter, n_ticks)
     with torch.no_grad():
         const_d = fold_const_d(pp) if const_seq is None else None
@@ -135,6 +141,7 @@ def fused_rollout_plain(
                 check_termination=check_termination,
                 abs_pri_tol=abs_pri_tol, abs_dua_tol=abs_dua_tol,
                 warmup_iters=warmup_iters, alpha=alpha, cone_ops=cone_ops,
+                algo=algo, polish=polish,
             )
             carry = res.carry
             u0 = res.U[:, : pp.dims[1]]
@@ -187,10 +194,14 @@ def fused_rollout(
     the launch geometry, operator placement and register tile of
     :func:`.fused_admm.fused_solve`.
 
+    ``algo``/``polish`` are :func:`.fused_admm.fused_solve`'s, applied to
+    every tick's solve (``algo="bf16x3"`` launches the split-bf16 kernels of
+    ``csrc/fused_admm_bf16x3.cu``).
+
     Tensors on the CPU go through :func:`fused_rollout_plain`; tensors on a
     CUDA device launch the kernel (float32 only) or raise.
     """
-    _unsupported(algo, polish)
+    _check_algo(algo)
     _validate(max_iter, n_ticks)
     T = int(n_ticks)
     Du = pp.Du
@@ -203,7 +214,7 @@ def fused_rollout(
             check_termination=check_termination,
             abs_pri_tol=abs_pri_tol, abs_dua_tol=abs_dua_tol,
             warmup_iters=warmup_iters, const_seq=const_seq, alpha=alpha,
-            cone_ops=cone_ops,
+            cone_ops=cone_ops, algo=algo, polish=polish,
         ), "fused_rollout")
 
     nx, nu, N = pp.dims
@@ -214,9 +225,11 @@ def fused_rollout(
     D0 = _check("carry.D", carry.D, (B, Du), dev)
     Z0 = _check("carry.Z", carry.Z, (B, Du), dev)
     V0 = _check("carry.V", carry.V, (B, Dx), dev)
+    splits = schedule_splits(algo, max_iter, check_termination,
+                             warmup_iters, polish)
     tile, threads, smem, placement, ri = _geometry(
         pp.dims, B, dev, batch_tile, threads, placement=placement,
-        register_tile=register_tile)
+        register_tile=register_tile, split=splits)
     W_f, W_b, W_x, lo, hi = _checked_operands(pp.W_f, pp.W_b, pp.W_x, pp.lo,
                                               pp.hi, pp.dims, dev)
     A = _check("rops.A", rops.A, (nx, nx), dev)
@@ -237,7 +250,8 @@ def fused_rollout(
     stats = new(B, 6)
     adaptive = check_termination > 0
     counter = work_counter(dev)
-    lib = _library()
+    lib = _library(algo)
+    w3 = _split_scratch(lib, pp.dims, splits, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.atm_fused_rollout(
@@ -253,11 +267,15 @@ def fused_rollout(
             min(int(warmup_iters), int(max_iter) - 1) if adaptive else 0,
             float(pp.rho_f), float(alpha),
             float(abs_pri_tol), float(abs_dua_tol),
-            tile, threads, smem, int(placement == "device"), ri, stream,
+            tile, threads, smem, int(placement == "device"), ri,
+            None if w3 is None else w3.data_ptr(),
+            0 if adaptive else fixed_split_iterations(max_iter, polish, algo),
+            stream,
         )
     _raise_on(err, "fused_rollout")
-    LAUNCH_COUNTS["fused_rollout" + ("" if adaptive else "_fixed")
-                  + ("_cones" if cone_idx is not None else "")] += 1
+    LAUNCH_COUNTS[kernel_name(
+        "fused_rollout" + ("" if adaptive else "_fixed"),
+        cone_idx is not None, algo)] += 1
     final = FusedResult(
         U=U, X=X, carry=FusedCarry(D=D, Y=Y, G=G, Z=Z, V=V), stats=stats)
     return check_outputs(

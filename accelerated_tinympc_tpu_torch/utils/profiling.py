@@ -15,9 +15,11 @@ here profiling is part of the package). Counterpart of the JAX package's
 - :func:`solve_bound`, :func:`riccati_bound`, :func:`hetero_bound`,
   :func:`stream_bound` give the least time one H100 could take for each
   CUDA kernel's work on a given run's data (:data:`PEAK_FP32_FLOPS`,
-  :data:`PEAK_BYTES_PER_S`): the larger of bytes over the memory rate (each
-  input read once, each output written once) and FP32 operations over the
-  FP32 rate.
+  :data:`PEAK_BF16_FLOPS`, :data:`PEAK_BYTES_PER_S`): the larger of bytes
+  over the memory rate (each input read once, each output written once)
+  and the operations over the rate of their type (FP32; the fused
+  kernels' split-bf16 products at the bf16 tensor rate,
+  :func:`split_iters_of`).
 """
 
 from __future__ import annotations
@@ -31,8 +33,11 @@ from typing import Any, Callable, Iterator
 import torch
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
-# tensor cores, and HBM3 bandwidth. The kernels are FP32-FMA work.
+# tensor cores, dense bf16 on the tensor cores (the fused kernels'
+# algo="bf16x3" products), and HBM3 bandwidth. The other kernels are
+# FP32-FMA work.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -202,24 +207,53 @@ def stream_cost(
 # ------------------------------------------------- the card's least times --
 
 def solve_bound(dims, iters_total: float, n_solves: float, batch: int,
-                ticks: int = 0):
+                ticks: int = 0, split_iters: float = 0.0):
     """Least time the card could take for the fused kernels (K1-K4): the
     larger of bytes / memory rate (each input read once, each output
-    written once) and operations / FP32 peak. ``iters_total`` is the sum
+    written once) and the operations' time. ``iters_total`` is the sum
     over instances (and ticks) of the iterations this run's data needed;
     ``n_solves`` counts the hoisted x0 products; ``ticks`` > 0 for a
-    mission. Returns ``(ms, "operations" or "bytes")``."""
+    mission. ``split_iters`` of the ``iters_total`` iterations ran
+    ``algo="bf16x3"``'s split products: each of their two products is three
+    bf16 passes at :data:`PEAK_BF16_FLOPS`; the other iterations' products,
+    the x0 products and the plant steps count at :data:`PEAK_FP32_FLOPS`,
+    and the operations' time is the sum of the two. Returns ``(ms,
+    "operations" or "bytes")``."""
     nx, nu, N = dims
     Dx, Du = N * nx, (N - 1) * nu
-    flops = iters_total * 2 * (Du * Dx + Du * Du + Dx * Du + Du * Du)
+    per_iter = 2 * (Du * Dx + Du * Du + Dx * Du + Du * Du)
+    flops = (iters_total - split_iters) * per_iter
     flops += n_solves * 2 * nx * (Dx + Du)
     flops += n_solves * 2 * nx * (nx + nu) if ticks else 0
     carry_in = nx + 3 * Du + 2 * Dx if not ticks else nx + 2 * Du + Dx
     out = 4 * Du + 3 * Dx + 6 + (ticks * (nu + 1) + nx if ticks else 0)
     operators = 2 * Du * (Dx + Du) + nx * (Dx + Du) + 2 * (Dx + Du) + Du
     nbytes = 4 * (batch * (carry_in + out) + operators + ticks * Du)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops = (flops / PEAK_FP32_FLOPS
+             + 3 * split_iters * per_iter / PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def split_iters_of(iters, *, max_iter: int, check_termination: int = 0,
+                   warmup_iters: int = 0, polish: int = 8) -> float:
+    """How many of the iterations that solves ran were split ones under
+    ``algo="bf16x3"``'s schedule: ``iters`` holds each solve's iteration
+    count (a tensor or array: per instance, or per instance and tick), the
+    schedule keywords are the solves' (the iterations that
+    :func:`..ops.fused_admm.split_iteration` names)."""
+    import numpy as np
+
+    from ..ops.fused_admm import split_iteration
+
+    counts = np.asarray(iters.cpu() if hasattr(iters, "cpu") else iters,
+                        np.int64).ravel()
+    split = [split_iteration(it, algo="bf16x3", max_iter=max_iter,
+                             check_termination=check_termination,
+                             warmup_iters=warmup_iters, polish=polish)
+             for it in range(1, max_iter + 1)]
+    split_before = np.concatenate([[0], np.cumsum(split)])   # in 1..count
+    return float(split_before[np.clip(counts, 0, max_iter)].sum())
 
 
 def riccati_bound(nx, nu, steps_total: float, batch: int, inner: int = 0,

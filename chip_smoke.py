@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # needs one CUDA device, nvcc and g++
 
-Builds the CUDA kernels from the sources in this checkout (four sources, one
-``nvcc`` each, started together), holds each kernel against its plain PyTorch
+Builds the CUDA kernels from the sources in this checkout (one ``nvcc``
+for each source, started together), holds each kernel against its plain PyTorch
 version on the card at batch 4,099 (the heterogeneous-plant kernels also
 against a float64 plain version and the plain version on the CPU, and
 against the fused kernels on a fleet of identical plants), times each at
@@ -44,6 +44,11 @@ two ranks on the one card over gloo (``--gloo-rank`` child processes,
 quadrotor's generated C++ project built with g++ and run 70 ticks against
 K1 and the golden CSVs; ``NativeSolver.solve_batch`` at 1,024 against the
 fused tier. Each kernel row carries ``sixth_path_launches``.
+Before the sixth, ``bf16x3_path``: the fused kernels' split-bf16 mode
+(``algo="bf16x3"``, ``mma.sync`` bf16 products) against its plain versions,
+the float32 kernels and the golden CSVs, bit for bit with the float32
+kernels where no iteration splits, through ``TinyMPC(algo="bf16x3")`` at
+65,536 and timed beside the float32 kernels.
 Every phase prints one JSON line with the seconds since the start;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the exit code is non-zero and no result line is printed. Without a CUDA
@@ -242,6 +247,135 @@ def compare_rollout(name, got, want, check_every, tol=1e-3):
             "failures": _bars(name, errs, agree, worst,
                               3 * max(check_every, 1), extra,
                               min_agree=AGREE_MISSION)}
+
+
+CARRY_FIELDS = ("D", "Y", "G", "Z", "V")
+
+
+def solve_fields(r):
+    """The compared fields of a solve result, a row per instance."""
+    return dict(U=r.U, X=r.X, **{k: getattr(r.carry, k) for k in CARRY_FIELDS})
+
+
+def solve_sched(r):
+    """A solve's schedule per instance: its count and its solved flag."""
+    return r.stats[:, :2]
+
+
+# The split-bf16 kernels' rule (rule="split" below): the kernel's products
+# round in the tensor cores, so its errors are a third sample of the
+# float32 noise that the two plain versions show, not a subset of it.
+SPLIT_Q = 0.99           # the quantile of per-instance errors held ...
+SPLIT_Q_MARGIN = 1.25    # ... within this of the larger plain version's
+SPLIT_MAX_MARGIN = 3.5   # the largest error, likewise (or the bar)
+# Both set between the sound kernel's readings and those of planted faults
+# (tools/torch_bf16x3_faults.py; PERF.md §6): 0.99-quantile ratios
+# 0.99-1.13 sound, 1.36-11 with no split iteration; largest-error ratios
+# up to 3.03 sound, 4.05 with the sums running inside the tensor cores
+# (there under the absolute bar, which the margin never lowers).
+
+
+def arbitrate(case, got, want, ref64, plain_cpu, block, rule="spread",
+              fields=solve_fields, sched=solve_sched):
+    """The float64 arbiter of ``case`` (``compare_solve`` or
+    ``compare_rollout`` of the kernel ``got`` against another float32
+    version ``want`` on the card) where the case misses its bars.
+    ``ref64`` is the float64 plain version (or a callable run only here),
+    ``plain_cpu()`` the float32 plain version on the CPU. On the instances
+    whose schedule (``sched(r)``, a row per instance) equals float64's in
+    the kernel and both float32 versions, each field (``fields(r)``)
+    passes, by ``rule``:
+
+    * ``"spread"``: no further from float64 than the bar or the further
+      of the two float32 versions (the kernel inside their spread);
+    * ``"split"`` (the split-bf16 kernels): the SPLIT_Q quantile of the
+      kernel's per-instance errors within SPLIT_Q_MARGIN of the larger
+      float32 version's (no systematic loss of accuracy) and its largest
+      error within the bar or SPLIT_MAX_MARGIN times the larger float32
+      version's (the largest error over 4,099 instances sits on the few
+      whose rounding the iteration amplifies most, or on a slack at a
+      cone's or a bound's edge, a different instance in each version);
+      and at least half the instances compared.
+
+    Either way the kernel's schedule agrees with float64 no less than
+    ``want``'s minus 1 point and never strays from it by more than
+    ``want``'s worst plus ``block`` iterations; solved flags that disagree
+    below the cap (``hard_failures``) fail."""
+    if not case["failures"]:
+        case["held_by"] = "kernel_vs_f32"
+        return case
+    name = case["case"]
+    cpu = plain_cpu()
+    r64 = ref64() if callable(ref64) else ref64
+    fk, fw, fc, f64 = (fields(r) for r in (got, want, cpu, r64))
+    dev = next(iter(fk.values())).device
+    sk, sw, sc, s64 = (sched(r).to(dev).double()
+                       for r in (got, want, cpu, r64))
+    ok_k = (sk == s64).all(dim=1)
+    ok_w = (sw == s64).all(dim=1)
+    every = ok_k & ok_w & (sc == s64).all(dim=1)
+    arb = {"agree_f64": {"kernel": float(ok_k.float().mean()),
+                         "other_f32": float(ok_w.float().mean())},
+           "worst_vs_f64": {"kernel": float((sk - s64).abs().max()),
+                            "other_f32": float((sw - s64).abs().max())},
+           "compared_share": float(every.float().mean()), "err_vs_f64": {}}
+    if rule == "split":
+        arb[f"q{SPLIT_Q}_vs_f64"], arb["rms_vs_f64"] = {}, {}
+    fails = list(case.get("hard_failures", []))
+
+    def per_instance(a, b):
+        return (a[every].double() - b[every].double()).abs().flatten(1).amax(
+            dim=1)
+
+    for k in fk:
+        f64k = f64[k].to(dev)
+        ek, ew, ec = (max_err(f[k].to(dev), f64k, every) for f in (fk, fw, fc))
+        arb["err_vs_f64"][k] = {"kernel": ek, "other_f32": ew,
+                                "plain_f32_cpu": ec}
+        tol = STATE_TOL if k in STATE_FIELDS else VAL_TOL
+        if rule == "spread":
+            bar = max(tol, ew, ec)
+        else:
+            bar = max(tol, SPLIT_MAX_MARGIN * max(ew, ec))
+            per = [per_instance(f[k].to(dev), f64k) for f in (fk, fw, fc)]
+            qk, qw, qc = (float(torch.quantile(d, SPLIT_Q)) if d.numel()
+                          else 0.0 for d in per)
+            arb[f"q{SPLIT_Q}_vs_f64"][k] = {
+                "kernel": qk, "other_f32": qw, "plain_f32_cpu": qc}
+            arb["rms_vs_f64"][k] = dict(zip(
+                ("kernel", "other_f32", "plain_f32_cpu"),
+                (float((f[k].to(dev)[every].double() - f64k[every].double())
+                       .pow(2).mean().sqrt()) if int(every.sum()) else 0.0
+                 for f in (fk, fw, fc))))
+            if not qk <= SPLIT_Q_MARGIN * max(qw, qc):
+                fails.append(f"{name}: {k} {SPLIT_Q} quantile {qk} from "
+                             f"float64 > {SPLIT_Q_MARGIN} x {max(qw, qc)}")
+        if not ek <= bar:
+            fails.append(f"{name}: {k} {ek} from float64 > {bar}")
+    if arb["agree_f64"]["kernel"] < arb["agree_f64"]["other_f32"] - 0.01:
+        fails.append(f"{name}: schedule agrees with float64 on "
+                     f"{arb['agree_f64']}")
+    if arb["worst_vs_f64"]["kernel"] > (arb["worst_vs_f64"]["other_f32"]
+                                        + block):
+        fails.append(f"{name}: counts off float64 by {arb['worst_vs_f64']}")
+    if rule == "split" and not arb["compared_share"] >= 0.5:
+        fails.append(f"{name}: float64 schedule shared by "
+                     f"{arb['compared_share']} of the instances")
+    case["arbiter_float64"] = arb
+    case["bars_kernel_vs_f32"] = case["failures"]
+    case["held_by"] = "float64_arbiter"
+    case["failures"] = fails
+    return case
+
+
+def arbitrated(name, got, want, ref64, check, rho, plain_cpu,
+               max_iter=100):
+    """``arbitrate`` of one solve by the spread rule: ``got`` (a kernel)
+    against ``want`` (another float32 version on the card) on the bars of
+    ``compare_solve``, the float64 plain version ``ref64`` arbitrating."""
+    return arbitrate(compare_solve(name, got, want, check, rho,
+                                   max_iter=max_iter),
+                     got, want, ref64, plain_cpu, max(check, 1))
 
 
 def raise_failures(cases) -> None:
@@ -1119,6 +1253,583 @@ def sixth_path(dev: str = "cuda") -> dict:
     return out
 
 
+# ------------------------------------------------------------ bf16x3 path
+# The split-bf16 mode's workloads beside the float32 kernels' rows: K1 cold
+# fixed-100 at polish 8 (and 6), K2 on K2's warm workload (checks every
+# iteration: no split iteration, so the float32 arithmetic in the split
+# kernel) and at checks every 5 with the JAX test's tolerance 0.05
+# (tests/test_fused.py:261), K3 over 70 ticks at checks every 5 (so split
+# iterations run between them), K4 a/b/c on the lander. The mode's checks
+# are float32 iterations after split ones, so a check's dual residual holds
+# the switch of arithmetic: on the quadrotor it floors at a few 1e-3 (the
+# JAX package's mode alike, tests/test_torch_bf16x3.py), and the adaptive
+# workloads take tolerances above that floor.
+BF16X3_TOL = dict(abs_pri_tol=1e-2, abs_dua_tol=1e-2)
+BF16X3_ADAPTIVE = dict(max_iter=400, check_termination=5, abs_pri_tol=0.05,
+                       abs_dua_tol=0.05)
+BF16X3_MISSION = dict(max_iter=100, check_termination=5, **BF16X3_TOL)
+BF16X3_COMPARE_TICKS = 10   # K3, K4 c against their plain versions at 4,099
+# Short solves where the two arithmetics part (a few iterations pin the
+# schedule, as tests/test_torch_bf16x3.py shows against the JAX package on
+# the CPU): fixed at 5 iterations, adaptive at 8 with checks every 3 past a
+# warmup of 2, under tolerances that no instance meets (every solve runs to
+# its cap), missions of 3 such ticks.
+BF16X3_SHORT_FIXED = dict(max_iter=5, check_termination=0)
+BF16X3_SHORT_ADAPTIVE = dict(max_iter=8, check_termination=3, warmup_iters=2,
+                             abs_pri_tol=1e-12, abs_dua_tol=1e-12)
+BF16X3_SHORT_TICKS = 3
+# Short solves (split_separation): the share of instances nearer the
+# kernel's own schedule than any other plain version, and the median
+# distances this many times apart, 5 fixed iterations, or adaptive solves
+# and missions, where the flips of the split compound (sound kernel, PERF.md
+# §6: shares 0.77-0.99, factors 18-57 fixed, 1.9-7.5 adaptive; planted
+# faults: shares 0-0.52 or factors 0.002-1.96 in the cases they touch).
+SPLIT_NEARER = 0.6
+SPLIT_SEP_FIXED = 10.0
+SPLIT_SEP_ADAPTIVE = 1.5
+SPLIT_CLOSER = 0.85  # held cases: median error vs the split plain version
+                     # within this of the same vs the float32 plain version
+                     # (sound 0.016-0.68, no split iteration 6.1-44)
+
+
+def split_closer(case, got, want, plain_f32, field, sched, schedule):
+    """Adds to ``case`` (a split-bf16 kernel ``got`` against the split plain
+    version ``want`` of its schedule) the check that the kernel sits nearer
+    ``want`` than the float32 plain version ``plain_f32()`` of the same
+    inputs: on the instances whose schedule (``sched``) all three share,
+    the median over instances of the kernel's largest error in ``field(r)``
+    (a row per instance) against ``want`` within SPLIT_CLOSER of the same
+    against the float32 version. A schedule that splits no iteration
+    (``schedule``, the solve's keywords) makes the two plain versions one,
+    and is not read (the bit-for-bit checks cover it)."""
+    from accelerated_tinympc_tpu_torch.ops.fused_admm import schedule_splits
+
+    skw = {k: v for k, v in schedule.items() if k in (
+        "max_iter", "check_termination", "warmup_iters", "polish")}
+    if not schedule_splits("bf16x3", **skw):
+        case["closer_to_split"] = "no split iteration"
+        return case
+    f32 = plain_f32()
+    sk, sw, sf = (sched(r).double() for r in (got, want, f32))
+    same = (sk == sw).all(dim=1) & (sk == sf).all(dim=1)
+    n = int(same.sum())
+
+    if not n:
+        case["failures"].append(f"{case['case']}: no instance shares the "
+                                "schedule of the float32 plain version")
+        return case
+    per = lambda a, b: (field(a)[same].double() - field(b)[same].double()
+                        ).abs().flatten(1).amax(dim=1)
+    db, df = per(got, want), per(got, f32)
+    mb, mf = float(db.median()), float(df.median())
+    case["closer_to_split"] = {
+        "median_vs_split_plain": mb, "median_vs_f32_plain": mf,
+        "median_split_plain_vs_f32_plain": float(per(want, f32).median()),
+        "ratio": mb / mf if mf else None,
+        "kernel_nearer_share": float((db < df).float().mean()),
+        "compared_share": n / same.numel()}
+    if not mb <= SPLIT_CLOSER * mf:
+        case["failures"].append(
+            f"{case['case']}: median error {mb} from the split plain version "
+            f"> {SPLIT_CLOSER} x {mf} from the float32 plain version")
+    return case
+
+
+def split_separation(name, run_k, run_p, kw, alts, field, iters, sep):
+    """A short split-bf16 solve (or mission) where the arithmetics part:
+    ``run_k(**kw)`` (the kernel) against ``run_p(**kw)`` (the plain
+    version), both taking ``algo``; ``field(r)`` a row per instance. Each
+    other plain version, the float32 one and those of a schedule one
+    iteration off (``alts``: keywords over ``kw``), is held apart from the
+    split plain version by two readings per instance (largest error): the
+    share of instances on which the kernel is nearer the split plain
+    version than the other (at least SPLIT_NEARER), and the median over
+    instances of the other's distance to the split plain version over the
+    kernel's (at least ``sep``). Largest errors over all instances are
+    reported beside them: the split is discontinuous, so an iterate one
+    float32 ulp apart (the kernel's sums against the plain version's) may
+    split into other bf16 pairs and move a product by as much as the
+    mode itself, and on the worst instances the two arithmetics do not
+    part. Every solve runs to its cap (``iters(r)``). Returns the row,
+    its ``failures`` empty when it passes."""
+    bf = dict(algo="bf16x3")
+    got, want = run_k(**bf, **kw), run_p(**bf, **kw)
+    others = {"float32": run_p(**kw), **{
+        k: run_p(**bf, **{**kw, **v}) for k, v in alts.items()}}
+    per = lambda a, b: (field(a).double() - field(b).double()).abs().flatten(
+        1).amax(dim=1)
+    dk = per(got, want)
+    row = {"case": name, "kernel_vs_split_plain": {
+        "max": float(dk.max()), "median": float(dk.median())}, "others": {}}
+    for k, r in others.items():
+        do = per(r, want)
+        row["others"][k] = {
+            "max": float(do.max()), "median": float(do.median()),
+            "kernel_nearer_share": float((dk < per(got, r)).float().mean())}
+    m_k = row["kernel_vs_split_plain"]["median"]
+    m_o = min(v["median"] for v in row["others"].values())
+    row["median_factor"] = m_o / m_k if m_k else None
+    row["nearer_share"] = min(v["kernel_nearer_share"]
+                              for v in row["others"].values())
+    row["failures"] = []
+    if not row["nearer_share"] >= SPLIT_NEARER:
+        row["failures"].append(
+            f"{name}: nearer share {row['nearer_share']} < {SPLIT_NEARER} "
+            "(instances nearer the plain version of the kernel's schedule "
+            "than the float32 one or a schedule one iteration off)")
+    if not sep * m_k <= m_o:
+        row["failures"].append(
+            f"{name}: median factor {row['median_factor']} < {sep} (the "
+            f"kernel {m_k} from the plain version of its schedule, the "
+            f"nearest other {m_o})")
+    if not bool((iters(got) == kw["max_iter"]).all()):
+        row["failures"].append(f"{name}: a solve stopped before its cap")
+    return row
+
+
+def bf16x3_checks(dev: str = "cuda") -> dict:
+    """The split-bf16 kernels' checks at batch 4,099, the first part of
+    :func:`bf16x3_path`. Each kernel against the plain version of its
+    schedule (the float64 plain version of the same splits arbitrates,
+    ``arbitrate(rule="split")``, where two float32 plain versions, the
+    card's and the CPU's, stray further apart than the bars: the split is
+    discontinuous, so sums in another order move a product by up to 2^-17
+    of its terms), and nearer it than the float32 plain version
+    (``split_closer``); short solves where the arithmetics part, one case a
+    kernel (``separation``); against the float32 kernels (K1 at polish 8
+    and 6 within 1e-4 on the controls; the adaptive mode at checks every 5
+    and tolerance 0.05: every instance converged, residuals under the
+    tolerance, controls within 5e-4 where the two stop at the same check);
+    bit for bit against the float32 kernels where no iteration splits
+    (polish >= max_iter; checks every iteration) at one launch geometry;
+    and the quadrotor's hovering mission of fixed-50 solves through K1 at
+    polish 8 and 6 against the golden CSV (1e-4). Raises on no failed check
+    (``tools/torch_bf16x3_faults.py`` reads the checks of kernels built
+    with planted faults): returns ``{"cases", "vs_float32", "separation",
+    "bit_exact", "plain_ms", "failures"}``."""
+    import accelerated_tinympc_tpu_torch as atm
+    from accelerated_tinympc_tpu_torch.api.mpc import fused_mpc_rollout
+    from accelerated_tinympc_tpu_torch.ops import fused_admm
+    from accelerated_tinympc_tpu_torch.ops import (
+        FusedCarry, fused_rollout, fused_rollout_plain, fused_solve,
+        fused_solve_plain, pad_cones, pad_problem, rollout_ops,
+    )
+    from accelerated_tinympc_tpu_torch.solver.cascade import cascade_solve
+
+    BF = dict(algo="bf16x3")
+    f64 = torch.float64
+    B = KERNEL_BATCH
+    cases, exact, vs_f32, plain_ms = [], {}, [], {}
+
+    def pad64(problem, cache):
+        return pad_problem(problem.to(dtype=f64), cache.to(dtype=f64),
+                           atm.condensed_operators(
+                               cache, problem.A, problem.B, problem.horizon,
+                               dtype=f64, device=dev), dtype=f64, device=dev)
+
+    def held(name, xs, cy, pp, pp64, kw, cones=None, dims=None):
+        """The kernel against the plain version of its schedule, arbitrated
+        by the float64 plain version, and nearer it than the float32 plain
+        version. Returns ``(kernel, case, plain ms)``."""
+        ck = lambda p: {} if cones is None else {"cone_ops": pad_cones(p, cones)}
+        got = fused_solve(xs, cy, pp, **BF, **ck(pp), **kw)
+        want, ms = timed(lambda: fused_solve_plain(
+            xs, cy, pp, **BF, **ck(pp), **kw))
+        cpu_pp = pp.to(device="cpu")
+        check = kw.get("check_termination", 0)
+        case = arbitrate(
+            compare_solve(name, got, want, check, pp.rho_f,
+                          max_iter=kw["max_iter"]), got, want,
+            lambda: fused_solve_plain(
+                xs.double(), FusedCarry(*(t.double() for t in cy)), pp64,
+                **BF, **ck(pp64), **kw),
+            lambda: fused_solve_plain(
+                xs.cpu(), FusedCarry(*(t.cpu() for t in cy)), cpu_pp, **BF,
+                **ck(cpu_pp), **kw), max(check, 1), rule="split")
+        split_closer(case, got, want, lambda: fused_solve_plain(
+            xs, cy, pp, **ck(pp), **kw), lambda r: r.U, solve_sched, kw)
+        if cones is not None:
+            nx, nu, _N = dims
+            Bn = got.U.shape[0]
+            zz, vv = got.carry.Z.reshape(Bn, -1, nu), got.carry.V.reshape(
+                Bn, -1, nx)
+            excess = max([cone_excess(zz, c) for c in cones.input_cones]
+                         + [cone_excess(vv, c) for c in cones.state_cones])
+            case["cone_excess"] = excess
+            if not excess <= CONE_TOL:
+                case["failures"].append(
+                    f"{name}: final slack violates a cone by {excess}")
+        cases.append(case)
+        return got, case, ms
+
+    def mission(name, xs, cy, problem, pp, pp64, T, kw, check, tol,
+                cones=None):
+        """A mission against the plain mission of its schedule, the float64
+        plain mission as arbiter, and nearer it than the float32 plain
+        mission."""
+        ck = lambda p: {} if cones is None else {"cone_ops": pad_cones(p, cones)}
+        rops = rollout_ops(problem, pp, device=dev)
+        got = fused_rollout(xs, cy, pp, rops, T, **BF, **ck(pp), **kw)
+        want, ms = timed(lambda: fused_rollout_plain(
+            xs, cy, pp, rops, T, **BF, **ck(pp), **kw))
+        cpu_pp = pp.to(device="cpu")
+        case = arbitrate(
+            compare_rollout(name, got, want, check, tol), got, want,
+            lambda: fused_rollout_plain(
+                xs.double(), FusedCarry(*(t.double() for t in cy)), pp64,
+                rollout_ops(problem, pp64, f64, dev), T, **BF, **ck(pp64),
+                **kw),
+            lambda: fused_rollout_plain(
+                xs.cpu(), FusedCarry(*(t.cpu() for t in cy)), cpu_pp,
+                rollout_ops(problem, cpu_pp, device="cpu"), T, **BF,
+                **ck(cpu_pp), **kw), 3 * max(check, 1), rule="split",
+            fields=lambda r: dict(us=r.us.transpose(0, 1), x_final=r.x_final,
+                                  **solve_fields(r.final)),
+            sched=lambda r: r.iters.T)
+        split_closer(case, got, want, lambda: fused_rollout_plain(
+            xs, cy, pp, rops, T, **ck(pp), **kw),
+            lambda r: r.us.transpose(0, 1), lambda r: r.iters.T, kw)
+        cases.append(case)
+        return case, ms
+
+    # ------------------------------------------ against the plain versions
+    problem, cache, pp, x0s = flagship(B, dev)
+    pp64 = pad64(problem, cache)
+    cold = FusedCarry.zeros(B, pp, device=dev)
+    x1, warm = warm_start(problem, pp, x0s, dev)
+    for polish in (8, 6):
+        kw = dict(max_iter=100, check_termination=0, polish=polish)
+        got, case, ms = held(
+            f"K1 bf16x3 fixed-100 cold polish={polish}", x0s, cold, pp, pp64,
+            kw)
+        f32 = fused_solve(x0s, cold, pp, max_iter=100)
+        err = max_err(got.U, f32.U)
+        vs_f32.append({"case": f"K1 polish={polish} vs the float32 kernel",
+                       "u_err": err, "bar": VAL_TOL,
+                       "failures": [] if err <= VAL_TOL else [
+                           f"K1 polish={polish}: controls {err} from the "
+                           "float32 kernel"]})
+        plain_ms[f"K1 p{polish}"] = (case, ms)
+    _g, case, ms = held("K2 bf16x3 warm check=1", x1, warm, pp, pp64, WARM_KW)
+    plain_ms["K2"] = (case, ms)
+    geo3 = fused_admm._geometry(pp.dims, B, dev, None, None, split=True)
+    geo = dict(batch_tile=geo3[0], threads=geo3[1], placement=geo3[3])
+    fields = lambda r: (r.U, r.X, r.stats) + tuple(r.carry)
+    exact["K2 warm check=1 is the float32 kernel's bits"] = all(
+        torch.equal(a, b) for a, b in zip(
+            fields(fused_solve(x1, warm, pp, **BF, **WARM_KW, **geo)),
+            fields(fused_solve(x1, warm, pp, **WARM_KW, **geo))))
+    exact["K1 polish=100 is the float32 kernel's bits"] = all(
+        torch.equal(a, b) for a, b in zip(
+            fields(fused_solve(x0s, cold, pp, max_iter=100, polish=100,
+                               **BF, **geo)),
+            fields(fused_solve(x0s, cold, pp, max_iter=100, **geo))))
+    got, _case, _ms = held("K2 bf16x3 warm check=5 tol=0.05", x1, warm, pp,
+                           pp64, BF16X3_ADAPTIVE)
+    f32 = fused_solve(x1, warm, pp, **BF16X3_ADAPTIVE)
+    same = got.stats[:, 0] == f32.stats[:, 0]
+    adaptive = {
+        "case": "K2 check=5 tol=0.05 vs the float32 kernel (warm)",
+        "converged": float(got.stats[:, 1].mean()),
+        "converged_f32": float(f32.stats[:, 1].mean()),
+        "residual_max": float(got.stats[:, 2:].max()),
+        "counts_agree": float(same.float().mean()),
+        "u_err_same_count": max_err(got.U, f32.U, same)}
+    adaptive["failures"] = (
+        [] if adaptive["converged"] == 1.0 else ["not every instance converged"]
+    ) + ([] if adaptive["residual_max"] < 0.05 else ["residual over tol"]) + (
+        [] if adaptive["u_err_same_count"] <= 5e-4 else ["controls > 5e-4"]) + (
+        [] if adaptive["counts_agree"] >= AGREE_SOLVE else ["counts differ"])
+    vs_f32.append(adaptive)
+
+    T = BF16X3_COMPARE_TICKS
+    plain_ms["K3"] = mission(f"K3 bf16x3 {T} ticks check=5", x0s, cold,
+                             problem, pp, pp64, T, BF16X3_MISSION, 5, 1e-3)
+
+    lproblem, lcache, lpp, lx0 = lander(B, dev)
+    lpp64 = pad64(lproblem, lcache)
+    lcold = FusedCarry.zeros(B, lpp, device=dev)
+    lcones = lander_cones()
+    for key, kw in (("K4a", LANDER_FIXED), ("K4b", LANDER_ADAPTIVE)):
+        _g, case, ms = held(f"{key} bf16x3 lander cones", lx0, lcold, lpp,
+                            lpp64, kw, cones=lcones, dims=(6, 3, 15))
+        plain_ms[key] = (case, ms)
+    plain_ms["K4c"] = mission(
+        f"K4c bf16x3 lander coned mission {T} ticks", lx0, lcold, lproblem,
+        lpp, lpp64, T, LANDER_MISSION, 2, 1e-2, cones=lcones)
+
+    # ------------------------ short solves where the two arithmetics part
+    rops = rollout_ops(problem, pp, device=dev)
+    lcops = pad_cones(lpp, lcones)
+    lrops = rollout_ops(lproblem, lpp, device=dev)
+    solve_u, solve_it = (lambda r: r.U), (lambda r: r.stats[:, 0])
+    tick_u, tick_it = (lambda r: r.us.transpose(0, 1)), (lambda r: r.iters)
+    quad_k = lambda **a: fused_solve(x0s, cold, pp, **a)
+    quad_p = lambda **a: fused_solve_plain(x0s, cold, pp, **a)
+    land_k = lambda **a: fused_solve(lx0, lcold, lpp, cone_ops=lcops, **a)
+    land_p = lambda **a: fused_solve_plain(lx0, lcold, lpp, cone_ops=lcops,
+                                           **a)
+    TS = BF16X3_SHORT_TICKS
+    AD, FX = BF16X3_SHORT_ADAPTIVE, BF16X3_SHORT_FIXED
+    late = {"warmup=3": dict(warmup_iters=AD["warmup_iters"] + 1)}
+    SF, SA = SPLIT_SEP_FIXED, SPLIT_SEP_ADAPTIVE
+    short = [(f"K1 max_iter=5 polish={p}", quad_k, quad_p,
+              dict(**FX, polish=p), {f"polish={q}": dict(polish=q)
+                                     for q in alts}, solve_u, solve_it, SF)
+             for p, alts in ((1, (2,)), (2, (1, 3)))]
+    short += [
+        ("K2 max_iter=8 warmup=2 check=3", quad_k, quad_p, AD, late,
+         solve_u, solve_it, SA),
+        (f"K3 {TS} ticks max_iter=8 warmup=2 check=3",
+         lambda **a: fused_rollout(x0s, cold, pp, rops, TS, **a),
+         lambda **a: fused_rollout_plain(x0s, cold, pp, rops, TS, **a),
+         AD, late, tick_u, tick_it, SA),
+        ("K4a lander max_iter=5 polish=1", land_k, land_p,
+         dict(**FX, polish=1), {"polish=2": dict(polish=2)}, solve_u,
+         solve_it, SF),
+        ("K4b lander max_iter=8 warmup=2 check=3", land_k, land_p, AD, late,
+         solve_u, solve_it, SA),
+        (f"K4c lander {TS} ticks max_iter=8 warmup=2 check=3",
+         lambda **a: fused_rollout(lx0, lcold, lpp, lrops, TS,
+                                   cone_ops=lcops, **a),
+         lambda **a: fused_rollout_plain(lx0, lcold, lpp, lrops, TS,
+                                         cone_ops=lcops, **a),
+         AD, late, tick_u, tick_it, SA)]
+    sep = [split_separation(*args) for args in short]
+
+    # the cascade and TinyMPC at the comparison batch
+    segs = []
+    casc = cascade_solve(x1, warm, pp, segment_iters=25, trace=segs, **BF,
+                         **BF16X3_ADAPTIVE)
+    mono = fused_solve(x1, warm, pp, **BF, **BF16X3_ADAPTIVE)
+    same = casc.stats[:, 0] == mono.stats[:, 0]
+    cc = {"case": "cascade_solve bf16x3 vs one launch", "segments": segs,
+          "iters_agree": float(same.float().mean()),
+          "u_err_same_schedule": max_err(casc.U, mono.U, same)}
+    cc["failures"] = ([] if cc["iters_agree"] >= AGREE_SOLVE else
+                      ["cascade counts"]) + (
+        [] if cc["u_err_same_schedule"] <= VAL_TOL else ["cascade controls"])
+    cases.append(cc)
+    mpc = atm.TinyMPC.from_parts(
+        problem, cache, tier="fused", batch=B, algo="bf16x3", device=dev,
+        settings=atm.Settings(max_iter=100, check_termination=0))
+    mpc.set_x0(x0s)
+    mpc.solve()
+    direct = fused_solve(x0s, cold, pp, max_iter=100, **BF)
+    exact["TinyMPC(algo='bf16x3') is the kernel"] = all(
+        torch.equal(a, b) for a, b in zip(fields(mpc._fused_result),
+                                          fields(direct)))
+
+    # the golden hovering mission, fixed-50 solves through K1 (tick loop)
+    rows = np.loadtxt(GOLDEN / "hovering_fixed50_traj.csv", delimiter=",")
+    gprob, gcache, gx0 = atm.models.quadrotor_hovering_setup(device=dev)
+    gpp = atm.TinyMPC.from_parts(gprob, gcache, tier="fused",
+                                 device=dev)._pp
+    golden = {}
+    for polish in (8, 6):
+        _xf, us, _c = fused_mpc_rollout(
+            gpp, torch.as_tensor(gx0[None], dtype=torch.float32, device=dev),
+            70, problem=gprob, max_iter=50, algo="bf16x3", polish=polish)
+        golden[f"polish={polish}"] = float(np.abs(
+            us[:, 0].cpu().numpy() - rows[:, 13:17]).max())
+    vs_f32.append({"case": "K1 hovering fixed-50 golden CSV", **golden,
+                   "failures": [f"golden {k}: {v}" for k, v in golden.items()
+                                if not v <= VAL_TOL]})
+    torch.cuda.synchronize()
+    failures = [f for c in cases + vs_f32 + sep for f in c["failures"]] + [
+        f"bf16x3: {k} is not bit-exact" for k, v in exact.items() if not v]
+    return {"cases": cases, "vs_float32": vs_f32, "separation": sep,
+            "bit_exact": exact, "plain_ms": plain_ms, "failures": failures}
+
+
+def bf16x3_path(dev: str = "cuda") -> tuple[dict, list]:
+    """The fused tier's split-bf16 mode (``algo="bf16x3"``, the kernels of
+    ``csrc/fused_admm_bf16x3.cu``) at full width: :func:`bf16x3_checks`
+    at batch 4,099, then the mode's main path through
+    ``TinyMPC(algo="bf16x3")`` at batch 65,536 with the launch counts set
+    to 0 just before and read just after, and each kernel timed beside its
+    float32 twin. Returns ``(phase fields, kernel rows)``; raises on a
+    failed check."""
+    import accelerated_tinympc_tpu_torch as atm
+    from accelerated_tinympc_tpu_torch.ops import fused_admm
+    from accelerated_tinympc_tpu_torch.ops import (
+        FusedCarry, fused_rollout, fused_solve, pad_cones, rollout_ops,
+    )
+    from accelerated_tinympc_tpu_torch.utils.profiling import (
+        solve_bound, split_iters_of,
+    )
+
+    t0 = time.perf_counter()
+    BF = dict(algo="bf16x3")
+    chk = bf16x3_checks(dev)
+    emit("bf16x3_kernels", batch=KERNEL_BATCH, **{
+        k: chk[k] for k in ("cases", "vs_float32", "separation", "bit_exact")})
+    if chk["failures"]:
+        raise AssertionError("; ".join(chk["failures"]))
+    small = chk["plain_ms"]
+    lcones = lander_cones()
+    lproblem, lcache, lpp, lx0 = lander(MAIN_BATCH, dev)
+
+    # ------------------------------------ the mode's main path at 65,536
+    MB = MAIN_BATCH
+    qprob, qcache, qx0 = atm.models.quadrotor_hovering_setup(device=dev)
+    rng = np.random.default_rng(0)
+    qx0s = qx0[None] + 0.05 * rng.standard_normal((MB, 12))
+
+    def quad(check, segment=0):
+        m = atm.TinyMPC.from_parts(
+            qprob, qcache, tier="fused", batch=MB, algo="bf16x3", device=dev,
+            compaction_segment=segment,
+            settings=atm.Settings(max_iter=100, check_termination=check,
+                                  **BF16X3_TOL))
+        m.set_x0(qx0s)
+        return m
+
+    lmpc = lambda: atm.TinyMPC.from_parts(
+        lproblem, lcache, tier="fused", batch=MB, cones=lcones, algo="bf16x3",
+        device=dev, settings=atm.Settings(**LANDER_ADAPTIVE))
+    quad(0).solve()   # warm-up: the split kernels' library loaded
+    fused_admm.reset_launch_counts()
+    steps = {}
+
+    def step(name, fn, n):
+        out, ms = timed(fn)
+        steps[name] = {"ms": ms, "solves_per_s": n / ms * 1e3}
+        return out
+
+    mpc = quad(0)
+    step("solve_fixed100", mpc.solve, MB)
+    u_fixed = mpc.get_u()
+    mpc.settings = mpc.settings.replace(check_termination=5)
+    step("solve_adaptive_check5_after_fixed", mpc.solve, MB)
+    mpc.reset_duals()
+    xf_k, us_k = step("rollout70_in_kernel",
+                      lambda: mpc.rollout(70, in_kernel=True), 70 * MB)
+    xf_l, us_l = step("rollout10_tick_loop",
+                      lambda: mpc.rollout(10, in_kernel=False), 10 * MB)
+    mpc.reset_duals()
+    st = step("solve_adaptive_check5_warm", mpc.solve, MB)
+    cmpc = quad(5, segment=25)
+    cmpc.rollout(12, in_kernel=True)
+    cmpc.reset_duals()
+    step("cascade_warm_check5", cmpc.solve, MB)
+    lf = lmpc()
+    lf.set_x0(lx0)
+    st_l = step("lander_cones_solve_adaptive", lf.solve, MB)
+    lf.settings = lf.settings.replace(max_iter=100, check_termination=0)
+    lf.reset_duals()
+    step("lander_cones_solve_fixed100", lf.solve, MB)
+    lf.settings = lf.settings.replace(**LANDER_MISSION)
+    xf_c, us_c = step("lander_cones_rollout30_in_kernel",
+                      lambda: lf.rollout(30, in_kernel=True), 30 * MB)
+    counts = dict(fused_admm.LAUNCH_COUNTS)
+    for name, arr in (("u_fixed", u_fixed), ("us_k", us_k.cpu().numpy()),
+                      ("us_l", us_l.cpu().numpy()), ("us_c", us_c.cpu().numpy()),
+                      ("xf_k", xf_k.cpu().numpy()), ("xf_c", xf_c.cpu().numpy())):
+        assert np.isfinite(arr).all(), f"bf16x3 path: {name} not finite"
+    assert u_fixed.shape == (MB, 9, 4) and us_k.shape == (70, MB, 4)
+    assert us_c.shape == (30, MB, 3) and us_l.shape == (10, MB, 4)
+    for name, st_ in (("solve_adaptive_check5_warm", st),
+                      ("lander_cones_solve_adaptive", st_l)):
+        steps[name]["converged_fraction"] = st_["converged_fraction"]
+    assert st["converged_fraction"] > 0, st["converged_fraction"]
+    assert st_l["converged_fraction"] > 0.5, st_l["converged_fraction"]
+    names = ("fused_solve_fixed_bf16x3", "fused_solve_adaptive_bf16x3",
+             "fused_rollout_bf16x3", "fused_solve_fixed_cones_bf16x3",
+             "fused_solve_adaptive_cones_bf16x3", "fused_rollout_cones_bf16x3")
+    for k in names:
+        assert counts[k] > 0, f"bf16x3 path never launched {k}: {counts}"
+    del mpc, cmpc, lf
+
+    # ----------------------------- times beside the float32 twins, 65,536
+    problem, cache, pp, x0s = flagship(MB, dev)
+    cold = FusedCarry.zeros(MB, pp, device=dev)
+    x1, warm = warm_start(problem, pp, x0s, dev)
+    rops = rollout_ops(problem, pp, device=dev)
+    lcold = FusedCarry.zeros(MB, lpp, device=dev)
+    lcops = pad_cones(lpp, lcones)
+    lrops = rollout_ops(lproblem, lpp, device=dev)
+    K1P8 = dict(max_iter=100, check_termination=0, polish=8)
+    specs = (   # key, name, replaces, run(**algo), schedule, ticks, dims
+        ("K1 p8", "fused_solve_fixed_bf16x3",
+         "accelerated_tinympc_tpu/ops/fused_admm.py:672",
+         lambda **a: fused_solve(x0s, cold, pp, **K1P8, **a), K1P8, 0,
+         pp.dims),
+        ("K2", "fused_solve_adaptive_bf16x3",
+         "accelerated_tinympc_tpu/ops/fused_admm.py:740",
+         lambda **a: fused_solve(x1, warm, pp, **WARM_KW, **a), WARM_KW, 0,
+         pp.dims),
+        ("K3", "fused_rollout_bf16x3",
+         "accelerated_tinympc_tpu/ops/fused_rollout.py:125",
+         lambda **a: fused_rollout(x0s, cold, pp, rops, 70, **BF16X3_MISSION,
+                                   **a), BF16X3_MISSION, 70, pp.dims),
+        ("K4a", "fused_solve_fixed_cones_bf16x3",
+         "accelerated_tinympc_tpu/ops/fused_admm.py:326",
+         lambda **a: fused_solve(lx0, lcold, lpp, cone_ops=lcops,
+                                 **LANDER_FIXED, **a), LANDER_FIXED, 0,
+         lpp.dims),
+        ("K4b", "fused_solve_adaptive_cones_bf16x3",
+         "accelerated_tinympc_tpu/ops/fused_admm.py:326",
+         lambda **a: fused_solve(lx0, lcold, lpp, cone_ops=lcops,
+                                 **LANDER_ADAPTIVE, **a), LANDER_ADAPTIVE, 0,
+         lpp.dims),
+        ("K4c", "fused_rollout_cones_bf16x3",
+         "accelerated_tinympc_tpu/ops/fused_admm.py:326",
+         lambda **a: fused_rollout(lx0, lcold, lpp, lrops, 30, cone_ops=lcops,
+                                   **LANDER_MISSION, **a), LANDER_MISSION, 30,
+         lpp.dims))
+    rows_out, extra_ms = [], {}
+    for key, name, replaces, run, sched, ticks, dims in specs:
+        # in turns: float32, split, float32 again for K1; float32 and split
+        # for the rest
+        f32_ms = [cuda_ms(lambda: run())]
+        ms = cuda_ms(lambda: run(**BF))
+        if key.startswith("K1"):
+            f32_ms.append(cuda_ms(lambda: run()))
+        out = run(**BF)
+        its = out.iters if ticks else out.stats[:, 0]
+        n_solves = MB * (ticks or 1)
+        skw = {k: v for k, v in sched.items() if k in (
+            "max_iter", "check_termination", "warmup_iters", "polish")}
+        split = split_iters_of(its, **skw)
+        bound_ms, bound_by = solve_bound(dims, float(its.sum()), n_solves, MB,
+                                         ticks, split_iters=split)
+        case, plain_ms = small[key]
+        tile, threads, _smem, placement, ri = fused_admm._geometry(
+            dims, MB, dev, None, None,
+            split=fused_admm.schedule_splits("bf16x3", **skw))
+        rows_out.append({
+            "name": name, "route": "cuda",
+            "source": "accelerated_tinympc_tpu_torch/ops/csrc/"
+                      "fused_admm_bf16x3.cu",
+            "replaces": replaces + " (algo='bf16x3')",
+            "launches": counts[name], "max_abs_err": case["max_abs_err"],
+            "ms": ms, "plain_ms": plain_ms, "plain_batch": KERNEL_BATCH,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "f32_twin_ms": f32_ms,
+            "iters_mean": float(its.float().mean()),
+            "split_iters_share": split / float(its.sum()),
+            "tile_threads_placement": [tile, threads, placement]})
+    extra_ms["K1 polish=6"] = cuda_ms(lambda: fused_solve(
+        x0s, cold, pp, max_iter=100, polish=6, **BF))
+    extra_ms["K1 polish=8 placement=device"] = cuda_ms(lambda: fused_solve(
+        x0s, cold, pp, max_iter=100, placement="device", **BF))
+    extra_ms["K1 polish=100 (no split iteration)"] = cuda_ms(
+        lambda: fused_solve(x0s, cold, pp, max_iter=100, polish=100, **BF))
+    # what the fragments' shared memory costs: the float32 kernel at the
+    # split kernel's tile
+    tile_split = fused_admm._geometry(pp.dims, MB, dev, None, None,
+                                      split=True)[0]
+    extra_ms[f"K1 float32 at batch_tile={tile_split}"] = cuda_ms(
+        lambda: fused_solve(x0s, cold, pp, max_iter=100,
+                            batch_tile=tile_split))
+    extra_ms["K2 warm check=5 tol=0.05"] = [cuda_ms(lambda: fused_solve(
+        x1, warm, pp, **BF16X3_ADAPTIVE, **a)) for a in ({}, BF)]
+    torch.cuda.synchronize()
+    return ({"steps": steps, "launches": counts, "ms_more": extra_ms,
+             "seconds": round(time.perf_counter() - t0, 1)}, rows_out)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device: "
@@ -1163,67 +1874,6 @@ def main() -> None:
             xs.cpu(), ha.HeteroCarry(*(a.cpu() for a in cy)),
             hp.to(device="cpu"), **{k: cpu(v) for k, v in kw.items()}))
 
-    def arbitrated(name, got, want, ref64, check, rho, plain_cpu,
-                   max_iter=100):
-        """``got`` (a kernel) against ``want`` (another float32 version on
-        the card) with the float64 plain version ``ref64`` as arbiter. The
-        case passes on the bars of ``compare_solve`` between the two float32
-        versions. Where the data is conditioned so that float32 versions
-        themselves stray further than those bars from float64, it passes
-        when the kernel lies inside the spread of float32 versions: on the
-        instances whose schedules (count and solved flag) equal float64's
-        in all three, each field no further from float64 than the bar or
-        the further of ``want`` and the plain version on the CPU
-        (``plain_cpu()``, run only here); schedule agreement with float64
-        no lower than ``want``'s minus 1 point; counts never off float64 by
-        more than ``want``'s worst plus one check block. Solved flags that
-        disagree below the cap fail in either case. ``ref64`` may be a
-        callable, run only where the arbiter is needed."""
-        case = compare_solve(name, got, want, check, rho, max_iter=max_iter)
-        if not case["failures"]:
-            case["held_by"] = "kernel_vs_f32"
-            return case
-        cpu = plain_cpu()
-        if callable(ref64):
-            ref64 = ref64()
-        sched = lambda r: (r.stats[:, 0].to(got.stats.dtype),
-                           r.stats[:, 1].to(got.stats.dtype))
-        (it_k, s_k), (it_w, s_w), (it_c, s_c), (it_64, s_64) = (
-            sched(got), sched(want), sched(cpu), sched(ref64))
-        ok_k = (it_k == it_64) & (s_k == s_64)
-        ok_w = (it_w == it_64) & (s_w == s_64)
-        every = ok_k & ok_w & (it_c == it_64) & (s_c == s_64)
-        arb = {"agree_f64": {"kernel": float(ok_k.float().mean()),
-                             "other_f32": float(ok_w.float().mean())},
-               "worst_vs_f64": {"kernel": float((it_k - it_64).abs().max()),
-                                "other_f32": float((it_w - it_64).abs().max())},
-               "compared_share": float(every.float().mean()),
-               "err_vs_f64": {}}
-        fails = list(case["hard_failures"])
-        fields = lambda r: dict(U=r.U, X=r.X, **{
-            k: getattr(r.carry, k) for k in ("D", "Y", "G", "Z", "V")})
-        fk, fw, fc, f64 = fields(got), fields(want), fields(cpu), fields(ref64)
-        for k in fk:
-            ek, ew, ec = (max_err(fk[k], f64[k], every),
-                          max_err(fw[k], f64[k], every),
-                          max_err(fc[k], f64[k], every))
-            arb["err_vs_f64"][k] = {"kernel": ek, "other_f32": ew,
-                                    "plain_f32_cpu": ec}
-            bar = max(STATE_TOL if k in STATE_FIELDS else VAL_TOL, ew, ec)
-            if not ek <= bar:
-                fails.append(f"{name}: {k} {ek} from float64 > {bar}")
-        if arb["agree_f64"]["kernel"] < arb["agree_f64"]["other_f32"] - 0.01:
-            fails.append(f"{name}: schedule agrees with float64 on "
-                         f"{arb['agree_f64']}")
-        if arb["worst_vs_f64"]["kernel"] > (arb["worst_vs_f64"]["other_f32"]
-                                            + max(check, 1)):
-            fails.append(f"{name}: counts off float64 by {arb['worst_vs_f64']}")
-        case["arbiter_float64"] = arb
-        case["bars_kernel_vs_f32"] = case["failures"]
-        case["held_by"] = "float64_arbiter"
-        case["failures"] = fails
-        return case
-
     def hetero_carry_of(fc, dims_):
         nx_, nu_, N_ = dims_
         Bn = fc.D.shape[0]
@@ -1251,6 +1901,8 @@ def main() -> None:
     emit("build", seconds=round(_build.last_build_seconds, 2), ptxas=ptxas,
          hetero_kernels=hetero_ptxas,
          fused_kernels=ptxas_per_kernel(_build.build_log("fused_admm")),
+         fused_bf16x3_kernels=ptxas_per_kernel(
+             _build.build_log("fused_admm_bf16x3")),
          riccati_kernels=ptxas_per_kernel(_build.build_log("riccati")),
          shared_stream_kernels=ptxas_per_kernel(
              _build.build_log("stream_shared")),
@@ -3242,6 +3894,12 @@ def main() -> None:
     # Export (the scan tier; K1/K2 through the torch.library op), the
     # profiler, serialization and the six examples: fifth_path.
     emit("fifth_path", batch=MAIN_BATCH, **fifth_path(dev))
+
+    # ----------------------------------------------------------- bf16x3 path
+    # The split-bf16 mode of K1-K4 (algo="bf16x3"): bf16x3_path.
+    bf_fields, bf_rows = bf16x3_path(dev)
+    kernels.extend(bf_rows)
+    emit("bf16x3_path", batch=MAIN_BATCH, **bf_fields)
 
     # ----------------------------------------------------------- sixth path
     # The batch mesh (a world of one over NCCL, two ranks over gloo),

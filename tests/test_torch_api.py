@@ -147,11 +147,9 @@ def _bad_axis():
     return ConeSet(input_cones=(Cone((0, 1), 9, 1.0),))
 
 
-# What the port does not do yet raises NotImplementedError naming ROADMAP.md;
-# cones, compaction and tier="block" are taken now (see TAKEN below), so
-# their cases hold what still is an error in each: the misuse each mode
-# refuses.
-NOT_YET = (NotImplementedError, "ROADMAP")
+# The port takes every mode the JAX package's TinyMPC takes (see TAKEN
+# below), so each case holds what still is an error in its mode: the misuse
+# each refuses.
 RAISES = {
     "tier_block": ((ValueError, "batched fused tier"),
                    dict(tier="block", batch=2, cones=lambda: _tilt(),
@@ -165,8 +163,11 @@ RAISES = {
                           cone_shift_x=np.zeros((1, 2)))),
     "compaction": ((ValueError, "multiple of"),
                    dict(tier="fused", batch=2, compaction_segment=7)),
-    "bf16x3": (NOT_YET, dict(tier="fused", algo="bf16x3")),
-    "polish": (NOT_YET, dict(tier="fused", polish=8)),
+    # algo="bf16x3" runs now (tests/test_torch_bf16x3.py): what raises is an
+    # unknown algo, and polish=, which the JAX package's from_parts does not
+    # take either.
+    "bf16x3": ((ValueError, "unknown algo"), dict(tier="fused", algo="fp8")),
+    "polish": ((TypeError, "polish"), dict(tier="fused", polish=8)),
 }
 
 
@@ -200,6 +201,7 @@ TAKEN = {
         cones=_tilt()._replace(state_cones=_tilt().input_cones)),
     "compaction": lambda: dict(tier="fused", batch=2, compaction_segment=10),
     "tier_block": lambda: dict(tier="block", batch=2, block=4),
+    "bf16x3": lambda: dict(tier="fused", batch=2, algo="bf16x3"),
 }
 
 

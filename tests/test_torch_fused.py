@@ -313,10 +313,12 @@ def test_what_raises_for_now(quad):
         ft.fused_solve(x, cy, ppt, cone_ops=tilt, cone_mu_u=np.zeros((2, B)))
     with pytest.raises(ValueError, match="indices must be in"):
         ft.pad_cones(ppt, ConeSet(input_cones=(Cone((0, 1), 4, 1.0),)))
-    with pytest.raises(NotImplementedError, match="Hopper arithmetic"):
-        ft.fused_solve(x, cy, ppt, algo="bf16x3")
+    # algo="bf16x3" runs now (tests/test_torch_bf16x3.py); an unknown
+    # arithmetic mode is refused, on either mode's entry.
     with pytest.raises(ValueError, match="unknown algo"):
         ft.fused_solve(x, cy, ppt, algo="fp8")
+    with pytest.raises(ValueError, match="unknown algo"):
+        ft.fused_solve(x, cy, ppt, algo="bf16x2", polish=4)
     with pytest.raises(ValueError, match="at least one iteration"):
         ft.fused_solve(x, cy, ppt, max_iter=0)
 

@@ -4,7 +4,8 @@ The fused CUDA kernels (``ops/csrc/admm_iteration.cuh``) keep per-instance
 slots in shared memory and compute their products by FP32 FMA from 8 x 4
 register tiles (4 x 4 where one tile of 8 slots does not fit). The card is
 needed to run them; here are checked the shared-memory layout the wrapper
-mirrors, the tiles it chooses and the launch counters' names. No JAX and no
+mirrors, the tiles it chooses and the launch counters' names (the
+split-bf16 kernels' layout: tests/test_torch_bf16x3.py). No JAX and no
 Pallas kernel: well under a second."""
 
 import pathlib
@@ -63,11 +64,16 @@ def test_choose_tile_spreads_the_batch_over_the_sms(batch, tile):
 
 
 def test_launch_counts_name_every_fused_kernel():
-    # one counter per instantiation in fused_admm.cu, each named after it
-    src = (pathlib.Path(ft.__file__).parent / "csrc" / "fused_admm.cu")
-    kernels = set(re.findall(r"^ATM_KERNEL\((\w+)_kernel,", src.read_text(),
-                             re.M))
-    assert len(kernels) == 8 and set(ft.LAUNCH_COUNTS) == kernels
+    # one counter per instantiation in fused_entry.cuh, each named after it:
+    # the eight kernels compiled by fused_admm.cu and, named with _bf16x3,
+    # by fused_admm_bf16x3.cu
+    csrc = pathlib.Path(ft.__file__).parent / "csrc"
+    kernels = set(re.findall(r"^ATM_KERNEL\((\w+),",
+                             (csrc / "fused_entry.cuh").read_text(), re.M))
+    for src, split in (("fused_admm.cu", 0), ("fused_admm_bf16x3.cu", 1)):
+        assert f"#define ATM_SPLIT {split}" in (csrc / src).read_text()
+    assert len(kernels) == 8
+    assert set(ft.LAUNCH_COUNTS) == kernels | {k + "_bf16x3" for k in kernels}
     before = dict(ft.LAUNCH_COUNTS)
     counter = ft.work_counter("cpu")     # zero at every launch
     assert counter.dtype == torch.int32 and counter.tolist() == [0]

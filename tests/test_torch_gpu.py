@@ -340,9 +340,10 @@ def test_coned_kernel_takes_any_number_of_cones(card):
 
 # ------------------------------------------- cones in the fused kernels ----
 
-def _lander(horizon=15, batch=133):
+def _lander(horizon=15, batch=133, dtype=torch.float32):
     """The powered-descent lander of examples/soc_landing.py (nx=6, nu=3:
-    neither Dx nor a knot is a multiple of the kernels' float4 grid)."""
+    neither Dx nor a knot is a multiple of the kernels' float4 grid);
+    ``dtype`` of the problem and its operators (x0 stays float32)."""
     from accelerated_tinympc_tpu_torch.ops import pad_cones
     from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
 
@@ -352,10 +353,11 @@ def _lander(horizon=15, batch=133):
     Q = np.concatenate([np.full(3, 10.0), np.full(3, 1.0)])
     R = np.full(3, 1.0)
     mpc = atm.TinyMPC.setup(A, Bm, Q, R, 1.0, horizon, u_min=-10.0,
-                            u_max=10.0, x_min=-100.0, x_max=100.0)
+                            u_max=10.0, x_min=-100.0, x_max=100.0,
+                            dtype=dtype)
     ops = atm.condensed_operators(mpc.cache, mpc.problem.A, mpc.problem.B,
-                                  horizon)
-    pp = pad_problem(mpc.problem, mpc.cache, ops)
+                                  horizon, dtype=dtype)
+    pp = pad_problem(mpc.problem, mpc.cache, ops, dtype=dtype)
     cones = ConeSet(input_cones=(Cone((0, 1), 2, 1.0, 3.0),),
                     state_cones=(Cone((0, 1), 2, 2.0, 0.1),))
     rng = np.random.default_rng(0)
@@ -1019,3 +1021,232 @@ def test_world_of_one_sharded_fused_solve_is_fused_solve(card, check):
     assert float(stats["iterations_sum"]) == float(want.stats[:, 0].sum())
     assert float(stats["dual_residual_input_max"]) == float(
         want.stats[:, 5].max())
+
+
+# ------------------------------------------------ split-bf16 (algo="bf16x3")
+# The kernels of csrc/fused_admm_bf16x3.cu against the plain version of the
+# same schedule, by chip_smoke.py's checks of them: the split is
+# discontinuous (an iterate one float32 ulp apart may split into other bf16
+# pairs), so where the kernel misses the float32 kernels' bars the float64
+# plain version of the same splits arbitrates (``arbitrate(rule="split")``),
+# and the kernel must sit nearer the split plain version than the float32
+# one (``split_closer``); short solves, where the arithmetics part, pin the
+# schedule (``split_separation``).
+
+
+def _pp64(problem, cache):
+    f64 = torch.float64
+    return pad_problem(problem.to(dtype=f64), cache.to(dtype=f64),
+                       atm.condensed_operators(
+                           cache, problem.A, problem.B, problem.horizon,
+                           dtype=f64), dtype=f64)
+
+
+def _split_close(name, got, pp, plain, kw):
+    """``got`` (a split kernel's solve) by chip_smoke.py's checks:
+    ``plain(dtype, device, **kw)`` runs the plain version on the inputs in
+    that type on that device."""
+    import chip_smoke as cs
+
+    want = plain(torch.float32, "cuda", **kw)
+    check = kw.get("check_termination", 0)
+    case = cs.arbitrate(
+        cs.compare_solve(name, got, want, check, pp.rho_f,
+                         max_iter=kw["max_iter"]), got, want,
+        lambda: plain(torch.float64, "cuda", **kw),
+        lambda: plain(torch.float32, "cpu", **kw), max(check, 1),
+        rule="split")
+    f32 = {k: v for k, v in kw.items() if k != "algo"}
+    cs.split_closer(case, got, want, lambda: plain(torch.float32, "cuda",
+                                                   **f32),
+                    lambda r: r.U, cs.solve_sched, kw)
+    assert not case["failures"], case["failures"]
+
+
+def _plain_of(x0s, cold, cones=None):
+    """The plain quadrotor solve (or, with ``cones``, the lander's) of
+    these inputs in a type on a device, for ``_split_close``."""
+    from accelerated_tinympc_tpu_torch.ops import pad_cones
+
+    def run(dtype, device, **kw):
+        if cones is None:
+            problem, cache, _x0 = atm.models.quadrotor_hovering_setup()
+            pp = (_pp64(problem, cache) if dtype == torch.float64 else
+                  pad_problem(problem, cache, atm.condensed_operators(
+                      cache, problem.A, problem.B, problem.horizon)))
+        else:
+            pp = _lander(dtype=dtype)[1]
+        pp = pp.to(device=device)
+        extra = {} if cones is None else {"cone_ops": pad_cones(pp, cones)}
+        kw = {k: (v.to(device=device) if isinstance(v, torch.Tensor) else v)
+              for k, v in kw.items()}
+        return fused_solve_plain(
+            x0s.to(device=device, dtype=dtype),
+            FusedCarry(*(t.to(device=device, dtype=dtype) for t in cold)),
+            pp, **extra, **kw)
+    return run
+
+
+# chip_smoke.py's held cases at its comparison batch (4,099): K1 cold
+# fixed-100 at polish 8 and 6, K2 warm at checks every 5 and tolerance 0.05.
+# The arbiter's 0.99 quantile is a statistic of thousands of instances: at a
+# hundred it is the second-largest error, which the split's flips set.
+BF16X3 = {"fixed_polish8": dict(max_iter=100, check_termination=0, polish=8),
+          "fixed_polish6": dict(max_iter=100, check_termination=0, polish=6),
+          "adaptive_check5": None}
+
+
+@pytest.mark.parametrize("case", list(BF16X3))
+def test_bf16x3_kernels_match_plain(card, case):
+    import chip_smoke as cs
+
+    problem, _cache, pp, x0s = cs.flagship(cs.KERNEL_BATCH, "cuda")
+    cy = FusedCarry.zeros(x0s.shape[0], pp, device="cuda")
+    kw = BF16X3[case]
+    if kw is None:
+        x0s, cy = cs.warm_start(problem, pp, x0s, "cuda")
+        kw = cs.BF16X3_ADAPTIVE
+    name = fused_admm.kernel_name(
+        "fused_solve_adaptive" if kw.get("check_termination") else
+        "fused_solve_fixed", False, "bf16x3")
+    before = fused_admm.LAUNCH_COUNTS[name]
+    got = fused_solve(x0s, cy, pp, algo="bf16x3", **kw)
+    assert fused_admm.LAUNCH_COUNTS[name] == before + 1
+    _split_close(case, got, pp, _plain_of(x0s, cy),
+                 dict(algo="bf16x3", **kw))
+
+
+@pytest.mark.parametrize("case", ["K1_polish1", "K1_polish2",
+                                  "K2_warmup2_check3", "K3_mission",
+                                  "K4a_cones"])
+def test_bf16x3_short_solves_separate_the_schedules(card, case):
+    # a few iterations, where the split and float32 arithmetics part: per
+    # instance, the kernel nearer the plain version of its own schedule
+    # than the float32 plain version or a schedule one iteration off, and
+    # the median distances apart by the smoke's bars
+    # (chip_smoke.split_separation)
+    import chip_smoke as cs
+
+    problem, pp, x0s, cold = card
+    run_k = lambda **a: fused_solve(x0s, cold, pp, **a)
+    run_p = lambda **a: fused_solve_plain(x0s, cold, pp, **a)
+    u, its = (lambda r: r.U), (lambda r: r.stats[:, 0])
+    fixed, adaptive = cs.BF16X3_SHORT_FIXED, cs.BF16X3_SHORT_ADAPTIVE
+    late = {"warmup=3": dict(warmup_iters=adaptive["warmup_iters"] + 1)}
+    if case.startswith("K1"):
+        p = int(case[-1])
+        kw, alts = dict(fixed, polish=p), {
+            f"polish={q}": dict(polish=q) for q in (p - 1, p + 1) if q >= 1}
+    elif case == "K2_warmup2_check3":
+        kw, alts = adaptive, late
+    elif case == "K3_mission":
+        rops = rollout_ops(problem, pp)
+        run_k = lambda **a: fused_rollout(x0s, cold, pp, rops, 3, **a)
+        run_p = lambda **a: fused_rollout_plain(x0s, cold, pp, rops, 3, **a)
+        kw, alts = adaptive, late
+        u, its = (lambda r: r.us.transpose(0, 1)), (lambda r: r.iters)
+    else:
+        _p, lpp, cops, _cones, lx0 = _lander()
+        lcold = FusedCarry.zeros(lx0.shape[0], lpp)
+        run_k = lambda **a: fused_solve(lx0, lcold, lpp, cone_ops=cops, **a)
+        run_p = lambda **a: fused_solve_plain(lx0, lcold, lpp, cone_ops=cops,
+                                              **a)
+        kw, alts = dict(fixed, polish=1), {"polish=2": dict(polish=2)}
+    row = cs.split_separation(
+        case, run_k, run_p, kw, alts, u, its,
+        cs.SPLIT_SEP_ADAPTIVE if kw.get("check_termination") else
+        cs.SPLIT_SEP_FIXED)
+    assert not row["failures"], row["failures"]
+
+
+@pytest.mark.parametrize("check", [0, 1], ids=["polish_all", "check1"])
+def test_bf16x3_without_split_iterations_is_the_f32_kernel(card, check):
+    # polish >= max_iter (fixed) or checks every iteration (adaptive): no
+    # split iteration, so the split kernels give the float32 kernels' bits
+    # at one launch geometry
+    _problem, pp, x0s, cold = card
+    geo = dict(batch_tile=16, threads=256, placement="shared")
+    kw = dict(max_iter=40, check_termination=check, **geo)
+    a = fused_solve(x0s, cold, pp, algo="bf16x3", polish=40, **kw)
+    b = fused_solve(x0s, cold, pp, **kw)
+    for x, y in zip((a.U, a.X, a.stats) + tuple(a.carry),
+                    (b.U, b.X, b.stats) + tuple(b.carry)):
+        assert torch.equal(x, y)
+
+
+def test_bf16x3_is_bit_exact_under_a_permuted_batch(card):
+    problem, pp, x0s, cold = card
+    perm = torch.randperm(x0s.shape[0], device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(3))
+    inv = torch.argsort(perm)
+    kw = dict(max_iter=60, check_termination=5, algo="bf16x3")
+    a = fused_solve(x0s, cold, pp, **kw)
+    b = fused_solve(x0s[perm], FusedCarry(*(t[perm] for t in cold)), pp, **kw)
+    for x, y in zip((a.U, a.stats) + tuple(a.carry),
+                    (b.U, b.stats) + tuple(b.carry)):
+        assert torch.equal(x, y[inv])
+    rops = rollout_ops(problem, pp)
+    got = fused_rollout(x0s, cold, pp, rops, 6, max_iter=30, polish=4,
+                        algo="bf16x3")
+    want = fused_rollout_plain(x0s, cold, pp, rops, 6, max_iter=30,
+                               polish=4, algo="bf16x3")
+    assert float((got.us - want.us).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("case", ["horizon150", "per_instance_cones",
+                                  "tracking", "alpha", "compaction"])
+def test_bf16x3_takes_every_input_of_the_f32_tier(card, case):
+    # each input the float32 kernels take, on the split kernels against the
+    # plain version of the same schedule: controls on the instances whose
+    # schedule agrees
+    problem, pp, x0s, cold = card
+    bf = dict(algo="bf16x3")
+    if case == "horizon150":   # operators in device memory, 4-slot tiles
+        problem, cache, _x0 = atm.models.quadrotor_hovering_setup(
+            horizon=150)
+        pp = pad_problem(problem, cache, atm.condensed_operators(
+            cache, problem.A, problem.B, 150))
+        assert fused_admm.choose_register_tile(pp.dims, split=True) == 4
+        x0s, cold = x0s[:9], FusedCarry.zeros(9, pp)
+        kw = dict(max_iter=20, polish=4, **bf)
+    elif case == "per_instance_cones":
+        from accelerated_tinympc_tpu_torch.ops import pad_cones
+
+        problem, pp, cops, cones, x0s = _lander()
+        cold = FusedCarry.zeros(x0s.shape[0], pp)
+        rows = torch.linspace(0.6, 1.4, x0s.shape[0], device="cuda")[None]
+        kw = dict(max_iter=100, check_termination=2, abs_pri_tol=1e-2,
+                  abs_dua_tol=1e-2, cone_mu_u=rows, **bf)
+        got = fused_solve(x0s, cold, pp, cone_ops=cops, **kw)
+        _split_close(case, got, pp, _plain_of(x0s, cold, cones), kw)
+        return
+    elif case == "tracking":
+        problem, pp, x0s, cs = _tracking()
+        rops = rollout_ops(problem, pp)
+        kw = dict(max_iter=60, check_termination=5, abs_pri_tol=1e-2,
+                  abs_dua_tol=1e-2, const_seq=cs[:8], **bf)
+        got = fused_rollout(x0s, cold, pp, rops, 8, **kw)
+        want = fused_rollout_plain(x0s, cold, pp, rops, 8, **kw)
+        assert float((got.iters == want.iters).float().mean()) >= 0.95
+        same = (got.iters == want.iters).all(dim=0)
+        assert float((got.us - want.us)[:, same].abs().max()) <= ATOL
+        return
+    elif case == "alpha":
+        kw = dict(max_iter=100, check_termination=5, warmup_iters=3,
+                  alpha=1.6, abs_pri_tol=1e-2, abs_dua_tol=1e-2, **bf)
+    else:   # compaction: the cascade's launches against one launch
+        from accelerated_tinympc_tpu_torch.solver.cascade import cascade_solve
+
+        kw = dict(max_iter=100, check_termination=5, abs_pri_tol=1e-2,
+                  abs_dua_tol=1e-2, **bf)
+        got = cascade_solve(x0s, cold, pp, segment_iters=10, **kw)
+        want = fused_solve(x0s, cold, pp, **kw)
+        same = got.stats[:, 0] == want.stats[:, 0]
+        assert float(same.float().mean()) >= 0.95
+        assert float((got.U - want.U)[same].abs().max()) <= ATOL
+        return
+    got = fused_solve(x0s, cold, pp, **kw)
+    want = fused_solve_plain(x0s, cold, pp, **kw)
+    same = got.stats[:, 0] == want.stats[:, 0]
+    assert float(same.float().mean()) >= 0.95
+    assert float((got.U - want.U)[same].abs().max()) <= ATOL

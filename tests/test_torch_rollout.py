@@ -220,5 +220,5 @@ def test_rollout_argument_checks(quad):
     tilt = ft.pad_cones(ppt, ConeSet(input_cones=(Cone((1, 2), 0, 0.5),)))
     with pytest.raises(ValueError, match="at least one tick"):
         rt.fused_rollout(x0s, zero, ppt, ropst, 0, cone_ops=tilt)
-    with pytest.raises(NotImplementedError, match="Hopper arithmetic"):
-        rt.fused_rollout(x0s, zero, ppt, ropst, 2, algo="bf16x3")
+    with pytest.raises(ValueError, match="unknown algo"):
+        rt.fused_rollout(x0s, zero, ppt, ropst, 2, algo="fp8")
