@@ -72,17 +72,30 @@
 //     algo="bf16x3", ops/fused_admm.py _split_bf16/_dot3/_make_ws): the
 //     iterations a slot's schedule names (F_SPLIT) run both products as
 //     three bf16 passes (hi.hi + (hi.lo + lo.hi)) on the tensor cores,
-//     mma.sync m16n8k16 with float32 accumulators, before the stages that
-//     use them (split_forward, split_backward). The operator is the A
-//     operand (16 of its columns a tile, split once per launch into
-//     fragment order, split_operators_kernel in fused_admm_bf16x3.cu) and
-//     8 slots are the B operand, split in registers from the slot rows.
-//     Slots refill independently, so one block iteration holds slots on
-//     split and on float32 iterations: the mma passes write only the rows
-//     of split slots (the forward product into S, which forward_stage reads
-//     back as its product; the backward one as D), and the FFMA code runs
-//     the float32 rows with the float32 kernels' arithmetic (a register
-//     tile with no float32 row skips its FFMAs).
+//     mma.sync m16n8k16 with float32 accumulators (split_forward,
+//     split_backward, split_item). The operator is the A operand (16 of
+//     its columns a tile), split once per launch into fragment order in
+//     device memory (split_operators_kernel, fused_entry.cuh); 8 slots are
+//     the B operand, split in registers from the slot rows. Shared memory:
+//     all fragments beside the float32 operators (61,440 B at the
+//     flagship) would cut a block from 48 slots to 32, and the float32
+//     kernel runs 1.19x slower at 32 (PERF.md). So the forward fragments
+//     are read from device memory (resident in L2, prefetched into L1 an
+//     item ahead), and on a launch that splits, the backward fragments
+//     take the place of the float32 Wb and Wx, which its float32
+//     iterations and refills then read from device memory: a split block
+//     holds its float32 twin's slots. The products are latency-bound on
+//     eight warps, so a warp sums an item of several tiles at once (2 x 2
+//     forward, 3 x 1 backward) with no branch between their mma, two
+//     k-steps a loop pass. Slots refill independently, so one block
+//     iteration holds slots on split and on float32 iterations: a split
+//     slot's forward product and elementwise stage are done by the warp
+//     that summed it, and forward_stage runs the float32 slots' FFMA code
+//     beside it with no barrier between (disjoint rows; a register tile
+//     with no float32 row skips its FFMAs); the backward product writes the
+//     split slots' D, and backward_stage skips them. Every tile keeps one
+//     order of sums (split_item), so the result does not depend on how
+//     tiles are grouped into items.
 //   * Slacks are double-buffered per slot (zpar) so that the check
 //     iteration can read the old slack for the dual residual and still leave
 //     it in place for a slot that freezes.
@@ -111,6 +124,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <type_traits>
+
+// Stage hooks for tools/torch_fused_stage_clocks.py (empty here): block
+// marks after barriers (ATM_CLK), per-warp spans (ATM_WCLK), per-slot
+// retire and load spans (ATM_SCLK).
+#ifndef ATM_CLK
+#define ATM_CLK_BEGIN() do { } while (0)
+#define ATM_CLK_MARK() do { } while (0)
+#define ATM_CLK(k) do { } while (0)
+#define ATM_CLK_COUNT(k) do { } while (0)
+#define ATM_WCLK_BEGIN() do { } while (0)
+#define ATM_WCLK(k) do { } while (0)
+#define ATM_SCLK_BEGIN() do { } while (0)
+#define ATM_SCLK_MID() do { } while (0)
+#define ATM_SCLK_END(initial) do { } while (0)
+#define ATM_CLK_END() do { } while (0)
+#endif
 
 namespace atm {
 
@@ -211,8 +240,11 @@ __host__ __device__ inline int split_mt_f(const Dims& d) { return (d.Dz + 15) / 
 __host__ __device__ inline int split_kt_f(const Dims& d) { return (d.Du + 15) / 16; }
 __host__ __device__ inline int split_mt_b(const Dims& d) { return (d.Du + 15) / 16; }
 __host__ __device__ inline int split_kt_b(const Dims& d) { return (d.Dz + 15) / 16; }
+__host__ __device__ inline int split_words_b(const Dims& d) {
+  return 256 * split_mt_b(d) * split_kt_b(d);
+}
 __host__ __device__ inline int split_words(const Dims& d) {
-  return 256 * (split_mt_f(d) * split_kt_f(d) + split_mt_b(d) * split_kt_b(d));
+  return 256 * split_mt_f(d) * split_kt_f(d) + split_words_b(d);
 }
 
 // Offsets, in 4-byte words, of every region of the block's dynamic shared
@@ -223,7 +255,7 @@ struct Layout {
   int D, cd, S, YG, ZV, Xb, x0, u0, stat;      // per-slot floats
   int res, done, zpar, viol, itc, flags, inst, tick, ret, list, nref;
   int cmu, csh;                                // per-slot cone mu, shift
-  int W3, bsp;                                 // split-bf16 kernels only
+  int bsp, W3b;                                // split-bf16 kernels only
   int total;
 };
 
@@ -232,9 +264,12 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
   int o = 0;
   const int t = d.tile;
   const int staged = d.gops ? 0 : 1;  // operators in shared memory
+  // A split launch stages the backward operator's fragments in place of
+  // Wb and Wx, which it reads from device memory (backward_stage, carve).
+  const int staged_b = staged && !d.split;
   L.Wf = o;   o += staged * d.DuP * d.DzP;  // k rows; past Du, Dz zero
-  L.Wb = o;   o += staged * d.DzP * d.DuP;
-  L.Wx = o;   o += staged * d.nx * d.DzP;
+  L.Wb = o;   o += staged_b * d.DzP * d.DuP;
+  L.Wx = o;   o += staged_b * d.nx * d.DzP;
   L.lo = o;   o += d.DzP;
   L.hi = o;   o += d.DzP;
   L.A = o;    o += r4(d.nx * d.nx);
@@ -261,10 +296,11 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
   L.nref = o; o += 4;
   L.cmu = o;  o += r4(d.ncp * t);       // [cone][slot]
   L.csh = o;  o += r4(d.ncp * t);
-  // Split-bf16 kernels: the operator fragments (staged unless read from
-  // device memory) and each slot's split flag of its running iteration.
-  L.W3 = o;   o += d.split * staged * split_words(d);
+  // Split-bf16 kernels: each slot's split flag of its running iteration,
+  // and (operators staged) the backward operator's fragments; the forward
+  // operator's fragments stay in device memory.
   L.bsp = o;  o += d.split * t;
+  L.W3b = o;  o += d.split * staged * split_words_b(d);
   L.total = o;
   return L;
 }
@@ -305,10 +341,11 @@ struct Smem {
   int *list, *nref;
   float *cmu, *csh;
   const uint4 *W3f, *W3b;      // split operator fragments (forward, backward)
+  const float* Wbg;            // Wb in device memory (the split kernels)
   int* bsp;                    // split flag of each slot's running iteration
 };
 
-template <bool GOPS>
+template <bool GOPS, bool SPLIT>
 __device__ inline Smem carve(const Args& a, float* base, const Layout& L) {
   Smem s;
   auto I = [base](int off) { return reinterpret_cast<int*>(base + off); };
@@ -316,7 +353,13 @@ __device__ inline Smem carve(const Args& a, float* base, const Layout& L) {
     s.Wf = a.Wf; s.Wb = a.Wb; s.Wx = a.Wx;
   } else {
     s.Wf = base + L.Wf; s.Wb = base + L.Wb; s.Wx = base + L.Wx;
+    // a split launch reads Wx (refills only) and Wb (s.Wbg) from device
+    // memory: make_layout stages Wb's fragments in their place
+    if constexpr (SPLIT) {
+      if (a.d.split) s.Wx = a.Wx;
+    }
   }
+  s.Wbg = a.Wb;
   s.lo = base + L.lo;
   s.hi = base + L.hi; s.A = base + L.A; s.Bm = base + L.Bm;
   s.D = base + L.D; s.cd = base + L.cd; s.S = base + L.S;
@@ -330,10 +373,10 @@ __device__ inline Smem carve(const Args& a, float* base, const Layout& L) {
   s.cmu = base + L.cmu; s.csh = base + L.csh;
   s.W3f = s.W3b = nullptr;
   if (a.d.split) {
-    const uint4* w3 = GOPS ? reinterpret_cast<const uint4*>(a.W3)
-                           : reinterpret_cast<const uint4*>(base + L.W3);
+    const uint4* w3 = reinterpret_cast<const uint4*>(a.W3);
     s.W3f = w3;
-    s.W3b = w3 + 64 * split_mt_f(a.d) * split_kt_f(a.d);
+    s.W3b = GOPS ? w3 + 64 * split_mt_f(a.d) * split_kt_f(a.d)
+                 : reinterpret_cast<const uint4*>(base + L.W3b);
   }
   s.bsp = I(L.bsp);
   return s;
@@ -358,7 +401,7 @@ __device__ __forceinline__ float ldw1(const float* p) {
 // Zero all per-slot state, then stage the operators unless they are read
 // from device memory (their zero padding rows and columns let the products
 // run over the padded widths and keep the padding of every iterate zero).
-template <bool GOPS>
+template <bool GOPS, bool SPLIT>
 __device__ inline void stage_block(const Args& a, const Layout& L,
                                    float* base, const Smem& s) {
   const Dims& d = a.d;
@@ -367,12 +410,14 @@ __device__ inline void stage_block(const Args& a, const Layout& L,
   __syncthreads();
   if (!GOPS) {
     for (int i = tid; i < d.DuP * d.DzP; i += nt) base[L.Wf + i] = a.Wf[i];
-    for (int i = tid; i < d.DzP * d.DuP; i += nt) base[L.Wb + i] = a.Wb[i];
-    for (int i = tid; i < d.nx * d.DzP; i += nt) base[L.Wx + i] = a.Wx[i];
-    if (d.split) {
-      const uint4* src = reinterpret_cast<const uint4*>(a.W3);
-      uint4* dst = reinterpret_cast<uint4*>(base + L.W3);
-      for (int i = tid; i < split_words(d) / 4; i += nt) dst[i] = src[i];
+    if (SPLIT && d.split) {
+      const uint4* src = reinterpret_cast<const uint4*>(a.W3) +
+                         64 * split_mt_f(d) * split_kt_f(d);
+      uint4* dst = reinterpret_cast<uint4*>(base + L.W3b);
+      for (int i = tid; i < split_words_b(d) / 4; i += nt) dst[i] = src[i];
+    } else {
+      for (int i = tid; i < d.DzP * d.DuP; i += nt) base[L.Wb + i] = a.Wb[i];
+      for (int i = tid; i < d.nx * d.DzP; i += nt) base[L.Wx + i] = a.Wx[i];
     }
   }
   for (int i = tid; i < d.Dz; i += nt) { s.lo[i] = a.lo[i]; s.hi[i] = a.hi[i]; }
@@ -482,116 +527,338 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
 // B (16 x 8 bf16, col) in two, c float32.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint4& a,
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
-template <bool GOPS>
-__device__ __forceinline__ uint4 ldfrag(const uint4* p) {
-  if constexpr (GOPS) return __ldg(p);
-  else return *p;
-}
+// Running sums of one warp's item of MR x NR tiles (split_item).
+template <int MR, int NR>
+struct SplitAcc {
+  float hh[MR][NR][4], cr[MR][NR][4];
+};
 
-// P[i][m] = sum_{k < K} x[i][k] Op[k][m] for the slots i < tile that sel(i)
-// names and m < MT * 16, in three bf16 passes: hh = xh Oh, then xh Ol and
-// xl Oh into a second accumulator, P = hh + that (the TPU package's _dot3
-// grouping; lo lo dropped). x's rows lie ldx floats apart (ldx >= K,
-// rounded up to even, zero beyond K). One warp per (tile of 16 operator
-// columns, 8 slots): the slots are the B operand, split here from float2
-// loads of their rows; frag holds the operator's fragments (split_words).
-// emit(i, m, P) takes each result of a selected slot. A tile of slots none
-// of which is selected is skipped (warp-uniform).
-template <bool GOPS, typename Sel, typename Emit>
-__device__ inline void split_product(const float* x, int ldx, int K, int MT,
-                                     int KT, const uint4* frag, int tile,
-                                     Sel&& sel, Emit&& emit) {
+// P[i][m] = sum_{k < K} x[i][k] Op[k][m] in three bf16 passes, for the item
+// of MR x NR m16n8k16 tiles whose first operator tile (16 columns m) is m0
+// and whose first group of 8 slots i is n0. The operator is the A operand,
+// from its fragments (split_words: tile (mt, kt) at 64 uint4, hi halves at
+// lane, lo halves at 32 + lane), in device memory (GFRAG; they stay in L2)
+// or in shared memory; the slots are the B operand, split here from float2
+// loads of their rows (ldx floats apart, zero beyond K up to ldx). Bit u of
+// mmask: tile m0 + u exists; bit j of nmask: group n0 + j holds a selected
+// slot (both warp-uniform).
+//
+// Every k-step feeds MR x NR x 3 independent mma from MR A and NR B
+// fragments and loads the next k-step's A fragments first, two k-steps a
+// loop pass so that one k-step's mma overlap the next one's loads and
+// splits. Every tile of the item runs, with no branch between the mma (a
+// missing operator tile repeats tile m0, a group without a selected slot
+// sums zeros; neither is stored): a branch per tile kept the compiler from
+// overlapping the tiles' mma. (Measured slower, PERF.md: one k-step a pass;
+// the operator split in registers from its float32 copy every iteration.)
+//
+// Each tile keeps the order of sums of a single tile: per k-step hh = xh Oh
+// and, into a second fresh accumulator, Oh xl then Ol xh (the TPU package's
+// _dot3 grouping; lo lo dropped), each added to its running sum by float32
+// adds (the tensor cores' accumulation rounds toward zero, and a running
+// sum kept inside them drifted further from float64 than the plain
+// versions' float32 sums: PERF.md); P = hh + cr at the end.
+template <int MR, int NR, bool GFRAG>
+__device__ __forceinline__ void split_item(
+    const float* x, int ldx, int K, int KT, const uint4* frag, int m0,
+    int n0, int tile, unsigned mmask, unsigned nmask,
+    SplitAcc<MR, NR>& acc) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int NT = (tile + 7) >> 3;
-  for (int item = warp; item < MT * NT; item += nwarps) {
-    const int nt = item / MT, mt = item - nt * MT;
-    const int slot = nt * 8 + g;
-    const bool in = slot < tile;
-    if (!__any_sync(0xffffffffu, in && sel(slot))) continue;
-    const float* xr = x + (size_t)(in ? slot : 0) * ldx;
-    // Each k-step's three passes into fresh accumulators, added to the
-    // running sums by float32 adds: the tensor cores' accumulation rounds
-    // toward zero, and a running sum kept inside them drifted further from
-    // float64 than the plain versions' float32 sums (PERF.md).
-    float hh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float cr[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    const uint4* f = frag + (size_t)mt * KT * 64;
-    for (int kt = 0; kt < KT; ++kt, f += 64) {
-      const int k0 = kt * 16 + 2 * t;
-      const float2 z = make_float2(0.0f, 0.0f);
-      const float2 v0 =
-          in && k0 < K ? *reinterpret_cast<const float2*>(xr + k0) : z;
-      const float2 v1 =
-          in && k0 + 8 < K ? *reinterpret_cast<const float2*>(xr + k0 + 8)
-                           : z;
-      uint32_t bh0, bl0, bh1, bl1;
-      split_pair(v0.x, v0.y, bh0, bl0);
-      split_pair(v1.x, v1.y, bh1, bl1);
-      const uint4 ah = ldfrag<GOPS>(f + lane);
-      const uint4 al = ldfrag<GOPS>(f + 32 + lane);
-      float ph[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float pc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      mma_bf16(ph, ah, bh0, bh1);
-      mma_bf16(pc, ah, bl0, bl1);
-      mma_bf16(pc, al, bh0, bh1);
+  const float* xr[NR];
+  bool in[NR];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        hh[q] += ph[q];
-        cr[q] += pc[q];
+  for (int j = 0; j < NR; ++j) {
+    const int slot = (n0 + j) * 8 + g;
+    in[j] = ((nmask >> j) & 1u) && slot < tile;
+    xr[j] = x + (size_t)(in[j] ? slot : 0) * ldx;
+  }
+#pragma unroll
+  for (int u = 0; u < MR; ++u)
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc.hh[u][j][q] = acc.cr[u][j][q] = 0.0f;
+  auto load_a = [&](uint4 (&h)[MR], uint4 (&l)[MR], int kt) {
+#pragma unroll
+    for (int u = 0; u < MR; ++u) {
+      const int mt = (mmask >> u) & 1u ? m0 + u : m0;
+      const uint4* f = frag + ((size_t)mt * KT + kt) * 64;
+      h[u] = GFRAG ? __ldg(f + lane) : f[lane];
+      l[u] = GFRAG ? __ldg(f + 32 + lane) : f[32 + lane];
+    }
+  };
+  uint4 ah[MR], al[MR], nh[MR], nl[MR];
+  load_a(ah, al, 0);
+#pragma unroll 2
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt + 1 < KT) load_a(nh, nl, kt + 1);
+    uint32_t bh0[NR], bl0[NR], bh1[NR], bl1[NR];
+    const int k0 = kt * 16 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const float2 z = make_float2(0.0f, 0.0f);
+      const float2 v0 = in[j] && k0 < K
+          ? *reinterpret_cast<const float2*>(xr[j] + k0) : z;
+      const float2 v1 = in[j] && k0 + 8 < K
+          ? *reinterpret_cast<const float2*>(xr[j] + k0 + 8) : z;
+      split_pair(v0.x, v0.y, bh0[j], bl0[j]);
+      split_pair(v1.x, v1.y, bh1[j], bl1[j]);
+    }
+#pragma unroll
+    for (int u = 0; u < MR; ++u) {
+#pragma unroll
+      for (int j = 0; j < NR; ++j) {
+        float ph[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float pc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_bf16(ph, ah[u], bh0[j], bh1[j]);
+        mma_bf16(pc, ah[u], bl0[j], bl1[j]);
+        mma_bf16(pc, al[u], bh0[j], bh1[j]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc.hh[u][j][q] += ph[q];
+          acc.cr[u][j][q] += pc[q];
+        }
       }
     }
-    // c0, c1: operator column mt*16 + g, slots 2t, 2t + 1; c2, c3: column
-    // + 8.
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = nt * 8 + 2 * t + (q & 1);
-      const int m = mt * 16 + g + (q >= 2 ? 8 : 0);
-      if (i < tile && sel(i)) emit(i, m, hh[q] + cr[q]);
+    for (int u = 0; u < MR; ++u) {
+      ah[u] = nh[u];
+      al[u] = nl[u];
     }
   }
 }
 
-// The forward product of the slots on a split iteration, into their S rows
-// (forward_stage<..., true> reads it back as its product); and each slot's
-// split flag for the backward stage (bsp: decide_stage has moved the flags
-// on to the next iteration by then).
-template <bool GOPS>
-__device__ inline void split_forward(const Args& a, const Smem& s) {
+// The split iterations' elementwise stage of slot i, columns j0..j0+3: the
+// forward_stage arithmetic of an iteration without flags (a split iteration
+// is never a check, a recording iteration or the last), on the product P
+// that split_forward left in S.
+template <bool CONES, bool KEEP_U0>
+__device__ __forceinline__ void split_finish(const Args& a, const Smem& s,
+                                             int i, int j0) {
   const Dims& d = a.d;
-  if (threadIdx.x < d.tile) {
-    const int i = threadIdx.x;
-    s.bsp[i] = s.done[i] == LIVE && (s.flags[i] & F_SPLIT) != 0;
+  const int zstride = d.tile * d.DzP;
+  const float alpha = a.alpha;
+  const bool relax = alpha != 1.0f;
+  const int idx = i * d.DzP + j0;
+  const int zp = s.zpar[i];
+  const float4 p4 = *reinterpret_cast<const float4*>(s.S + idx);
+  const float4 xb4 = *reinterpret_cast<const float4*>(s.Xb + idx);
+  const float4 y4 = *reinterpret_cast<const float4*>(s.YG + idx);
+  const float4 z4 =
+      *reinterpret_cast<const float4*>(s.ZV + zp * zstride + idx);
+  const float4 l4 = *reinterpret_cast<const float4*>(s.lo + j0);
+  const float4 h4 = *reinterpret_cast<const float4*>(s.hi + j0);
+  const float p[TJ] = {p4.x, p4.y, p4.z, p4.w};
+  const float xb[TJ] = {xb4.x, xb4.y, xb4.z, xb4.w};
+  const float yo[TJ] = {y4.x, y4.y, y4.z, y4.w};
+  const float zo[TJ] = {z4.x, z4.y, z4.z, z4.w};
+  const float lo[TJ] = {l4.x, l4.y, l4.z, l4.w};
+  const float hi[TJ] = {h4.x, h4.y, h4.z, h4.w};
+  float o1[TJ], zn[TJ], o3[TJ];
+#pragma unroll
+  for (int c = 0; c < TJ; ++c) {
+    const int j = j0 + c;
+    const float xu = xb[c] + p[c];   // pre-projection X or U
+    const float xr = relax ? alpha * xu + (1.0f - alpha) * zo[c] : xu;
+    const float tv = xr + yo[c];
+    zn[c] = fminf(fmaxf(tv, lo[c]), hi[c]);  // box clip, inf-safe
+    if (CONES) {
+      o1[c] = tv;             // relaxed iterate + old dual
+      o3[c] = xu;             // pre-projection iterate
+    } else {
+      o1[c] = tv - zn[c];     // dual ascent
+      o3[c] = zn[c] - o1[c];  // S = slack - dual
+    }
+    if (KEEP_U0 && j >= d.Dx && j < d.Dx + d.nu)
+      s.u0[i * d.nu + (j - d.Dx)] = xu;
   }
+  *reinterpret_cast<float4*>(s.YG + idx) =
+      make_float4(o1[0], o1[1], o1[2], o1[3]);
+  *reinterpret_cast<float4*>(s.ZV + (zp ^ 1) * zstride + idx) =
+      make_float4(zn[0], zn[1], zn[2], zn[3]);
+  *reinterpret_cast<float4*>(s.S + idx) =
+      make_float4(o3[0], o3[1], o3[2], o3[3]);
+}
+
+// Tiles per warp item: the forward product (Dz operator columns, depth Du)
+// in items of 2 operator tiles x 2 slot groups, the backward one (Du
+// columns, depth Dz) in items of 3 x 1. At the flagship with 48 slots the
+// forward's 60 tiles make 15 items and the backward's 18 make 6 items of
+// its 3 operator tiles (one B fragment feeds 3 tiles; a tile's sums stay in
+// k order in one warp, so the depth is not split over warps).
+constexpr int SPLIT_FWD_MR = 2, SPLIT_FWD_NR = 2;
+constexpr int SPLIT_BWD_MR = 3, SPLIT_BWD_NR = 1;
+
+// Brings the device-memory fragments of the first k-steps (at most 2) of
+// operator tiles m0 .. m0 + MR - 1 (those below MT) into L1, so that
+// split_item's first loads of an item wait on L1, not L2.
+template <int MR>
+__device__ __forceinline__ void prefetch_frags(const uint4* frag, int m0,
+                                               int MT, int KT) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < MR; ++u)
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt) {
+      if (m0 + u >= MT || kt >= KT) continue;
+      const uint4* f = frag + ((size_t)(m0 + u) * KT + kt) * 64;
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(f + lane));
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(f + 32 + lane));
+    }
+}
+
+// The items of one split product, MR operator tiles by NR slot groups, for
+// this warp: item(m0, n0, mmask, nmask, next_m0) for each that holds a
+// selected slot (sel), in turn over the warps; next_m0 is the first operator
+// tile of the warp's next item (-1 for none).
+template <int MR, int NR, typename Sel, typename Item>
+__device__ __forceinline__ void split_items(int MT, int tile, Sel&& sel,
+                                            Item&& item) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int NT = (tile + 7) >> 3;
+  const int CM = (MT + MR - 1) / MR, CN = (NT + NR - 1) / NR;
+#pragma unroll 1
+  for (int it = warp; it < CM * CN; it += nwarps) {
+    const int cn = it / CM, cm = it - cn * CM;
+    const int m0 = cm * MR, n0 = cn * NR;
+    const int next = it + nwarps;
+    const int next_m0 = next < CM * CN ? (next % CM) * MR : -1;
+    unsigned mmask = 0u, nmask = 0u;
+#pragma unroll
+    for (int u = 0; u < MR; ++u) mmask |= (m0 + u < MT ? 1u : 0u) << u;
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const int slot = (n0 + j) * 8 + (lane >> 2);
+      nmask |= (__any_sync(0xffffffffu, slot < tile && sel(slot)) ? 1u : 0u)
+               << j;
+    }
+    if (nmask != 0u) item(m0, n0, mmask, nmask, next_m0);   // warp-uniform
+  }
+}
+
+// The split iterations' forward stage: the slots on a split iteration get
+// their forward product here, and their elementwise stage from the warp
+// that summed it (split_finish), so no barrier stands between this and
+// forward_stage, which runs the other slots (the two touch disjoint rows).
+// A warp writes each tile's products into the tile's S entries, then,
+// after a __syncwarp, runs the elementwise stage of the item's rows, a
+// float4 a lane. Also each slot's split flag for the backward stage (bsp:
+// decide_stage has moved the flags on to the next iteration by then).
+template <bool CONES, bool KEEP_U0>
+__device__ inline void split_forward(const Args& a, const Smem& s) {
+  constexpr int MR = SPLIT_FWD_MR, NR = SPLIT_FWD_NR;
+  const Dims& d = a.d;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   auto sel = [&](int i) {
     return s.done[i] == LIVE && (s.flags[i] & F_SPLIT) != 0;
   };
-  split_product<GOPS>(s.D, d.DuP, d.Du, split_mt_f(d), split_kt_f(d), s.W3f,
-                      d.tile, sel, [&](int i, int m, float v) {
-                        if (m < d.DzP) s.S[i * d.DzP + m] = v;
-                      });
+  if (threadIdx.x < d.tile) s.bsp[threadIdx.x] = sel(threadIdx.x);
+  const int KT = split_kt_f(d), MT = split_mt_f(d);
+  const int warp = threadIdx.x >> 5;
+  if (warp < (MT + MR - 1) / MR * ((d.tile + 8 * NR - 1) / (8 * NR)))
+    prefetch_frags<MR>(s.W3f, warp % ((MT + MR - 1) / MR) * MR, MT, KT);
+  split_items<MR, NR>(MT, d.tile, sel, [&](int m0, int n0, unsigned mmask,
+                                           unsigned nmask, int next_m0) {
+    SplitAcc<MR, NR> acc;
+    split_item<MR, NR, true>(s.D, d.DuP, d.Du, KT, s.W3f, m0, n0, d.tile,
+                             mmask, nmask, acc);
+    if (next_m0 >= 0) prefetch_frags<MR>(s.W3f, next_m0, MT, KT);
+    ATM_WCLK(10);
+    // c0, c1: operator column 16 mt + g, slots 8 nt + 2t, 2t + 1; c2, c3:
+    // column + 8. Whether each of the lane's slots takes its result is read
+    // once, so that the stores need no branch.
+    bool so[NR][2];
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = (n0 + j) * 8 + 2 * t + c;
+        so[j][c] = ((nmask >> j) & 1u) && i < d.tile && sel(i);
+      }
+#pragma unroll
+    for (int u = 0; u < MR; ++u)
+#pragma unroll
+      for (int j = 0; j < NR; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = (n0 + j) * 8 + 2 * t + (q & 1);
+          const int m = (m0 + u) * 16 + g + (q >= 2 ? 8 : 0);
+          if (so[j][q & 1] && ((mmask >> u) & 1u) && m < d.DzP)
+            s.S[i * d.DzP + m] = acc.hh[u][j][q] + acc.cr[u][j][q];
+        }
+    __syncwarp();
+    // The item's rows of MR x 16 adjacent columns: 8 lanes a row of MR x 4
+    // float4, so that each quarter warp reads and writes one contiguous run
+    // (no bank conflicts); two runs a lane at once.
+    constexpr int F = MR * 4, P = NR * 8 * F / 32;
+    static_assert(NR * 8 * F % 32 == 0, "whole passes of the warp");
+    bool sp[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int row = (p * 32 + lane) / F, c4 = (p * 32 + lane) % F;
+      const int i = (n0 + (row >> 3)) * 8 + (row & 7);
+      sp[p] = ((mmask >> (c4 >> 2)) & (nmask >> (row >> 3)) & 1u) &&
+              i < d.tile && m0 * 16 + 4 * c4 < d.DzP && sel(i);
+    }
+#pragma unroll 2
+    for (int p = 0; p < P; ++p) {
+      const int row = (p * 32 + lane) / F, c4 = (p * 32 + lane) % F;
+      if (sp[p])
+        split_finish<CONES, KEEP_U0>(
+            a, s, (n0 + (row >> 3)) * 8 + (row & 7), m0 * 16 + 4 * c4);
+    }
+    ATM_WCLK(14);
+  });
 }
 
 // The backward product of the slots on a split iteration: D = S Wb +
 // const_d (a split iteration is never a check or the cap, so such a slot
-// is live). backward_stage<..., true> skips these rows.
+// is live). backward_stage<..., true> skips these rows. Wb's fragments are
+// in shared memory unless the operators are read from device memory.
 template <bool GOPS>
 __device__ inline void split_backward(const Args& a, const Smem& s) {
+  constexpr int MR = SPLIT_BWD_MR, NR = SPLIT_BWD_NR;
   const Dims& d = a.d;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   auto sel = [&](int i) { return s.bsp[i] != 0; };
-  split_product<GOPS>(s.S, d.DzP, d.Dz, split_mt_b(d), split_kt_b(d), s.W3b,
-                      d.tile, sel, [&](int i, int m, float v) {
-                        if (m < d.DuP)
-                          s.D[i * d.DuP + m] = v + s.cd[i * d.DuP + m];
-                      });
+  const int KT = split_kt_b(d);
+  split_items<MR, NR>(split_mt_b(d), d.tile, sel, [&](int m0, int n0,
+                                                     unsigned mmask,
+                                                     unsigned nmask, int) {
+    SplitAcc<MR, NR> acc;
+    split_item<MR, NR, GOPS>(s.S, d.DzP, d.Dz, KT, s.W3b, m0, n0, d.tile,
+                             mmask, nmask, acc);
+    bool so[NR][2];
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int i = (n0 + j) * 8 + 2 * t + c;
+        so[j][c] = ((nmask >> j) & 1u) && i < d.tile && sel(i);
+      }
+#pragma unroll
+    for (int u = 0; u < MR; ++u)
+#pragma unroll
+      for (int j = 0; j < NR; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = (n0 + j) * 8 + 2 * t + (q & 1);
+          const int m = (m0 + u) * 16 + g + (q >= 2 ? 8 : 0);
+          if (so[j][q & 1] && ((mmask >> u) & 1u) && m < d.DuP)
+            s.D[i * d.DuP + m] = acc.hh[u][j][q] + acc.cr[u][j][q] +
+                                 s.cd[i * d.DuP + m];
+        }
+  });
 }
 
 // ----------------------------------------------------------------- stages --
@@ -609,8 +876,9 @@ __device__ inline void split_backward(const Args& a, const Smem& s) {
 // pre-projection iterate in S (and in u0, U, X where asked), t = relaxed
 // iterate + old dual in YG and the clipped slack in the new slack buffer,
 // for cone_stage and finish_stage.
-// SPLIT: the rows of slots on a split iteration take their product from S
-// (split_forward); a register tile runs its FFMAs only for a float32 row.
+// SPLIT: the rows of slots on a split iteration are split_forward's
+// (product and elementwise stage); a register tile with no float32 row
+// skips its FFMAs.
 template <int RI, bool CONES, bool KEEP_U0, bool GOPS, bool SPLIT = false>
 __device__ inline void forward_stage(const Args& a, const Smem& s) {
   const Dims& d = a.d;
@@ -626,18 +894,19 @@ __device__ inline void forward_stage(const Args& a, const Smem& s) {
     const int item = active ? raw : nitems - 1;
     const int g = item / ncg, cg = item - g * ncg;
     const int i0 = g * RI, j0 = cg * TJ;
-    bool dn[RI], sp[RI];
+    bool dn[RI];
     int fl[RI];
-    bool live = false, f32row = false;
+    bool live = false;
     int anyfl = 0;
 #pragma unroll
     for (int r = 0; r < RI; ++r) {
       dn[r] = !active || s.done[i0 + r] != LIVE;
       fl[r] = dn[r] ? 0 : s.flags[i0 + r];
-      sp[r] = SPLIT && (fl[r] & F_SPLIT) != 0;
-      if constexpr (SPLIT) fl[r] &= ~F_SPLIT;
+      if constexpr (SPLIT) {   // a split row has no other flag
+        dn[r] |= (fl[r] & F_SPLIT) != 0;
+        fl[r] = dn[r] ? 0 : fl[r];
+      }
       live |= !dn[r];
-      f32row |= !dn[r] && !sp[r];
       anyfl |= fl[r];
     }
     if (!__any_sync(0xffffffffu, live)) continue;  // warp-uniform
@@ -646,7 +915,7 @@ __device__ inline void forward_stage(const Args& a, const Smem& s) {
     for (int r = 0; r < RI; ++r)
 #pragma unroll
       for (int c = 0; c < TJ; ++c) acc[r][c] = 0.0f;
-    if (SPLIT ? f32row : live) {
+    if (live) {
       const float* Dg = s.D + i0 * d.DuP;
       const float* Wc = s.Wf + j0;
       if constexpr (RI == 4) {
@@ -708,15 +977,6 @@ __device__ inline void forward_stage(const Args& a, const Smem& s) {
             }
           }
         }
-      }
-    }
-    if constexpr (SPLIT) {
-#pragma unroll
-      for (int r = 0; r < RI; ++r) {
-        if (!sp[r]) continue;
-        const float4 p =
-            *reinterpret_cast<const float4*>(s.S + (i0 + r) * d.DzP + j0);
-        acc[r][0] = p.x; acc[r][1] = p.y; acc[r][2] = p.z; acc[r][3] = p.w;
       }
     }
     const float4 l4 = *reinterpret_cast<const float4*>(s.lo + j0);
@@ -1044,53 +1304,65 @@ __device__ inline void backward_stage(const Args& a, const Smem& s) {
 #pragma unroll
       for (int c = 0; c < TJ; ++c) acc[r][c] = 0.0f;
     if (live) {
-      const float* Sg = s.S + i0 * d.DzP;
-      const float* Wc = s.Wb + c0;
-      // FMA chains into dst over the lane's float4 steps q0, q0 + H, ...
-      // below q1.
-      auto chain = [&](float (&dst)[RI][TJ], int q0, int q1) {
-        for (int q = q0; q < q1; q += H) {
-          const int k = q << 2;
-          float w[4][TJ];
+      // The split kernels read Wb from device memory on a launch that
+      // splits (make_layout stages its fragments instead).
+      auto products = [&](auto gtag) {
+        constexpr bool G = decltype(gtag)::value;
+        const float* Sg = s.S + i0 * d.DzP;
+        const float* Wc = (G != GOPS ? s.Wbg : s.Wb) + c0;
+        // FMA chains into dst over the lane's float4 steps q0, q0 + H, ...
+        // below q1.
+        auto chain = [&](float (&dst)[RI][TJ], int q0, int q1) {
+          for (int q = q0; q < q1; q += H) {
+            const int k = q << 2;
+            float w[4][TJ];
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float4 wv = ldw4<GOPS>(Wc + (k + kk) * d.DuP);
-            w[kk][0] = wv.x; w[kk][1] = wv.y; w[kk][2] = wv.z; w[kk][3] = wv.w;
-          }
-#pragma unroll
-          for (int r = 0; r < RI; ++r) {
-            const float4 sv =
-                *reinterpret_cast<const float4*>(Sg + r * d.DzP + k);
-#pragma unroll
-            for (int c = 0; c < TJ; ++c) {
-              dst[r][c] = fmaf(sv.x, w[0][c], dst[r][c]);
-              dst[r][c] = fmaf(sv.y, w[1][c], dst[r][c]);
-              dst[r][c] = fmaf(sv.z, w[2][c], dst[r][c]);
-              dst[r][c] = fmaf(sv.w, w[3][c], dst[r][c]);
+            for (int kk = 0; kk < 4; ++kk) {
+              const float4 wv = ldw4<G>(Wc + (k + kk) * d.DuP);
+              w[kk][0] = wv.x; w[kk][1] = wv.y;
+              w[kk][2] = wv.z; w[kk][3] = wv.w;
             }
+#pragma unroll
+            for (int r = 0; r < RI; ++r) {
+              const float4 sv =
+                  *reinterpret_cast<const float4*>(Sg + r * d.DzP + k);
+#pragma unroll
+              for (int c = 0; c < TJ; ++c) {
+                dst[r][c] = fmaf(sv.x, w[0][c], dst[r][c]);
+                dst[r][c] = fmaf(sv.y, w[1][c], dst[r][c]);
+                dst[r][c] = fmaf(sv.z, w[2][c], dst[r][c]);
+                dst[r][c] = fmaf(sv.w, w[3][c], dst[r][c]);
+              }
+            }
+          }
+        };
+        if (nq <= H * BWD_BLOCK) {
+          chain(acc, h, nq);   // at most one block a lane: one chain
+        } else {
+          // Blocks of BWD_BLOCK (or BWD_FINE) steps, each a fresh chain added
+          // to acc.
+          const int step =
+              H * (RI == 4 && nq > 4 * H * BWD_BLOCK ? BWD_FINE : BWD_BLOCK);
+          for (int q0 = h; q0 < nq; q0 += step) {
+            float part[RI][TJ];
+#pragma unroll
+            for (int r = 0; r < RI; ++r)
+#pragma unroll
+              for (int c = 0; c < TJ; ++c) part[r][c] = 0.0f;
+            chain(part, q0, min(nq, q0 + step));
+#pragma unroll
+            for (int r = 0; r < RI; ++r)
+#pragma unroll
+              for (int c = 0; c < TJ; ++c)
+                acc[r][c] = q0 == h ? part[r][c] : acc[r][c] + part[r][c];
           }
         }
       };
-      if (nq <= H * BWD_BLOCK) {
-        chain(acc, h, nq);   // at most one block a lane: one chain
+      if constexpr (SPLIT && !GOPS) {
+        if (d.split) products(std::true_type{});
+        else products(std::false_type{});
       } else {
-        // Blocks of BWD_BLOCK (or BWD_FINE) steps, each a fresh chain added
-        // to acc.
-        const int step =
-            H * (RI == 4 && nq > 4 * H * BWD_BLOCK ? BWD_FINE : BWD_BLOCK);
-        for (int q0 = h; q0 < nq; q0 += step) {
-          float part[RI][TJ];
-#pragma unroll
-          for (int r = 0; r < RI; ++r)
-#pragma unroll
-            for (int c = 0; c < TJ; ++c) part[r][c] = 0.0f;
-          chain(part, q0, min(nq, q0 + step));
-#pragma unroll
-          for (int r = 0; r < RI; ++r)
-#pragma unroll
-            for (int c = 0; c < TJ; ++c)
-              acc[r][c] = q0 == h ? part[r][c] : acc[r][c] + part[r][c];
-        }
+        products(std::integral_constant<bool, GOPS>{});
       }
     }
     // The H lanes of a tile are adjacent (item = H * tile + h and the items
@@ -1305,11 +1577,14 @@ __device__ inline int refill_stage(const Args& a, const Smem& s, int n,
   const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   for (int e = warp; e < n; e += nwarps) {
     const int i = s.list[e];
+    ATM_SCLK_BEGIN();
     if (!initial) retire_slot<ROLLOUT, GOPS, LONG>(a, s, i);
     __syncwarp();   // every lane is done with the slot's old state
+    ATM_SCLK_MID();
     if (lane == 0) claim_slot<ROLLOUT>(a, s, i, initial);
     __syncwarp();
     load_slot<ADAPTIVE, ROLLOUT, GOPS>(a, s, i);
+    ATM_SCLK_END(initial);
   }
   __syncthreads();   // the loads' done flags, before they are counted
   if (threadIdx.x == 0) *s.nref = 0;
@@ -1339,8 +1614,9 @@ template <int RI, bool ADAPTIVE, bool CONES, bool ROLLOUT, bool GOPS,
           bool SPLIT = false>
 __device__ inline void run_block(const Args& a, float* base) {
   const Layout L = make_layout(a.d);
-  const Smem s = carve<GOPS>(a, base, L);
-  stage_block<GOPS>(a, L, base, s);
+  const Smem s = carve<GOPS, SPLIT>(a, base, L);
+  ATM_CLK_BEGIN();
+  stage_block<GOPS, SPLIT>(a, L, base, s);
   __syncthreads();
   if (threadIdx.x < a.d.tile) s.list[threadIdx.x] = threadIdx.x;
   __syncthreads();
@@ -1348,42 +1624,56 @@ __device__ inline void run_block(const Args& a, float* base) {
   int live =
       refill_stage<ADAPTIVE, ROLLOUT, GOPS, LONG>(a, s, a.d.tile, true);
   // A split launch whose schedule splits no iteration (d.split = 0) has
-  // no fragments and no bsp: it runs the float32 stages alone.
+  // no fragments and no bsp: it runs the float32 stages alone. The split
+  // slots' stages run beside the float32 slots' with no barrier between
+  // (disjoint rows), each split product first.
   const bool split = SPLIT && a.d.split;
+  ATM_CLK_MARK();
   while (live > 0) {
+    ATM_CLK_COUNT(7);
     if (split) {
-      split_forward<GOPS>(a, s);
-      __syncthreads();
+      ATM_WCLK_BEGIN();
+      split_forward<CONES, ROLLOUT>(a, s);
+      ATM_WCLK(15);
     }
+    ATM_WCLK_BEGIN();
     forward_stage<RI, CONES, ROLLOUT, GOPS, SPLIT>(a, s);
+    ATM_WCLK(11);
     __syncthreads();
+    ATM_CLK(0);
     if constexpr (CONES) {
       cone_stage(a, s);
       __syncthreads();
+      ATM_CLK(1);
       finish_stage(a, s);
       __syncthreads();
+      ATM_CLK(2);
     }
     // A slot that freezes must be DONE before the backward stage reads the
     // flags; without checks a slot only turns CAPPED, which the backward
     // stage runs like a LIVE one, so no barrier is needed between the two.
     live = decide_stage<ADAPTIVE, ROLLOUT>(a, s);
-    if (ADAPTIVE) {
-      live = __syncthreads_count(live);
-      backward_stage<RI, GOPS, SPLIT>(a, s);
-      if (split) split_backward<GOPS>(a, s);
-      __syncthreads();
-    } else {
-      backward_stage<RI, GOPS, SPLIT>(a, s);
-      if (split) split_backward<GOPS>(a, s);
-      live = __syncthreads_count(live);
+    if (ADAPTIVE) live = __syncthreads_count(live);
+    if (split) {
+      ATM_WCLK_BEGIN();
+      split_backward<GOPS>(a, s);
+      ATM_WCLK(12);
     }
+    ATM_WCLK_BEGIN();
+    backward_stage<RI, GOPS, SPLIT>(a, s);
+    ATM_WCLK(13);
+    if (ADAPTIVE) __syncthreads();
+    else live = __syncthreads_count(live);
+    ATM_CLK(3);
     const int nret = *s.nref;   // slots waiting to be retired
     if (nret >= refill_min<RI>() || (live == 0 && nret > 0)) {
       live = refill_stage<ADAPTIVE, ROLLOUT, GOPS, LONG>(a, s, nret, false);
     } else if (threadIdx.x < a.d.tile && s.done[threadIdx.x] == CAPPED) {
       s.done[threadIdx.x] = DONE;   // it waits for a refill; the next
     }                               // forward stage's barrier orders this
+    ATM_CLK(4);
   }
+  ATM_CLK_END();
 }
 
 }  // namespace atm

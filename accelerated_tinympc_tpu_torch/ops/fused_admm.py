@@ -656,10 +656,12 @@ def kernel_smem_bytes(nx: int, nu: int, horizon: int, tile: int,
     rows (0 for static cone parameters and for box-only solves): the coned
     kernels need nothing else beyond the box layout. ``placement="device"``
     leaves the operators Wf, Wb, Wx out (the kernels read them from device
-    memory). ``split`` (the ``algo="bf16x3"`` kernels) adds the split
-    operator fragments beside the float32 operators (:func:`split_words`;
-    with them in device memory too at ``placement="device"``) and a flag
-    per slot."""
+    memory). ``split`` (the ``algo="bf16x3"`` kernels) adds a flag per
+    slot and, with the operators staged, holds the backward operator's
+    split fragments (:func:`split_words`, its Wb^T part) in place of Wb and
+    Wx, which those kernels read from device memory (the forward
+    operator's fragments stay there too): they run the float32 kernels'
+    slots."""
     if placement not in PLACEMENTS:
         raise ValueError(f"placement must be one of {PLACEMENTS}")
     r4 = lambda n: (n + 3) & ~3
@@ -676,8 +678,10 @@ def kernel_smem_bytes(nx: int, nu: int, horizon: int, tile: int,
         + 2 * r4(ncp * tile)
     )
     if split:
-        words += tile + (split_words(nx, nu, horizon)
-                         if placement == "shared" else 0)
+        words += tile
+        if placement == "shared":
+            t16 = lambda n: -(-n // 16)
+            words += 256 * t16(Du) * t16(Dx + Du) - DzP * DuP - nx * DzP
     return 4 * words
 
 
@@ -715,8 +719,8 @@ def choose_placement(dims: tuple, limit: int = SMEM_LIMIT_BYTES,
     before the device placement keeps its kernel), else ``"device"`` (read
     from device memory, resident in L2) while one register tile of per-slot
     state fits, of 8 slots or else of 4. Raises past that, with the bytes
-    needed. ``split``: the ``algo="bf16x3"`` kernels' layout (the split
-    operators count beside the float32 ones)."""
+    needed. ``split``: the ``algo="bf16x3"`` kernels' layout (a flag per
+    slot beside the float32 one)."""
     nx, nu, N = dims
     if kernel_smem_bytes(nx, nu, N, REGISTER_TILE, ncp, "shared",
                          split) <= limit:

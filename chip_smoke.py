@@ -48,7 +48,9 @@ Before the sixth, ``bf16x3_path``: the fused kernels' split-bf16 mode
 (``algo="bf16x3"``, ``mma.sync`` bf16 products) against its plain versions,
 the float32 kernels and the golden CSVs, bit for bit with the float32
 kernels where no iteration splits, through ``TinyMPC(algo="bf16x3")`` at
-65,536 and timed beside the float32 kernels.
+65,536 and timed beside the float32 kernels, each row with its slots a
+block (an earlier checkout's split kernels are timed in turns with these
+by ``tools/torch_fused_times.py --algo bf16x3``).
 Every phase prints one JSON line with the seconds since the start;
 the last line is ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the exit code is non-zero and no result line is printed. Without a CUDA
@@ -1806,7 +1808,9 @@ def bf16x3_path(dev: str = "cuda") -> tuple[dict, list]:
             "launches": counts[name], "max_abs_err": case["max_abs_err"],
             "ms": ms, "plain_ms": plain_ms, "plain_batch": KERNEL_BATCH,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "f32_twin_ms": f32_ms,
+            "f32_twin_ms": f32_ms, "slots": tile,
+            "f32_twin_slots": fused_admm._geometry(dims, MB, dev, None,
+                                                   None)[0],
             "iters_mean": float(its.float().mean()),
             "split_iters_share": split / float(its.sum()),
             "tile_threads_placement": [tile, threads, placement]})
@@ -1816,13 +1820,6 @@ def bf16x3_path(dev: str = "cuda") -> tuple[dict, list]:
         x0s, cold, pp, max_iter=100, placement="device", **BF))
     extra_ms["K1 polish=100 (no split iteration)"] = cuda_ms(
         lambda: fused_solve(x0s, cold, pp, max_iter=100, polish=100, **BF))
-    # what the fragments' shared memory costs: the float32 kernel at the
-    # split kernel's tile
-    tile_split = fused_admm._geometry(pp.dims, MB, dev, None, None,
-                                      split=True)[0]
-    extra_ms[f"K1 float32 at batch_tile={tile_split}"] = cuda_ms(
-        lambda: fused_solve(x0s, cold, pp, max_iter=100,
-                            batch_tile=tile_split))
     extra_ms["K2 warm check=5 tol=0.05"] = [cuda_ms(lambda: fused_solve(
         x1, warm, pp, **BF16X3_ADAPTIVE, **a)) for a in ({}, BF)]
     torch.cuda.synchronize()

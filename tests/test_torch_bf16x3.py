@@ -349,16 +349,18 @@ def test_solve_bound_and_layout_of_the_split_mode():
     # 6-9, 11; an instance stopping at 10 ran 8 split iterations
     assert profiling.split_iters_of(
         [10, 12], max_iter=12, check_termination=5, warmup_iters=2) == 8 + 9
-    # the split kernels' shared memory: the operator fragments (hi and lo of
-    # Wf^T in 10 x 3 tiles, of Wb^T in 3 x 10, 256 words a tile) beside the
-    # float32 operators, and one flag a slot
+    # the split kernels' operator fragments: hi and lo of Wf^T in 10 x 3
+    # tiles, of Wb^T in 3 x 10, 256 words a tile. With the operators staged,
+    # Wb^T's fragments take the place of the float32 Wb and Wx (read from
+    # device memory then) and Wf^T's stay in device memory; one flag a slot
     assert ft.split_words(*dims) == 256 * (10 * 3 + 3 * 10) == 15360
-    base = ft.kernel_smem_bytes(*dims, 32)
-    assert ft.kernel_smem_bytes(*dims, 32, split=True) == base + 4 * (
-        15360 + 32)
-    assert ft.kernel_smem_bytes(*dims, 32, placement="device", split=True) \
-        == ft.kernel_smem_bytes(*dims, 32, placement="device") + 4 * 32
-    assert ft.choose_tile(dims, 65536, split=True) == 32
-    assert ft.choose_placement((12, 4, 18), split=True) == "device"
+    assert ft.kernel_smem_bytes(*dims, 48, split=True) \
+        == ft.kernel_smem_bytes(*dims, 48) + 4 * (
+            48 + 256 * 3 * 10 - 156 * 36 - 12 * 156) == 225_712
+    assert ft.kernel_smem_bytes(*dims, 48, placement="device", split=True) \
+        == ft.kernel_smem_bytes(*dims, 48, placement="device") + 4 * 48
+    assert ft.choose_tile(dims, 65536, split=True) == 48
+    assert ft.choose_placement((12, 4, 18), split=True) == "shared"
+    assert ft.choose_placement((12, 4, 19), split=True) == "device"
     for N in (79, 129, 150):   # every horizon the float32 kernels take
         assert ft.choose_tile((12, 4, N), 65536, split=True) == 4

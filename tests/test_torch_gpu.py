@@ -1250,3 +1250,83 @@ def test_bf16x3_takes_every_input_of_the_f32_tier(card, case):
     same = got.stats[:, 0] == want.stats[:, 0]
     assert float(same.float().mean()) >= 0.95
     assert float((got.U - want.U)[same].abs().max()) <= ATOL
+
+
+# Every horizon, operator placement and register tile that the float32
+# kernels take, on the split kernels (their fragments are read from device
+# memory in both placements, so a split block holds the float32 block's
+# slots): against the plain version of the same schedule, and bit for bit
+# across placements and register tiles at one launch geometry.
+SPLIT_SHAPES = [(10, "shared", 8), (10, "device", 8), (18, "shared", 8),
+                (18, "device", 8), (40, "device", 8), (40, "device", 4),
+                (100, "device", 4), (150, "device", 4)]
+
+
+@pytest.mark.parametrize("N, placement, ri", SPLIT_SHAPES)
+def test_bf16x3_takes_every_horizon_placement_and_tile(card, N, placement,
+                                                       ri):
+    # a short fixed solve (8 of 10 iterations split) against the plain
+    # version of its schedule: nearer it than the float32 plain version
+    # (chip_smoke.split_closer), and within 1e-3 (the split's flips move a
+    # control of these 37 instances by up to 1.2e-4 at N=100; the float32
+    # and split plain versions lie further apart)
+    import chip_smoke as cs
+
+    _problem, _cache, pp, x0s = _quadrotor(N, batch=37)
+    cold = FusedCarry.zeros(x0s.shape[0], pp)
+    kw = dict(max_iter=10, check_termination=0, polish=2, algo="bf16x3")
+    got = fused_solve(x0s, cold, pp, placement=placement, register_tile=ri,
+                      **kw)
+    want = fused_solve_plain(x0s, cold, pp, **kw)
+    assert float((got.U - want.U).abs().max()) <= 1e-3
+    f32 = {k: v for k, v in kw.items() if k != "algo"}
+    case = cs.split_closer(
+        {"case": f"N={N} {placement} ri={ri}", "failures": []}, got, want,
+        lambda: fused_solve_plain(x0s, cold, pp, **f32), lambda r: r.U,
+        cs.solve_sched, kw)
+    assert not case["failures"], case["failures"]
+
+
+@pytest.mark.parametrize("N", [10, 40])
+def test_bf16x3_placements_and_tiles_are_bit_identical(card, N):
+    problem, _cache, pp, x0s = _quadrotor(N)
+    cold = FusedCarry.zeros(x0s.shape[0], pp)
+    geos = ([dict(placement=pl, batch_tile=8, threads=128)
+             for pl in ("shared", "device")] if N == 10 else
+            [dict(placement="device", register_tile=ri, batch_tile=ri,
+                  threads=128) for ri in (8, 4)])
+    rops = rollout_ops(problem, pp)
+    for run, fields in (
+            (lambda g: fused_solve(x0s, cold, pp, max_iter=50, polish=6,
+                                   algo="bf16x3", **g), _solve_fields),
+            (lambda g: fused_rollout(x0s, cold, pp, rops, 6, max_iter=30,
+                                     check_termination=5, algo="bf16x3",
+                                     **g), _mission_fields)):
+        a, b = (run(g) for g in geos)
+        assert all(torch.equal(x, y) for x, y in zip(fields(a), fields(b)))
+
+
+@pytest.mark.parametrize("ri", [8, 4])
+def test_bf16x3_long_horizon_passes_the_arbiter_at_the_kernel_batch(card,
+                                                                    ri):
+    # the float64 arbiter of chip_smoke.py (rule="split") on a long horizon
+    # with the operators in device memory, at the batch where its 0.99
+    # quantile of per-instance errors is not the largest of a few dozen
+    import chip_smoke as cs
+
+    N = 40
+    problem, cache, pp, x0s = _quadrotor(N, batch=cs.KERNEL_BATCH)
+    cold = FusedCarry.zeros(x0s.shape[0], pp)
+    kw = dict(max_iter=20, check_termination=0, polish=4, algo="bf16x3")
+    got = fused_solve(x0s, cold, pp, placement="device", register_tile=ri,
+                      **kw)
+
+    def plain(dtype, device, **kw):
+        p = _pp64(problem, cache) if dtype == torch.float64 else pp
+        return fused_solve_plain(
+            x0s.to(device=device, dtype=dtype),
+            FusedCarry(*(t.to(device=device, dtype=dtype) for t in cold)),
+            p.to(device=device), **kw)
+
+    _split_close(f"N={N} device ri={ri} batch {cs.KERNEL_BATCH}", got, pp,
+                 plain, kw)

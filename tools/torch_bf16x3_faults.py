@@ -39,26 +39,26 @@ CSRC = HERE / "accelerated_tinympc_tpu_torch" / "ops" / "csrc"
 BODY = "admm_iteration.cuh"
 
 _FRESH = """\
-      float ph[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float pc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      mma_bf16(ph, ah, bh0, bh1);
-      mma_bf16(pc, ah, bl0, bl1);
-      mma_bf16(pc, al, bh0, bh1);
+        float ph[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float pc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_bf16(ph, ah[u], bh0[j], bh1[j]);
+        mma_bf16(pc, ah[u], bl0[j], bl1[j]);
+        mma_bf16(pc, al[u], bh0[j], bh1[j]);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        hh[q] += ph[q];
-        cr[q] += pc[q];
-      }
+        for (int q = 0; q < 4; ++q) {
+          acc.hh[u][j][q] += ph[q];
+          acc.cr[u][j][q] += pc[q];
+        }
 """
 
 # name: [(old, new), ...] in admm_iteration.cuh, each old found exactly once
 FAULTS = {
     "sound": [],
-    # F_SPLIT never set: every iteration float32 (the fragments still staged)
+    # F_SPLIT never set: every iteration float32 (the fragments still split)
     "no_split": [("(split ? F_SPLIT : 0)", "0")],
     # one of the three bf16 passes dropped
-    "drop_hi_lo": [("      mma_bf16(pc, ah, bl0, bl1);\n", "")],
-    "drop_lo_hi": [("      mma_bf16(pc, al, bh0, bh1);\n", "")],
+    "drop_hi_lo": [("        mma_bf16(pc, ah[u], bl0[j], bl1[j]);\n", "")],
+    "drop_lo_hi": [("        mma_bf16(pc, al[u], bh0[j], bh1[j]);\n", "")],
     # the fixed schedule one iteration off
     "n3_plus_1": [(": it <= a.n3);", ": it <= a.n3 + 1);")],
     "n3_minus_1": [(": it <= a.n3);", ": it < a.n3);")],
@@ -67,15 +67,15 @@ FAULTS = {
                     "it % a.check_every == 0")],
     # the two sums kept running inside the tensor cores
     "running_accumulators": [(_FRESH, """\
-      mma_bf16(hh, ah, bh0, bh1);
-      mma_bf16(cr, ah, bl0, bl1);
-      mma_bf16(cr, al, bh0, bh1);
+        mma_bf16(acc.hh[u][j], ah[u], bh0[j], bh1[j]);
+        mma_bf16(acc.cr[u][j], ah[u], bl0[j], bl1[j]);
+        mma_bf16(acc.cr[u][j], al[u], bh0[j], bh1[j]);
 """)],
     # all three passes into one running accumulator
     "one_accumulator": [(_FRESH, """\
-      mma_bf16(hh, ah, bh0, bh1);
-      mma_bf16(hh, ah, bl0, bl1);
-      mma_bf16(hh, al, bh0, bh1);
+        mma_bf16(acc.hh[u][j], ah[u], bh0[j], bh1[j]);
+        mma_bf16(acc.hh[u][j], ah[u], bl0[j], bl1[j]);
+        mma_bf16(acc.hh[u][j], al[u], bh0[j], bh1[j]);
 """)],
 }
 

@@ -1,33 +1,47 @@
 #!/usr/bin/env python3
-"""Cycles per stage of the fused kernels' iteration (K1, K2, K4 a/b) on one
-GPU, from clock counters put into a copy of a checkout's kernels.
+"""Cycles per stage of the fused kernels' iteration (K1-K4, float32 and
+split-bf16) on one GPU, from clock counters put into a copy of a checkout's
+kernels.
 
-    python3 tools/torch_fused_stage_clocks.py [ROOT]
+    python3 tools/torch_fused_stage_clocks.py [ROOT] [--only K1,K3,...]
+        [--algos f32,bf16x3]
 
 The profilers that would split a kernel's time by stage (``ncu``) may not
 run where the card is, so this script copies ROOT's
 ``accelerated_tinympc_tpu_torch`` (default: this checkout) into a temporary
-directory and adds counters to the copy's ``ops/csrc/admm_iteration.cuh``:
-thread 0 of every block reads ``clock64()`` after each barrier of the
-iteration loop and adds the difference to a device array, which a small C
-entry added to ``fused_admm.cu`` reads back. The stages are the forward
-product with the elementwise stage, the cone pass, the finish pass, the
-bookkeeping with the backward product, and (slot kernels) the refill check
-and refill; per retired slot, the cycles its warp spent retiring it and
-loading the next. Two kernel layouts are known: the lockstep blocks of the
-first port (``solve_core``) and the slot kernels (``run_block``); the
-script stops if ROOT's source matches neither (the slot kernels templated
-over the operators' placement, and over the register tile's slots, count
-as the second). The counters cost one
-global atomic per stage and block-iteration, so the times printed beside
-them are a little above the uninstrumented kernels'.
+directory and builds it with clock counters. The iteration body
+(``ops/csrc/admm_iteration.cuh``) carries stage hooks (``ATM_CLK`` and
+kin, empty unless defined); the script defines them in front of the copy's
+``fused_admm.cu`` and ``fused_admm_bf16x3.cu`` and appends a C entry that
+reads the counters back. A source without the hooks stops the script.
 
-The workloads are this checkout's ``chip_smoke.py`` builders at batch
-65,536. Prints one JSON line. Needs a CUDA device and nvcc.
+Block counters (thread 0 of every block reads ``clock64()`` after each
+barrier of the iteration loop; cycles per block-iteration): ``forward``
+the forward stage (with the split rows' product and elementwise work where
+they run beside it), ``cone`` and ``finish`` (coned kernels), ``backward``
+the bookkeeping with both backward products, ``refill`` the refill check and
+refill. Warp counters (lane 0 of every warp, cycles per warp and
+block-iteration): ``w_split_fwd``, ``w_forward``, ``w_split_bwd``,
+``w_backward``, the time a warp spends in each product's code before the
+next barrier, so the gap to the block counter is the wait at the barrier.
+Per retired slot, the cycles its warp spent retiring it and loading the
+next. The counters live in shared memory and are added to device memory once
+per block, so the times printed beside them are a little above the
+uninstrumented kernels'.
+
+Workloads: this checkout's ``chip_smoke.py`` workload functions at batch
+65,536, each split kernel beside its float32 twin on the same schedule:
+K1 quadrotor fixed-100 cold (split: polish 8), K2 warm check 1, K3 70
+ticks at checks every 5 (tol 1e-2), K4 a/b/c on the lander with both
+cones (c: 30 ticks). Beside the readings: the SASS instructions of each
+split kernel (``cuobjdump``, where the toolkit has it) and its registers
+and spills (``-Xptxas -v``). Prints one JSON line. Needs a CUDA device
+and nvcc.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -38,160 +52,147 @@ import tempfile
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 
-COUNTERS = """
-__device__ unsigned long long g_clk[10];
-#define ATM_CLK(k) do { if (threadIdx.x == 0) { \\
-  const unsigned long long t_ = clock64(); \\
-  atomicAdd(&g_clk[k], t_ - clk0_); clk0_ = t_; } } while (0)
-"""
+NCLK = 16
+# Counter indices: block counters, slot counters, warp counters.
+BLOCK = {"forward": 0, "cone": 1, "finish": 2, "backward": 3, "refill": 4}
+WARP = {"w_split_fwd": 10, "w_forward": 11, "w_split_bwd": 12,
+        "w_backward": 13, "w_split_fwd_finish": 14, "w_split_fwd_rest": 15}
+ITERS, RETIRED, RETIRE, LOAD = 7, 8, 5, 6
+
+# Block counters in shared memory (thread 0 adds them to g_clk at the end);
+# warp spans in shared memory per warp: ATM_WCLK_BEGIN() marks, ATM_WCLK(k)
+# adds the cycles since the warp's last mark to counter k and marks again
+# (usable in any function of the body: the arrays are at namespace scope).
+HOOK_DEFS = """
+#include <cuda_runtime.h>
+namespace atm {
+__device__ unsigned long long g_clk[%(n)d];
+__shared__ unsigned long long s_ck_[%(n)d];
+__shared__ unsigned long long s_wk_[8][6];
+__shared__ unsigned long long s_wt_[8];
+}
+#define ATM_CLK_BEGIN() \\
+  if (threadIdx.x == 0) for (int k_ = 0; k_ < %(n)d; ++k_) atm::s_ck_[k_] = 0ull; \\
+  if ((threadIdx.x & 31) == 0 && threadIdx.x < 256) \\
+    for (int k_ = 0; k_ < 6; ++k_) atm::s_wk_[threadIdx.x >> 5][k_] = 0ull; \\
+  unsigned long long c0_ = 0ull
+#define ATM_CLK_MARK() c0_ = clock64()
+#define ATM_CLK(k) do { const unsigned long long t_ = clock64(); \\
+  if (threadIdx.x == 0) atm::s_ck_[k] += t_ - c0_; c0_ = t_; } while (0)
+#define ATM_CLK_COUNT(k) do { if (threadIdx.x == 0) ++atm::s_ck_[k]; } while (0)
+#define ATM_WCLK_BEGIN() do { if ((threadIdx.x & 31) == 0) \\
+  atm::s_wt_[threadIdx.x >> 5] = clock64(); } while (0)
+#define ATM_WCLK(k) do { const unsigned long long t_ = clock64(); \\
+  if ((threadIdx.x & 31) == 0) { \\
+    atm::s_wk_[threadIdx.x >> 5][(k) - 10] += t_ - atm::s_wt_[threadIdx.x >> 5]; \\
+    atm::s_wt_[threadIdx.x >> 5] = t_; } } while (0)
+#define ATM_SCLK_BEGIN() const unsigned long long c0s_ = clock64()
+#define ATM_SCLK_MID() const unsigned long long c1s_ = clock64()
+#define ATM_SCLK_END(initial) do { __syncwarp(); \\
+  const unsigned long long c2s_ = clock64(); \\
+  if (!(initial) && (threadIdx.x & 31) == 0) { \\
+    atomicAdd(&atm::g_clk[5], c1s_ - c0s_); \\
+    atomicAdd(&atm::g_clk[6], c2s_ - c1s_); \\
+    atomicAdd(&atm::g_clk[8], 1ull); } } while (0)
+#define ATM_CLK_END() do { __syncthreads(); if (threadIdx.x == 0) { \\
+  for (int k_ = 0; k_ < 10; ++k_) \\
+    if (k_ != 5 && k_ != 6 && k_ != 8) \\
+      atomicAdd(&atm::g_clk[k_], atm::s_ck_[k_]); \\
+  for (int w_ = 0; w_ < (int)(blockDim.x >> 5); ++w_) \\
+    for (int k_ = 0; k_ < 6; ++k_) atomicAdd(&atm::g_clk[10 + k_], \\
+                                             atm::s_wk_[w_][k_]); } } while (0)
+""" % {"n": NCLK}
 READ_BACK = """
 extern "C" int atm_clocks(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, atm::g_clk, sizeof(atm::g_clk));
   if (e != cudaSuccess) return (int)e;
-  unsigned long long z[10] = {0};
+  unsigned long long z[%(n)d] = {0};
   return (int)cudaMemcpyToSymbol(atm::g_clk, z, sizeof(z));
 }
-"""
-# (old, new) pairs per layout; each old text must occur exactly once.
-LOCKSTEP = [
-    ("""  for (int it = 1; it <= a.max_iter; ++it) {
-    const bool is_last""", """  unsigned long long clk0_ = clock64();
-  for (int it = 1; it <= a.max_iter; ++it) {
-    if (threadIdx.x == 0) atomicAdd(&g_clk[7], 1ull);
-    const bool is_last"""),
-    ("""                         is_last ? Uout : nullptr, Xout);
-    __syncthreads();
-    if constexpr (CONES) {
-      cone_stage(a, s);
-      __syncthreads();
-      finish_stage(a, s, is_check, record);
-      __syncthreads();
-    }
-    if (decide_stage<ADAPTIVE>(a, s, it, is_check, record)) break;
-    backward_stage(a, s);
-    __syncthreads();
-  }""", """                         is_last ? Uout : nullptr, Xout);
-    __syncthreads();
-    ATM_CLK(0);
-    if constexpr (CONES) {
-      cone_stage(a, s);
-      __syncthreads();
-      ATM_CLK(1);
-      finish_stage(a, s, is_check, record);
-      __syncthreads();
-      ATM_CLK(2);
-    }
-    if (decide_stage<ADAPTIVE>(a, s, it, is_check, record)) break;
-    backward_stage(a, s);
-    __syncthreads();
-    ATM_CLK(3);
-  }"""),
-]
-SLOTS = [
-    ("""  int live = refill_stage<ADAPTIVE, ROLLOUT>(a, s, a.d.tile, true);
-  while (live > 0) {
-    forward_stage<CONES, ROLLOUT>(a, s);
-    __syncthreads();
-    if constexpr (CONES) {
-      cone_stage(a, s);
-      __syncthreads();
-      finish_stage(a, s);
-      __syncthreads();
-    }""", """  int live = refill_stage<ADAPTIVE, ROLLOUT>(a, s, a.d.tile, true);
-  unsigned long long clk0_ = clock64();
-  while (live > 0) {
-    if (threadIdx.x == 0) atomicAdd(&g_clk[7], 1ull);
-    forward_stage<CONES, ROLLOUT>(a, s);
-    __syncthreads();
-    ATM_CLK(0);
-    if constexpr (CONES) {
-      cone_stage(a, s);
-      __syncthreads();
-      ATM_CLK(1);
-      finish_stage(a, s);
-      __syncthreads();
-      ATM_CLK(2);
-    }"""),
-    ("""    const int nret = *s.nref;   // slots waiting to be retired
-    if""", """    ATM_CLK(3);
-    const int nret = *s.nref;   // slots waiting to be retired
-    if"""),
-    ("""      s.done[threadIdx.x] = DONE;   // it waits for a refill; the next
-    }                               // forward stage's barrier orders this
-  }""", """      s.done[threadIdx.x] = DONE;   // it waits for a refill; the next
-    }                               // forward stage's barrier orders this
-    ATM_CLK(4);
-  }"""),
-    ("""    if (!initial) retire_slot<ROLLOUT>(a, s, i);
-    __syncwarp();   // every lane is done with the slot's old state""",
-     """    unsigned long long c0_ = clock64();
-    if (!initial) retire_slot<ROLLOUT>(a, s, i);
-    __syncwarp();   // every lane is done with the slot's old state
-    unsigned long long c1_ = clock64();"""),
-    ("""    load_slot<ADAPTIVE, ROLLOUT>(a, s, i);
-  }
-  __syncthreads();   // the loads' done flags""",
-     """    load_slot<ADAPTIVE, ROLLOUT>(a, s, i);
-    __syncwarp();
-    if (lane == 0 && !initial) {
-      const unsigned long long c2_ = clock64();
-      atomicAdd(&g_clk[5], c1_ - c0_);
-      atomicAdd(&g_clk[6], c2_ - c1_);
-      atomicAdd(&g_clk[8], 1ull);
-    }
-  }
-  __syncthreads();   // the loads' done flags"""),
-]
-
-
-# The slot kernels templated over the operators' placement name the
-# template parameter in every stage call.
-PLACED = ("refill_stage<ADAPTIVE, ROLLOUT", "forward_stage<CONES, ROLLOUT",
-          "retire_slot<ROLLOUT", "load_slot<ADAPTIVE, ROLLOUT")
-
-
-def _placed(text: str, tiled: bool = False) -> str:
-    for call in PLACED:
-        text = text.replace(call + ">", call + ", GOPS>")
-    if tiled:   # templated over the register tile's slots too
-        text = text.replace("forward_stage<CONES", "forward_stage<RI, CONES")
-    return text
-
+""" % {"n": NCLK}
 
 def instrumented_copy(root: pathlib.Path, dst: pathlib.Path) -> str:
+    """Copies ROOT's package to ``dst`` with the stage hooks defined."""
     pkg = dst / "accelerated_tinympc_tpu_torch"
     shutil.copytree(root / "accelerated_tinympc_tpu_torch", pkg,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    cuh = pkg / "ops" / "csrc" / "admm_iteration.cuh"
-    src = cuh.read_text()
-    layout, edits = ("slots", SLOTS) if "run_block" in src else (
-        "lockstep", LOCKSTEP)
-    if "bool GOPS" in src:
-        tiled = "template <int RI, bool ADAPTIVE" in src
-        layout = "slots over two placements" + (
-            " and two register tiles" if tiled else "")
-        edits = [(_placed(old, tiled), _placed(new, tiled))
-                 for old, new in SLOTS]
-    src = src.replace("namespace atm {\n", "namespace atm {\n" + COUNTERS, 1)
-    for old, new in edits:
-        if src.count(old) != 1:
-            sys.exit(f"{cuh}: the {layout} layout's text is not found once:"
-                     f"\n{old}")
-        src = src.replace(old, new)
-    cuh.write_text(src)
-    cu = pkg / "ops" / "csrc" / "fused_admm.cu"
-    cu.write_text(cu.read_text() + READ_BACK)
-    return layout
+    csrc = pkg / "ops" / "csrc"
+    cuh = csrc / "admm_iteration.cuh"
+    if "ATM_CLK_BEGIN()" not in cuh.read_text():
+        sys.exit(f"{cuh}: no stage hooks")
+    for name in ("fused_admm.cu", "fused_admm_bf16x3.cu"):
+        cu = csrc / name
+        cu.write_text(HOOK_DEFS + cu.read_text() + READ_BACK)
+
+
+def build_fused(_build) -> None:
+    """Builds the copy's two fused libraries (float32, split-bf16) with its
+    own ``_build`` flags, both compilers started together."""
+    import subprocess
+
+    out = _build.build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    procs, logs = [], {}
+    for name in ("fused_admm", "fused_admm_bf16x3"):
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+               "-o", str(_build.library_path(name)),
+               str(_build.CSRC / f"{name}.cu")]
+        procs.append((name, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    for name, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            sys.exit(f"nvcc failed for the instrumented {name}:\n{log}")
+        logs[name] = log
+    return logs
+
+
+def kernel_sizes(_build, log: str) -> dict:
+    """Per split kernel: SASS instructions (``cuobjdump``) and the
+    compiler's registers, stack and spill line."""
+    import re
+    import shutil as _sh
+    import subprocess
+
+    out = {}
+    for m in re.finditer(r"Compiling entry function '(\w+)'.*?\n(.*?)\n"
+                         r"ptxas info\s*: Used (\d+) registers", log, re.S):
+        out[m.group(1)] = {"registers": int(m.group(3)),
+                           "spills": m.group(2).strip().splitlines()[-1].strip()}
+    cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    if not cuobjdump.exists() and _sh.which("cuobjdump"):
+        cuobjdump = pathlib.Path(_sh.which("cuobjdump"))
+    if cuobjdump.exists():
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass",
+             str(_build.library_path("fused_admm_bf16x3"))],
+            capture_output=True, text=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\w+)", line)
+            if m:
+                fn = m.group(1)
+                out.setdefault(fn, {})["sass_instructions"] = 0
+            elif fn and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+                out[fn]["sass_instructions"] += 1
+    return out
 
 
 def main():
-    root = pathlib.Path(sys.argv[1] if len(sys.argv) > 1 else HERE).resolve()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("root", nargs="?", default=str(HERE))
+    ap.add_argument("--only", default="",
+                    help="comma-separated workloads (K1,K2,K3,K4a,K4b,K4c)")
+    ap.add_argument("--algos", default="f32,bf16x3")
+    args = ap.parse_args()
+    root = pathlib.Path(args.root).resolve()
     sys.path.insert(0, str(HERE))
     import chip_smoke as cs   # this checkout's workloads and timer
 
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="atm_stage_clocks_"))
     try:
-        layout = instrumented_copy(root, tmp)
+        instrumented_copy(root, tmp)
         os.environ["ATM_TORCH_BUILD_DIR"] = str(tmp / "build")
         sys.path.insert(0, str(tmp))
         import torch
@@ -199,43 +200,82 @@ def main():
         if not torch.cuda.is_available():
             sys.exit("needs a CUDA device")
         from accelerated_tinympc_tpu_torch.ops import (
-            FusedCarry, fused_admm, fused_solve, pad_cones,
+            FusedCarry, _build, fused_admm, fused_rollout, fused_solve,
+            pad_cones, rollout_ops,
         )
 
-        lib = fused_admm._library()
-        buf = (ctypes.c_ulonglong * 10)()
+        logs = build_fused(_build)
+        libs = {a: fused_admm._library(a) for a in ("f32", "bf16x3")}
+        buf = (ctypes.c_ulonglong * NCLK)()
 
-        def measure(fn):
-            fn()
+        def measure(fn, algo, dims, batch):
+            lib = libs[algo]
+            run = lambda: fn(algo=algo)
+            run()
             torch.cuda.synchronize()
             assert lib.atm_clocks(buf) == 0   # read and zero
-            ms = cs.cuda_ms(fn, 1)            # a warm-up and a timed call
+            ms = cs.cuda_ms(run, 1)           # a warm-up and a timed call
             assert lib.atm_clocks(buf) == 0
             v = list(buf)
-            it, slots = max(v[7], 1), max(v[8], 1)
-            return {"ms": ms, "block_iters": v[7] / 2,
-                    "cycles_per_block_iter": dict(zip(
-                        ("forward", "cone", "finish", "decide_backward",
-                         "refill"), (round(x / it, 1) for x in v[:5]))),
-                    "retire_cycles_per_slot": round(v[5] / slots, 1),
-                    "load_cycles_per_slot": round(v[6] / slots, 1)}
+            # two runs (the warm-up and the timed one) in the counters
+            its, slots = max(v[ITERS], 1), max(v[RETIRED], 1)
+            tile, threads = fused_admm._geometry(
+                dims, batch, "cuda", None, None,
+                split=algo == "bf16x3")[:2]
+            per = lambda k: round(v[k] / its, 1)
+            wper = lambda k: round(v[k] / its / (threads // 32), 1)
+            return {"ms": ms, "tile": tile, "block_iters": v[ITERS] / 2,
+                    "cycles_per_block_iter": {
+                        name: per(k) for name, k in BLOCK.items()},
+                    "cycles_per_warp_iter": {
+                        name: wper(k) for name, k in WARP.items()},
+                    "retire_cycles_per_slot": round(v[RETIRE] / slots, 1),
+                    "load_cycles_per_slot": round(v[LOAD] / slots, 1)}
 
         B, dev = cs.MAIN_BATCH, "cuda"
         problem, _c, pp, x0s = cs.flagship(B, dev)
         cold = FusedCarry.zeros(B, pp, device=dev)
         x1, warm = cs.warm_start(problem, pp, x0s, dev)
-        _lp, _lc, lpp, lx = cs.lander(B, dev)
+        rops = rollout_ops(problem, pp, device=dev)
+        lproblem, _lc, lpp, lx = cs.lander(B, dev)
         lcold = FusedCarry.zeros(B, lpp, device=dev)
         cops = pad_cones(lpp, cs.lander_cones())
-        row = {"root": str(root), "layout": layout,
-               "K1": measure(lambda: fused_solve(x0s, cold, pp, max_iter=100)),
-               "K2": measure(lambda: fused_solve(x1, warm, pp, **cs.WARM_KW)),
-               "lander_box_fixed": measure(lambda: fused_solve(
-                   lx, lcold, lpp, **cs.LANDER_FIXED)),
-               "K4a": measure(lambda: fused_solve(
-                   lx, lcold, lpp, cone_ops=cops, **cs.LANDER_FIXED)),
-               "K4b": measure(lambda: fused_solve(
-                   lx, lcold, lpp, cone_ops=cops, **cs.LANDER_ADAPTIVE))}
+        lrops = rollout_ops(lproblem, lpp, device=dev)
+        p8 = dict(max_iter=100, polish=8)
+
+        def k1(algo):
+            return fused_solve(x0s, cold, pp, **(p8 if algo == "bf16x3" else
+                                                 dict(max_iter=100)),
+                               algo=algo)
+
+        work = {
+            "K1": (k1, pp.dims),
+            "K2": (lambda algo: fused_solve(x1, warm, pp, **cs.WARM_KW,
+                                            algo=algo), pp.dims),
+            "K3": (lambda algo: fused_rollout(
+                x0s, cold, pp, rops, 70, **cs.BF16X3_MISSION, algo=algo),
+                pp.dims),
+            "K4a": (lambda algo: fused_solve(
+                lx, lcold, lpp, cone_ops=cops, **cs.LANDER_FIXED, algo=algo),
+                lpp.dims),
+            "K4b": (lambda algo: fused_solve(
+                lx, lcold, lpp, cone_ops=cops, **cs.LANDER_ADAPTIVE,
+                algo=algo), lpp.dims),
+            "K4c": (lambda algo: fused_rollout(
+                lx, lcold, lpp, lrops, 30, cone_ops=cops,
+                **cs.LANDER_MISSION, algo=algo), lpp.dims),
+        }
+        only = [k for k in args.only.split(",") if k] or list(work)
+        row = {"root": str(root),
+               "device": torch.cuda.get_device_name(0)}
+        for key in only:
+            fn, dims = work[key]
+            row[key] = {algo: measure(fn, algo, dims, B)
+                        for algo in args.algos.split(",")}
+        row["split_kernels"] = {
+            k: v for k, v in kernel_sizes(
+                _build, logs["fused_admm_bf16x3"]).items()
+            if "bf16x3" in k}
         print(json.dumps(row), flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
