@@ -102,16 +102,24 @@
 //
 //   * Second-order cones (template parameter CONES; replaces the TPU
 //     package's _cone_apply, ops/fused_admm.py) couple the ball and axis
-//     entries of one knot, which sit in different threads' register tiles.
-//     So with cones the stage splits in three with a barrier between: the
-//     forward product clips as before and leaves the pre-projection iterate
-//     (in S), the relaxed iterate + old dual (in YG) and the clipped slack
-//     (in the new slack buffer) in shared memory; a cone pass with one
-//     thread per (slot, knot) projects the clipped slack in place, each cone
-//     in order (exact projection, three cases); an elementwise pass does dual
-//     ascent, S = slack - dual, the residual terms and the violation flag
-//     against the projected slack. The box-only instantiations keep the fused
-//     per-element path.
+//     entries of one knot, which sit in different threads' register tiles:
+//     a knot of 6 states or 3 inputs starts anywhere on the float4 grid,
+//     and may cross a warp's boundary in the forward stage's dense items.
+//     The float32 kernels keep the box-only iteration's barriers all the
+//     same (cone_forward_stage): the wrapper lays the columns out per warp
+//     pass so that every coned knot lies in one warp (ops/fused_admm.py
+//     cone_items; a float4 group cut between knots is computed by both
+//     warps, each storing its own columns), and the slack stage runs in
+//     that pass: the box clip into the new slack buffer, __syncwarp, the
+//     warp projects its knots' slacks, a (knot, slot) pair a lane, each
+//     cone in order (exact projection, three cases: cone_project),
+//     __syncwarp, then dual ascent, S = slack - dual, the residual terms and
+//     the violation flag against the projected slack. The split-bf16
+//     kernels, and a knot wider than a warp's 32 column groups, run the
+//     stage in three passes with a barrier between (forward_stage<CONES>,
+//     cone_stage with a thread per (slot, knot), finish_stage): the same
+//     arithmetic in the same order, so the same bits. The box-only
+//     instantiations contain no cone code.
 //
 // Stage order per iteration is the reference's (src/tinympc/admm.cpp:117-150)
 // in its folded condensed form: forward (x0 terms hoisted into XbUb), slack
@@ -174,6 +182,12 @@ constexpr int BWD_FINE = 4;
 // sums; where both tiles run (at N <= 64 for the forward product, a lane's
 // backward depth up to 4 blocks) the two give the same bits.
 constexpr int FWD_CHAIN = 64;
+
+// Words of one warp pass of the fused cone pass (cone_forward_stage; the
+// wrapper's ops/fused_admm.py RUN_WORDS): 32 items, the counts of its coned
+// state and input knots, then those knots (at most 4 start in each of 32
+// column groups).
+constexpr int RUN_WORDS = 32 + 2 + 128;
 
 // Slot states (Smem::done).
 constexpr int LIVE = 0;    // iterating
@@ -320,6 +334,11 @@ struct Args {
   // values
   ConeTable cones;
   const float *cone_mu, *cone_shift;
+  // coned float32 kernels: the fused cone pass's runs (cone_chunks of
+  // RUN_WORDS, one per warp pass; see cone_forward_stage), or nullptr for
+  // the three coned passes
+  const int* cone_items;
+  int cone_chunks;
   // outputs
   float *U, *X, *D, *Y, *G, *Z, *V, *stats;   // stats (B,6)
   float *us;                    // (ticks,B,nu)  rollout only
@@ -863,6 +882,82 @@ __device__ inline void split_backward(const Args& a, const Smem& s) {
 
 // ----------------------------------------------------------------- stages --
 
+// The forward product of one register tile: acc[r][c] = sum_k D[i0 + r][k]
+// Wf[k][j0 + c] over the padded depth (zeros where no row is live).
+template <int RI, bool GOPS>
+__device__ __forceinline__ void forward_product(const Dims& d, const Smem& s,
+                                                int i0, int j0, bool live,
+                                                float (&acc)[RI][TJ]) {
+#pragma unroll
+  for (int r = 0; r < RI; ++r)
+#pragma unroll
+    for (int c = 0; c < TJ; ++c) acc[r][c] = 0.0f;
+  if (live) {
+    const float* Dg = s.D + i0 * d.DuP;
+    const float* Wc = s.Wf + j0;
+    if constexpr (RI == 4) {
+      // Blocks of BWD_BLOCK float4 steps past FWD_CHAIN, else one chain
+      // (warp_row_product<GOPS, true> sums a frozen slot's U, X alike).
+      const int blk = (d.DuP >> 2) > FWD_CHAIN ? 4 * BWD_BLOCK : d.DuP;
+      for (int k0 = 0; k0 < d.DuP; k0 += blk) {
+        float part[RI][TJ];
+#pragma unroll
+        for (int r = 0; r < RI; ++r)
+#pragma unroll
+          for (int c = 0; c < TJ; ++c) part[r][c] = 0.0f;
+        const int k1 = min(d.DuP, k0 + blk);
+        for (int k = k0; k < k1; k += 4) {
+          float w[4][TJ];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 wv = ldw4<GOPS>(Wc + (k + kk) * d.DzP);
+            w[kk][0] = wv.x; w[kk][1] = wv.y; w[kk][2] = wv.z;
+            w[kk][3] = wv.w;
+          }
+#pragma unroll
+          for (int r = 0; r < RI; ++r) {
+            const float4 dv =
+                *reinterpret_cast<const float4*>(Dg + r * d.DuP + k);
+#pragma unroll
+            for (int c = 0; c < TJ; ++c) {
+              part[r][c] = fmaf(dv.x, w[0][c], part[r][c]);
+              part[r][c] = fmaf(dv.y, w[1][c], part[r][c]);
+              part[r][c] = fmaf(dv.z, w[2][c], part[r][c]);
+              part[r][c] = fmaf(dv.w, w[3][c], part[r][c]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < RI; ++r)
+#pragma unroll
+          for (int c = 0; c < TJ; ++c)
+            acc[r][c] = k0 == 0 ? part[r][c] : acc[r][c] + part[r][c];
+      }
+    } else {   // one chain over the depth
+      for (int k = 0; k < d.DuP; k += 4) {
+        float w[4][TJ];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 wv = ldw4<GOPS>(Wc + (k + kk) * d.DzP);
+          w[kk][0] = wv.x; w[kk][1] = wv.y; w[kk][2] = wv.z; w[kk][3] = wv.w;
+        }
+#pragma unroll
+        for (int r = 0; r < RI; ++r) {
+          const float4 dv =
+              *reinterpret_cast<const float4*>(Dg + r * d.DuP + k);
+#pragma unroll
+          for (int c = 0; c < TJ; ++c) {
+            acc[r][c] = fmaf(dv.x, w[0][c], acc[r][c]);
+            acc[r][c] = fmaf(dv.y, w[1][c], acc[r][c]);
+            acc[r][c] = fmaf(dv.z, w[2][c], acc[r][c]);
+            acc[r][c] = fmaf(dv.w, w[3][c], acc[r][c]);
+          }
+        }
+      }
+    }
+  }
+}
+
 // Forward product fused with slack projection, dual ascent and residuals.
 // A thread owns one (group of RI slots, group of TJ adjacent columns of z)
 // register tile at a time. The loop over items is warp-uniform so that the
@@ -872,10 +967,10 @@ __device__ inline void split_backward(const Args& a, const Smem& s) {
 // above its tolerance), records the four residual maxima or writes U, X to
 // device memory. KEEP_U0 (rollout): every iteration leaves the first-knot
 // controls in s.u0.
-// CONES = true: the stage ends after the box clip; it leaves the
-// pre-projection iterate in S (and in u0, U, X where asked), t = relaxed
-// iterate + old dual in YG and the clipped slack in the new slack buffer,
-// for cone_stage and finish_stage.
+// CONES = true (the three coned passes): the stage ends after the box clip;
+// it leaves the pre-projection iterate in S (and in u0, U, X where asked),
+// t = relaxed iterate + old dual in YG and the clipped slack in the new
+// slack buffer, for cone_stage and finish_stage.
 // SPLIT: the rows of slots on a split iteration are split_forward's
 // (product and elementwise stage); a register tile with no float32 row
 // skips its FFMAs.
@@ -911,74 +1006,7 @@ __device__ inline void forward_stage(const Args& a, const Smem& s) {
     }
     if (!__any_sync(0xffffffffu, live)) continue;  // warp-uniform
     float acc[RI][TJ];
-#pragma unroll
-    for (int r = 0; r < RI; ++r)
-#pragma unroll
-      for (int c = 0; c < TJ; ++c) acc[r][c] = 0.0f;
-    if (live) {
-      const float* Dg = s.D + i0 * d.DuP;
-      const float* Wc = s.Wf + j0;
-      if constexpr (RI == 4) {
-        // Blocks of BWD_BLOCK float4 steps past FWD_CHAIN, else one chain
-        // (warp_row_product<GOPS, true> sums a frozen slot's U, X alike).
-        const int blk = (d.DuP >> 2) > FWD_CHAIN ? 4 * BWD_BLOCK : d.DuP;
-        for (int k0 = 0; k0 < d.DuP; k0 += blk) {
-          float part[RI][TJ];
-#pragma unroll
-          for (int r = 0; r < RI; ++r)
-#pragma unroll
-            for (int c = 0; c < TJ; ++c) part[r][c] = 0.0f;
-          const int k1 = min(d.DuP, k0 + blk);
-          for (int k = k0; k < k1; k += 4) {
-            float w[4][TJ];
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-              const float4 wv = ldw4<GOPS>(Wc + (k + kk) * d.DzP);
-              w[kk][0] = wv.x; w[kk][1] = wv.y; w[kk][2] = wv.z;
-              w[kk][3] = wv.w;
-            }
-#pragma unroll
-            for (int r = 0; r < RI; ++r) {
-              const float4 dv =
-                  *reinterpret_cast<const float4*>(Dg + r * d.DuP + k);
-#pragma unroll
-              for (int c = 0; c < TJ; ++c) {
-                part[r][c] = fmaf(dv.x, w[0][c], part[r][c]);
-                part[r][c] = fmaf(dv.y, w[1][c], part[r][c]);
-                part[r][c] = fmaf(dv.z, w[2][c], part[r][c]);
-                part[r][c] = fmaf(dv.w, w[3][c], part[r][c]);
-              }
-            }
-          }
-#pragma unroll
-          for (int r = 0; r < RI; ++r)
-#pragma unroll
-            for (int c = 0; c < TJ; ++c)
-              acc[r][c] = k0 == 0 ? part[r][c] : acc[r][c] + part[r][c];
-        }
-      } else {   // one chain over the depth
-        for (int k = 0; k < d.DuP; k += 4) {
-          float w[4][TJ];
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const float4 wv = ldw4<GOPS>(Wc + (k + kk) * d.DzP);
-            w[kk][0] = wv.x; w[kk][1] = wv.y; w[kk][2] = wv.z; w[kk][3] = wv.w;
-          }
-#pragma unroll
-          for (int r = 0; r < RI; ++r) {
-            const float4 dv =
-                *reinterpret_cast<const float4*>(Dg + r * d.DuP + k);
-#pragma unroll
-            for (int c = 0; c < TJ; ++c) {
-              acc[r][c] = fmaf(dv.x, w[0][c], acc[r][c]);
-              acc[r][c] = fmaf(dv.y, w[1][c], acc[r][c]);
-              acc[r][c] = fmaf(dv.z, w[2][c], acc[r][c]);
-              acc[r][c] = fmaf(dv.w, w[3][c], acc[r][c]);
-            }
-          }
-        }
-      }
-    }
+    forward_product<RI, GOPS>(d, s, i0, j0, live, acc);
     const float4 l4 = *reinterpret_cast<const float4*>(s.lo + j0);
     const float4 h4 = *reinterpret_cast<const float4*>(s.hi + j0);
     const float lo[TJ] = {l4.x, l4.y, l4.z, l4.w};
@@ -1092,15 +1120,33 @@ __device__ inline void forward_stage(const Args& a, const Smem& s) {
   }
 }
 
-// Cone projections, one thread per (slot, knot): knots 0..N-1 are the
-// state knots, N..2N-2 the input knots. forward_stage<true> has left the
-// box-clipped slack in the new slack buffer; each cone of the knot's kind is
-// applied to it in order, in place (exact projection of (w[ball], w[axis] +
-// shift) onto ||v|| <= mu s: inside -> unchanged, polar -> 0, else the
-// boundary point; a == 0 guarded). mu and shift come from the per-slot
-// rows when given (d.ncp > 0), else from the table: the arithmetic is the
-// same either way. The table is read from device memory (a few hundred
-// bytes that stay in L1).
+// The exact projection of (v, sv) onto the cone ||v|| <= mu sv, given
+// a2 = ||v||^2 summed by fmaf over the ball in table order and sv = w[axis]
+// + shift: returns (scale, s_new), v *= scale, sv = s_new. Inside ->
+// unchanged, polar -> 0, else the boundary point; a == 0 guarded. Both
+// cone passes (cone_stage, project_run) take it, so they give the same
+// bits (tools/torch_fused_bits.py holds both to the three-pass kernels of
+// earlier checkouts, chip_smoke.py and tests/test_torch_gpu.py to each
+// other).
+__device__ __forceinline__ float2 cone_project(float a2, float sv, float mu) {
+  const float an = sqrtf(a2);
+  const bool inside = an <= mu * sv;
+  const bool polar = mu * an <= -sv;
+  const float cc = (mu * an + sv) / (mu * mu + 1.0f);
+  const float safe_a = a2 == 0.0f ? 1.0f : an;
+  return make_float2(polar ? 0.0f : (inside ? 1.0f : mu * cc / safe_a),
+                     inside ? sv : (polar ? 0.0f : cc));
+}
+
+// The second of the three coned passes (the split-bf16 kernels, and knots
+// wider than a warp's items; cone_forward_stage does it in the forward
+// stage otherwise): cone projections, one thread per (slot, knot), knots
+// 0..N-1 the state knots, N..2N-2 the input knots. forward_stage<true> has
+// left the box-clipped slack in the new slack buffer; each cone of the
+// knot's kind is applied to it in order, in place (cone_project). mu and
+// shift come from the per-slot rows when given (d.ncp > 0), else from the
+// table: the arithmetic is the same either way. The table is read from
+// device memory (a few hundred bytes that stay in L1).
 __device__ inline void cone_stage(const Args& a, const Smem& s) {
   const Dims& d = a.d;
   const ConeTable& ct = a.cones;
@@ -1129,21 +1175,15 @@ __device__ inline void cone_stage(const Args& a, const Smem& s) {
         const float v = zn[__ldg(ball + b)];
         a2 = fmaf(v, v, a2);
       }
-      const float sv = zn[axis] + shift;
-      const float an = sqrtf(a2);
-      const bool inside = an <= mu * sv;
-      const bool polar = mu * an <= -sv;
-      const float cc = (mu * an + sv) / (mu * mu + 1.0f);
-      const float safe_a = a2 == 0.0f ? 1.0f : an;
-      const float scale = polar ? 0.0f : (inside ? 1.0f : mu * cc / safe_a);
-      const float s_new = inside ? sv : (polar ? 0.0f : cc);
-      for (int b = 0; b < nball; ++b) zn[__ldg(ball + b)] *= scale;
-      zn[axis] = s_new - shift;
+      const float2 ss = cone_project(a2, zn[axis] + shift, mu);
+      for (int b = 0; b < nball; ++b) zn[__ldg(ball + b)] *= ss.x;
+      zn[axis] = ss.y - shift;
     }
   }
 }
 
-// Closes the coned slack stage, one thread per (slot, group of TJ columns):
+// The last of the three coned passes (see cone_stage) closes the coned
+// slack stage, one thread per (slot, group of TJ columns):
 // dual ascent against the *projected* slack, S = slack - dual, the residual
 // terms, the violation flag and (on the recording iteration) the maxima.
 // Reads t = relaxed iterate + old dual from YG, the pre-projection iterate
@@ -1213,6 +1253,273 @@ __device__ inline void finish_stage(const Args& a, const Smem& s) {
     if (wfl == 0u) finish(std::integral_constant<int, 0>{});
     else if (wfl == (unsigned)F_CHECK) finish(std::integral_constant<int, 1>{});
     else finish(std::integral_constant<int, 2>{});
+  }
+}
+
+// The cones of one warp pass's knots (run: see cone_forward_stage), in
+// place in the new slack buffers, by the whole warp: the (knot, slot)
+// pairs of each kind, state knots first, a pair a lane, CONE_BATCH pairs of
+// a lane at once. Per cone, in table order, a lane loads its pairs' ball
+// and axis entries before it stores any, so that their loads are in flight
+// together, then projects them (cone_project); a ball scaled by 1 is not
+// stored again (x * 1 is x). Live slots only. The arithmetic of each
+// (slot, knot) is cone_stage's, in the same order.
+constexpr int CONE_BATCH = 4;
+
+template <int RI>
+__device__ __forceinline__ void project_run(const Args& a, const Smem& s,
+                                            const int* run) {
+  const Dims& d = a.d;
+  const ConeTable& ct = a.cones;
+  const int lane = threadIdx.x & 31;
+  const int zstride = d.tile * d.DzP;
+  const int kx = __ldg(run + 32), ku = __ldg(run + 33);
+  for (int kind = 0; kind < 2; ++kind) {   // state knots, then input knots
+    const int np = (kind ? ku : kx) * RI;
+    const int* knots = run + 34 + (kind ? kx : 0);
+    const int c0 = kind ? 0 : ct.nc_u;
+    const int c1 = kind ? ct.nc_u : ct.nc_u + ct.nc_x;
+    // pair p: slot p % RI of knot p / RI; its slacks' row and the knot's
+    // first column, or nullptr for no live slot
+    auto pair = [&](int p, int& i) -> float* {
+      if (p >= np) return nullptr;
+      const int e = __ldg(knots + p / RI);
+      i = (e >> 16) * RI + p % RI;
+      if (s.done[i] != LIVE) return nullptr;
+      return s.ZV + (s.zpar[i] ^ 1) * zstride + i * d.DzP + (e & 0xffff);
+    };
+    for (int p0 = 0; p0 < np; p0 += 32 * CONE_BATCH) {
+      float* z[CONE_BATCH];
+      int slot[CONE_BATCH] = {};
+#pragma unroll
+      for (int j = 0; j < CONE_BATCH; ++j)
+        z[j] = pair(p0 + lane + 32 * j, slot[j]);
+      for (int q = c0; q < c1; ++q) {
+        const int* row = ct.idx + __ldg(ct.idx + q);
+        const int nball = __ldg(row), axis = __ldg(row + 1);
+        const int* ball = row + 2;
+        auto mu_of = [&](int i) {
+          return d.ncp ? s.cmu[q * d.tile + i] : __ldg(ct.par + 2 * q);
+        };
+        auto shift_of = [&](int i) {
+          return d.ncp ? s.csh[q * d.tile + i] : __ldg(ct.par + 2 * q + 1);
+        };
+        float a2[CONE_BATCH];
+#pragma unroll
+        for (int j = 0; j < CONE_BATCH; ++j) a2[j] = 0.0f;
+        for (int b = 0; b < nball; ++b) {
+          const int o = __ldg(ball + b);
+#pragma unroll
+          for (int j = 0; j < CONE_BATCH; ++j)
+            if (z[j] != nullptr) {
+              const float v = z[j][o];
+              a2[j] = fmaf(v, v, a2[j]);
+            }
+        }
+        float2 ss[CONE_BATCH];
+        float shift[CONE_BATCH];
+#pragma unroll
+        for (int j = 0; j < CONE_BATCH; ++j) {
+          if (z[j] == nullptr) continue;
+          shift[j] = shift_of(slot[j]);
+          ss[j] = cone_project(a2[j], z[j][axis] + shift[j], mu_of(slot[j]));
+        }
+        for (int b = 0; b < nball; ++b) {
+          const int o = __ldg(ball + b);
+#pragma unroll
+          for (int j = 0; j < CONE_BATCH; ++j)
+            if (z[j] != nullptr && ss[j].x != 1.0f) z[j][o] *= ss[j].x;
+        }
+#pragma unroll
+        for (int j = 0; j < CONE_BATCH; ++j)
+          if (z[j] != nullptr) z[j][axis] = ss[j].y - shift[j];
+      }
+    }
+  }
+}
+
+// Stores the columns c of v with bit c of own set (all four: one float4).
+__device__ __forceinline__ void store_owned(float* p, const float (&v)[TJ],
+                                            int own) {
+  if (own == 15) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < TJ; ++c)
+    if ((own >> c) & 1) p[c] = v[c];
+}
+
+// The coned slack stage in one pass with the forward product, by warps
+// (the coned float32 kernels; the split-bf16 ones run the three passes).
+// The wrapper (ops/fused_admm.py cone_items) lays every slot group's
+// columns out in runs of 32 items, one run a warp pass (a.cone_items, runs
+// of RUN_WORDS; -1 pads a run), cut only between knots of a coned kind, so
+// that every such knot lies in one warp; after its items a run lists its
+// coned knots. An item is a register tile (slot group g, column group cg)
+// with the columns it owns (a group cut inside is computed by both warps,
+// each storing its own columns). Per item: the product, the box clip into
+// the new slack buffer; __syncwarp; the warp projects its knots
+// (project_run); __syncwarp; dual ascent against the projected slack, S =
+// slack - dual, the residual terms, the violation flag and the recorded
+// maxima, as finish_stage does, with t = relaxed
+// iterate + old dual still in registers (the iterate waits in S where the
+// warp checks or records). So a coned iteration has the box-only
+// iteration's barriers. Each element's arithmetic is that of
+// forward_stage<CONES = true>, cone_stage and finish_stage, in the same
+// order: both paths give the same bits. The clip and the dual ascent run in
+// versions by the flags of the warp's slots, the cones in one.
+template <int RI, bool KEEP_U0, bool GOPS>
+__device__ inline void cone_forward_stage(const Args& a, const Smem& s) {
+  const Dims& d = a.d;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int zstride = d.tile * d.DzP;
+  const float alpha = a.alpha;
+  const bool relax = alpha != 1.0f;
+  for (int ch = warp; ch < a.cone_chunks; ch += nwarps) {
+    const int* run = a.cone_items + ch * RUN_WORDS;
+    const int code = __ldg(run + lane);
+    const bool active = code >= 0;
+    const int own = active ? code & 15 : 0;
+    const int g = active ? code >> 20 : 0;
+    const int i0 = g * RI, j0 = (active ? (code >> 8) & 0xfff : 0) * TJ;
+    bool dn[RI];
+    int fl[RI];
+    bool live = false;
+    int anyfl = 0;
+#pragma unroll
+    for (int r = 0; r < RI; ++r) {
+      dn[r] = !active || s.done[i0 + r] != LIVE;
+      fl[r] = dn[r] ? 0 : s.flags[i0 + r];
+      live |= !dn[r];
+      anyfl |= fl[r];
+    }
+    if (!__any_sync(0xffffffffu, live)) continue;  // warp-uniform
+    float acc[RI][TJ];
+    forward_product<RI, GOPS>(d, s, i0, j0, live, acc);
+    const float4 l4 = *reinterpret_cast<const float4*>(s.lo + j0);
+    const float4 h4 = *reinterpret_cast<const float4*>(s.hi + j0);
+    const float lo[TJ] = {l4.x, l4.y, l4.z, l4.w};
+    const float hi[TJ] = {h4.x, h4.y, h4.z, h4.w};
+    const bool holds_u0 = j0 < d.Dx + d.nu && j0 + TJ > d.Dx;
+    const unsigned wfl = __reduce_or_sync(0xffffffffu, (unsigned)anyfl);
+    // t = relaxed iterate + old dual, from the clip to the dual ascent
+    float tv[RI][TJ];
+    // The box clip into the new slack buffer (owned columns). FLAGS: some
+    // slot of the warp checks, records or emits; the iterate then waits in
+    // S for the residual terms.
+    auto clip = [&](auto flags_tag) {
+      constexpr bool FLAGS = decltype(flags_tag)::value;
+#pragma unroll
+      for (int r = 0; r < RI; ++r) {
+        if (dn[r]) continue;
+        const int i = i0 + r;
+        const int idx = i * d.DzP + j0;
+        const int zp = s.zpar[i];
+        const float4 xb4 = *reinterpret_cast<const float4*>(s.Xb + idx);
+        const float4 y4 = *reinterpret_cast<const float4*>(s.YG + idx);
+        const float4 z4 =
+            *reinterpret_cast<const float4*>(s.ZV + zp * zstride + idx);
+        const float xb[TJ] = {xb4.x, xb4.y, xb4.z, xb4.w};
+        const float yo[TJ] = {y4.x, y4.y, y4.z, y4.w};
+        const float zo[TJ] = {z4.x, z4.y, z4.z, z4.w};
+        float xu[TJ], zn[TJ];
+#pragma unroll
+        for (int c = 0; c < TJ; ++c) {
+          const int j = j0 + c;
+          const bool mine = (own >> c) & 1;
+          xu[c] = xb[c] + acc[r][c];   // pre-projection X or U
+          const float xr = relax ? alpha * xu[c] + (1.0f - alpha) * zo[c] : xu[c];
+          tv[r][c] = xr + yo[c];
+          zn[c] = fminf(fmaxf(tv[r][c], lo[c]), hi[c]);  // box clip
+          if (KEEP_U0 && holds_u0 && mine && j >= d.Dx && j < d.Dx + d.nu)
+            s.u0[i * d.nu + (j - d.Dx)] = xu[c];
+          if (FLAGS && mine && j < d.Dz && (fl[r] & F_EMIT)) {
+            const int b = s.inst[i];
+            if (j < d.Dx) a.X[(size_t)b * d.Dx + j] = xu[c];
+            else a.U[(size_t)b * d.Du + (j - d.Dx)] = xu[c];
+          }
+        }
+        store_owned(s.ZV + (zp ^ 1) * zstride + idx, zn, own);
+        if (FLAGS) store_owned(s.S + idx, xu, own);
+      }
+    };
+    if (wfl == 0u) clip(std::false_type{});
+    else clip(std::true_type{});
+    __syncwarp();   // the warp's clipped slacks, before its cones
+    ATM_WCLK(11);
+    project_run<RI>(a, s, run);
+    __syncwarp();   // the projected slacks
+    ATM_WCLK(16);
+    // Dual ascent against the projected slack, S = slack - dual and the
+    // residual terms, in three versions by the flags of the warp's slots,
+    // as forward_stage's elementwise work.
+    auto finish = [&](auto mode_tag) {
+      constexpr int MODE = decltype(mode_tag)::value;
+      // Lanes of this warp on the same slot group, for the recorded maxima.
+      const bool rec_any =
+          MODE == 2 && __any_sync(0xffffffffu, (anyfl & F_RECORD) != 0);
+      const unsigned peers =
+          rec_any ? __match_any_sync(0xffffffffu, active ? g : -1) : 0u;
+      const bool leader = rec_any && lane == __ffs(peers) - 1;
+#pragma unroll
+      for (int r = 0; r < RI; ++r) {
+        const int i = i0 + r;
+        int mx[4] = {0, 0, 0, 0};  // pri_x, dua_x, pri_u, dua_u (int views)
+        bool viol = false;
+        if (!dn[r]) {
+          const bool check = MODE == 1 || (MODE == 2 && (fl[r] & F_CHECK));
+          const bool record = MODE == 2 && (fl[r] & F_RECORD);
+          const int idx = i * d.DzP + j0;
+          const int zp = s.zpar[i];
+          const float4 n4 =
+              *reinterpret_cast<const float4*>(s.ZV + (zp ^ 1) * zstride + idx);
+          const float zn[TJ] = {n4.x, n4.y, n4.z, n4.w};
+          float zo[TJ] = {0.0f, 0.0f, 0.0f, 0.0f};
+          float xu[TJ] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (MODE > 0) {
+            const float4 o4 =
+                *reinterpret_cast<const float4*>(s.ZV + zp * zstride + idx);
+            const float4 x4 = *reinterpret_cast<const float4*>(s.S + idx);
+            zo[0] = o4.x; zo[1] = o4.y; zo[2] = o4.z; zo[3] = o4.w;
+            xu[0] = x4.x; xu[1] = x4.y; xu[2] = x4.z; xu[3] = x4.w;
+          }
+          float yn[TJ], sv[TJ];
+#pragma unroll
+          for (int c = 0; c < TJ; ++c) {
+            const int j = j0 + c;
+            yn[c] = tv[r][c] - zn[c];   // dual ascent
+            sv[c] = zn[c] - yn[c];
+            if (MODE > 0 && ((own >> c) & 1) && j < d.Dz) {
+              const float pr = fabsf(xu[c] - zn[c]);
+              const float dr = fabsf(zo[c] - zn[c]);
+              if (check) viol |= !(pr < a.pri_tol) || !(dr * a.rho < a.dua_tol);
+              if (record) {
+                const int o = j < d.Dx ? 0 : 2;
+                mx[o] = max(mx[o], __float_as_int(pr));
+                mx[o + 1] = max(mx[o + 1], __float_as_int(dr));
+              }
+            }
+          }
+          store_owned(s.YG + idx, yn, own);
+          store_owned(s.S + idx, sv, own);
+          if (viol && (fl[r] & F_CHECK)) s.viol[i] = 1;
+        }
+        if (rec_any) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int m = __reduce_max_sync(peers, mx[q]);
+            if (leader && (fl[r] & F_RECORD) && m > 0)
+              atomicMax(&s.res[i * 4 + q], m);
+          }
+        }
+      }
+    };
+    if (wfl == 0u) finish(std::integral_constant<int, 0>{});
+    else if (wfl == (unsigned)F_CHECK) finish(std::integral_constant<int, 1>{});
+    else finish(std::integral_constant<int, 2>{});
+    ATM_WCLK(17);
   }
 }
 
@@ -1603,10 +1910,13 @@ __device__ inline int refill_stage(const Args& a, const Smem& s, int n,
 // iterations and the residuals of its last check. ROLLOUT: every instance
 // runs a.ticks solves, each from zero duals and the previous tick's D and
 // slacks, the plant stepped with the pre-projection first-knot control.
-// CONES = true splits the slack stage (forward product and clip, barrier,
-// cone_stage, barrier, finish_stage); the frozen slots' U and X
-// (retire_slot) need no cone code, since the new slacks they read are the
-// projected ones. GOPS: the operators are read from device memory (the
+// CONES = true: the float32 kernels run the slack stage with the forward
+// product in one pass where the wrapper gives its items (a.cone_items,
+// cone_forward_stage), with the box-only iteration's barriers; the
+// split-bf16 kernels, and the float32 ones without items, split it in
+// three (forward product and clip, barrier, cone_stage, barrier,
+// finish_stage). The frozen slots' U and X (retire_slot) need no cone
+// code, since the new slacks they read are the projected ones. GOPS: the operators are read from device memory (the
 // caller's padded copies) instead of being staged. RI: slots per register
 // tile. SPLIT: the split-bf16 kernels (the mma passes before each
 // product's stage).
@@ -1628,6 +1938,9 @@ __device__ inline void run_block(const Args& a, float* base) {
   // slots' stages run beside the float32 slots' with no barrier between
   // (disjoint rows), each split product first.
   const bool split = SPLIT && a.d.split;
+  // The coned float32 kernels fold the cones into the forward stage where
+  // the wrapper gives the items of that pass; else three passes.
+  const bool fused_cones = CONES && !SPLIT && a.cone_items != nullptr;
   ATM_CLK_MARK();
   while (live > 0) {
     ATM_CLK_COUNT(7);
@@ -1637,17 +1950,24 @@ __device__ inline void run_block(const Args& a, float* base) {
       ATM_WCLK(15);
     }
     ATM_WCLK_BEGIN();
-    forward_stage<RI, CONES, ROLLOUT, GOPS, SPLIT>(a, s);
+    if constexpr (CONES && !SPLIT) {
+      if (fused_cones) cone_forward_stage<RI, ROLLOUT, GOPS>(a, s);
+      else forward_stage<RI, CONES, ROLLOUT, GOPS, SPLIT>(a, s);
+    } else {
+      forward_stage<RI, CONES, ROLLOUT, GOPS, SPLIT>(a, s);
+    }
     ATM_WCLK(11);
     __syncthreads();
     ATM_CLK(0);
     if constexpr (CONES) {
-      cone_stage(a, s);
-      __syncthreads();
-      ATM_CLK(1);
-      finish_stage(a, s);
-      __syncthreads();
-      ATM_CLK(2);
+      if (!fused_cones) {
+        cone_stage(a, s);
+        __syncthreads();
+        ATM_CLK(1);
+        finish_stage(a, s);
+        __syncthreads();
+        ATM_CLK(2);
+      }
     }
     // A slot that freezes must be DONE before the backward stage reads the
     // flags; without checks a slot only turns CAPPED, which the backward

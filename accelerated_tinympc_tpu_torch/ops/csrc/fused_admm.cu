@@ -13,8 +13,11 @@
 //
 // Each has a second instantiation with second-order cones in the slack stage
 // (template parameter CONES; replaces fused_admm.py _cone_apply, which the
-// TPU kernels close over when cone operands are given). The box-only
-// instantiations contain no cone code. Every kernel is a template over the
+// TPU kernels close over when cone operands are given): the cone projections
+// and the dual ascent run in the forward stage's pass, each warp over whole
+// knots (cone_forward_stage, the items from the wrapper), so a coned
+// iteration has the box-only one's barriers. The box-only instantiations
+// contain no cone code. Every kernel is a template over the
 // operators' placement (GOPS: staged in shared memory, or read from device
 // memory where they do not fit beside one register tile of slots); both
 // placements of a kernel share its name and its launch counter. A third

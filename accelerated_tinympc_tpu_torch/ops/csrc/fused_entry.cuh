@@ -44,17 +44,27 @@ ATM_KERNEL(fused_rollout_fixed_cones, false, true, true)
 
 // The cone table: device arrays cone_idx (per cone the offset of its row,
 // then the rows [nball, axis, ball[nball]]) and cone_par ([mu, shift] per
-// cone), built and validated by the wrapper (ops/fused_admm.py pad_cones).
-// Returns false if a count or a pointer is missing.
+// cone), built and validated by the wrapper (ops/fused_admm.py pad_cones);
+// cone_items: the fused cone pass's runs, cone_chunks of RUN_WORDS words
+// (ops/fused_admm.py cone_items, for this launch's slots and register
+// tile), or nullptr for the three coned passes. Returns false if a count
+// or a pointer is missing, or if the items cannot cover the block's
+// register tiles.
 inline bool fill_cones(Args& a, const int* cone_idx, const float* cone_par,
                        int nc_u, int nc_x, const float* cone_mu,
-                       const float* cone_shift) {
+                       const float* cone_shift, const int* cone_items,
+                       int cone_chunks) {
   if (nc_u < 0 || nc_x < 0 || nc_u + nc_x < 1 || cone_par == nullptr)
     return false;
   if ((cone_mu == nullptr) != (cone_shift == nullptr)) return false;
+  if (cone_items != nullptr &&
+      (a.d.ri <= 0 || 32 * cone_chunks < (a.d.tile / a.d.ri) * (a.d.DzP / TJ)))
+    return false;
   a.cones = {nc_u, nc_x, cone_idx, cone_par};
   a.cone_mu = cone_mu;
   a.cone_shift = cone_shift;
+  a.cone_items = cone_items;
+  a.cone_chunks = cone_items != nullptr ? cone_chunks : 0;
   return true;
 }
 
@@ -183,9 +193,11 @@ int atm_fused_split_words(int nx, int nu, int N) {
 // cone_idx != nullptr selects the coned instantiation: cone_idx and cone_par
 // are the device table (see fill_cones) of nc_u input and nc_x state cones,
 // cone_mu / cone_shift device arrays (nc, B) of per-instance values, or both
-// nullptr for the static ones. Wf, Wb and Wx come padded with zeros (DuP x
-// DzP, DzP x DuP, nx x DzP); ops_global != 0: the kernel reads them in place
-// in device memory, else it stages them per block in shared memory. ri: slots
+// nullptr for the static ones; cone_items / cone_chunks the fused cone
+// pass's items (see fill_cones; the split-bf16 kernels ignore them). Wf, Wb
+// and Wx come padded with zeros (DuP x DzP, DzP x DuP, nx x DzP);
+// ops_global != 0: the kernel reads them in place in device memory, else it
+// stages them per block in shared memory. ri: slots
 // per register tile (8; 4 only with ops_global). w3: the split-bf16 kernels'
 // scratch for the operator fragments (atm_fused_split_words words; nullptr
 // for the float32 kernels, and for a split-bf16 launch whose schedule splits
@@ -198,7 +210,8 @@ int atm_fused_solve(
     float* U, float* X, float* D, float* Y, float* G, float* Z, float* V,
     float* stats,
     const int* cone_idx, const float* cone_par, int nc_u, int nc_x,
-    const float* cone_mu, const float* cone_shift, int* counter,
+    const float* cone_mu, const float* cone_shift, const int* cone_items,
+    int cone_chunks, int* counter,
     int B, int nx, int nu, int N, int max_iter, int check_every, int warmup,
     float rho, float alpha, float pri_tol, float dua_tol,
     int tile, int threads, int smem_bytes, int ops_global, int ri,
@@ -220,7 +233,7 @@ int atm_fused_solve(
                          cone_mu != nullptr ? nc_u + nc_x : 0, ops_global, ri,
                          ATM_SPLIT && w3 != nullptr);
     if (!atm::fill_cones(a, cone_idx, cone_par, nc_u, nc_x, cone_mu,
-                         cone_shift))
+                         cone_shift, cone_items, cone_chunks))
       return -1;
     if (check_every > 0)
       return ATM_LAUNCH(fused_solve_adaptive_cones);
@@ -235,8 +248,8 @@ int atm_fused_solve(
 
 // One mission of `ticks` receding-horizon ticks. tracking != 0: cd is
 // (ticks, Du), one row per tick; else (Du). cone_idx / cone_par / nc_u /
-// nc_x, ops_global and ri as in atm_fused_solve (static cone parameters
-// only).
+// nc_x, cone_items / cone_chunks, ops_global and ri as in atm_fused_solve
+// (static cone parameters only).
 int atm_fused_rollout(
     const float* x0, const float* D0, const float* Z0, const float* V0,
     const float* Wf, const float* Wb, const float* Wx, const float* cd,
@@ -245,7 +258,7 @@ int atm_fused_rollout(
     float* U, float* X, float* D, float* Y, float* G, float* Z, float* V,
     float* stats,
     const int* cone_idx, const float* cone_par, int nc_u, int nc_x,
-    int* counter,
+    const int* cone_items, int cone_chunks, int* counter,
     int B, int nx, int nu, int N, int ticks, int tracking,
     int max_iter, int check_every, int warmup,
     float rho, float alpha, float pri_tol, float dua_tol,
@@ -270,7 +283,7 @@ int atm_fused_rollout(
   const bool adaptive = check_every > 0;
   if (cone_idx != nullptr) {
     if (!atm::fill_cones(a, cone_idx, cone_par, nc_u, nc_x, nullptr,
-                         nullptr))
+                         nullptr, cone_items, cone_chunks))
       return -1;
     return adaptive
         ? ATM_LAUNCH(fused_rollout_cones)

@@ -39,8 +39,11 @@ kernel sees the two spaces concatenated, ``z = [x | u]``.
 cone projections to the slack stage, after the box clip and in the cones'
 order, exactly as the scan tier's ``cone_slack_update``
 (:mod:`..solver.cones`). On the card they run inside the coned
-instantiations of the three kernels (``cone_stage`` in
-``csrc/admm_iteration.cuh``), one thread per (instance, knot).
+instantiations of the three kernels, in the forward stage's pass, each
+warp over whole knots (``cone_forward_stage`` in
+``csrc/admm_iteration.cuh``; the layout from :func:`cone_items`); the
+split-bf16 kernels project in a pass of their own, one thread per
+(instance, knot) (``cone_stage``).
 
 Beside the kernel sits :func:`fused_solve_plain`, batched tensor code that
 repeats the kernel's arithmetic stage by stage. :func:`fused_solve` takes it
@@ -52,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -796,6 +800,12 @@ def choose_tile(dims: tuple, batch: int, n_sm: int = 132,
 
 
 _F, _I, _P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+# The C entries' parameters in order (csrc/fused_entry.cuh); every pointer
+# and the stream are c_void_p.
+_SOLVE_ARGTYPES = ([_P] * 22 + [_I] * 2 + [_P] * 3 + [_I, _P] + [_I] * 7
+                   + [_F] * 4 + [_I] * 5 + [_P, _I, _P])
+_ROLLOUT_ARGTYPES = ([_P] * 25 + [_I] * 2 + [_P, _I, _P] + [_I] * 9
+                     + [_F] * 4 + [_I] * 5 + [_P, _I, _P])
 
 
 def _library(algo: str = "f32") -> ctypes.CDLL:
@@ -813,13 +823,9 @@ def _library(algo: str = "f32") -> ctypes.CDLL:
         lib.atm_fused_smem_bytes.restype = _I
         lib.atm_fused_split_words.argtypes = [_I] * 3
         lib.atm_fused_split_words.restype = _I
-        lib.atm_fused_solve.argtypes = (
-            [_P] * 22 + [_I] * 2 + [_P] * 3 + [_I] * 7 + [_F] * 4 + [_I] * 5
-            + [_P, _I, _P])
+        lib.atm_fused_solve.argtypes = _SOLVE_ARGTYPES
         lib.atm_fused_solve.restype = _I
-        lib.atm_fused_rollout.argtypes = (
-            [_P] * 25 + [_I] * 2 + [_P] + [_I] * 9 + [_F] * 4 + [_I] * 5
-            + [_P, _I, _P])
+        lib.atm_fused_rollout.argtypes = _ROLLOUT_ARGTYPES
         lib.atm_fused_rollout.restype = _I
         lib._atm_declared = True
     return lib
@@ -917,6 +923,122 @@ def _cone_table(cone_ops: FusedConeOps | None, device):
                                 dtype=torch.float32).contiguous()
     return (table.data_ptr(), params.data_ptr(), cone_ops.nc_u,
             cone_ops.nc_x, (table, params))
+
+
+# Coned float32 launches fold the cone projections and the dual ascent into
+# the forward stage (``cone_forward_stage`` in csrc/admm_iteration.cuh)
+# wherever :func:`cone_items` lays the columns out; False runs the three
+# coned passes (``cone_stage``, ``finish_stage``) on every launch, as the
+# split-bf16 kernels always do. Both give the same bits.
+FUSED_CONES = True
+
+
+# One warp pass of the fused cone pass (``RUN_WORDS`` in
+# csrc/admm_iteration.cuh): 32 items, the counts of its coned state and
+# input knots, then those knots (at most 4 start in each of 32 groups).
+RUN_WORDS = 32 + 2 + 128
+
+
+@functools.lru_cache(maxsize=64)
+def cone_items(dims: tuple, tile: int, ri: int, has_u: bool, has_x: bool):
+    """Runs of the fused cone pass (``cone_forward_stage``): every slot
+    group's columns of z in runs of 32 items, one run a warp pass, a run
+    cut only between knots of a kind that has cones (state knots if
+    ``has_x``, input knots if ``has_u``), so that each such knot lies in one
+    warp. An item is ``g << 20 | cg << 8 | own``: register tile ``g`` (slots
+    ``g * ri`` on), column group ``cg`` (columns ``4 cg`` on) and the bits of
+    the four columns it owns (a group cut inside sits at the end of one run
+    and the start of the next, each owning its side); -1 pads a run. Each
+    run takes the furthest cut whose groups fit its lanes. After its 32
+    items a run holds the counts of its coned state and input knots, then
+    those knots, state knots first, each ``g << 16 | first column``.
+    Returns an int32 array ``(runs, RUN_WORDS)``, or None where one knot
+    spans more column groups than a warp has lanes (the three coned passes
+    take that)."""
+    nx, nu, N = dims
+    Dx, Du = N * nx, (N - 1) * nu
+    W = (Dx + Du + 3) & ~3
+    if W // 4 > 0xfff:
+        return None
+    knot = np.full(W, -1)
+    if has_x:
+        knot[:Dx] = np.arange(Dx) // nx
+    if has_u:
+        knot[Dx:Dx + Du] = N + np.arange(Du) // nu
+    cut = np.ones(W + 1, bool)    # a run may end before column b
+    cut[1:W] = (knot[:-1] < 0) | (knot[:-1] != knot[1:])
+    start = (knot >= 0) & np.r_[True, knot[1:] != knot[:-1]]
+    runs = []
+    run, knots = [], []
+
+    def close():
+        xs = sorted(k for k in knots if k & 0xffff < Dx)
+        us = sorted(k for k in knots if k & 0xffff >= Dx)
+        row = run + [-1] * (32 - len(run)) + [len(xs), len(us)] + xs + us
+        runs.append(row + [-1] * (RUN_WORDS - len(row)))
+        run.clear()
+        knots.clear()
+
+    for g in range(tile // ri):
+        b0 = 0
+        while b0 < W:
+            room = 32 - len(run)
+            b1 = best = b0
+            while b1 < W and -(-(b1 + 1) // 4) - b0 // 4 <= room:
+                b1 += 1
+                if cut[b1]:
+                    best = b1
+            if best == b0:        # the next knot does not fit this run
+                if not run:
+                    return None
+                close()
+                continue
+            for cg in range(b0 // 4, -(-best // 4)):
+                cols = range(max(b0, 4 * cg), min(best, 4 * cg + 4))
+                run.append(g << 20 | cg << 8 | sum(1 << (c - 4 * cg)
+                                                     for c in cols))
+                knots.extend(g << 16 | c for c in cols if start[c])
+            b0 = best
+            if len(run) == 32:
+                close()
+    if run:
+        close()
+    return np.asarray(runs, np.int32)
+
+
+def cone_path(dims: tuple, tile: int, ri: int, cone_ops,
+              algo: str = "f32") -> str | None:
+    """The coned slack stage a launch at ``tile`` slots and register tile
+    ``ri`` runs: ``"fused"`` (one pass with the forward product: the float32
+    kernels where :func:`cone_items` lays the columns out and
+    :data:`FUSED_CONES` holds), ``"three-pass"`` (the split-bf16 kernels,
+    and every other coned launch), None without cones."""
+    if cone_ops is None or not (cone_ops.nc_u or cone_ops.nc_x):
+        return None
+    if algo != "f32" or not FUSED_CONES:
+        return "three-pass"
+    items = cone_items(tuple(dims), tile, ri, cone_ops.nc_u > 0,
+                       cone_ops.nc_x > 0)
+    return "three-pass" if items is None else "fused"
+
+
+_ITEMS_ON_DEVICE: dict = {}
+
+
+def _cone_items_arg(cone_ops, dims: tuple, tile: int, ri: int, algo: str,
+                    device):
+    """The C entries' ``(cone_items, cone_chunks)`` (``None, 0`` unless the
+    launch takes the fused cone pass, :func:`cone_path`), plus the tensor
+    that must outlive the call (one copy per device and layout)."""
+    if cone_path(dims, tile, ri, cone_ops, algo) != "fused":
+        return None, 0, None
+    key = (tuple(dims), tile, ri, cone_ops.nc_u > 0, cone_ops.nc_x > 0,
+           str(device))
+    items = _ITEMS_ON_DEVICE.get(key)
+    if items is None:
+        items = torch.as_tensor(cone_items(*key[:5]), device=device)
+        _ITEMS_ON_DEVICE[key] = items
+    return items.data_ptr(), items.shape[0], items
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -1066,6 +1188,8 @@ def _launch_solve(
     tile, threads, smem, placement, ri = _geometry(
         dims, B, dev, batch_tile, threads, ncp, placement, register_tile,
         splits)
+    items, chunks, _items = _cone_items_arg(cone_ops, dims, tile, ri, algo,
+                                            dev)
 
     new = lambda w: torch.empty((B, w), dtype=torch.float32, device=dev)
     U, X, D, Y, G, Z, V = (new(Du), new(Dx), new(Du), new(Du), new(Dx),
@@ -1087,7 +1211,7 @@ def _launch_solve(
             cone_idx, cone_par, nc_u, nc_x,
             mu_rows.data_ptr() if ncp else None,
             shift_rows.data_ptr() if ncp else None,
-            counter.data_ptr(),
+            items, chunks, counter.data_ptr(),
             B, nx, nu, N, int(max_iter),
             int(check_termination) if adaptive else 0,
             min(int(warmup_iters), int(max_iter) - 1) if adaptive else 0,

@@ -41,6 +41,7 @@ from .fused_admm import (
     PaddedProblem,
     _check,
     _checked_operands,
+    _cone_items_arg,
     _cone_table,
     _geometry,
     _library,
@@ -240,6 +241,8 @@ def fused_rollout(
     else:
         cd = _check("const_seq", const_seq, (T, Du), dev)
     cone_idx, cone_par, nc_u, nc_x, _alive = _cone_table(cone_ops, dev)
+    items, chunks, _items = _cone_items_arg(cone_ops, pp.dims, tile, ri,
+                                            algo, dev)
 
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     us = new(T, B, nu)
@@ -261,7 +264,8 @@ def fused_rollout(
             us.data_ptr(), iters.data_ptr(), x_final.data_ptr(),
             U.data_ptr(), X.data_ptr(), D.data_ptr(), Y.data_ptr(),
             G.data_ptr(), Z.data_ptr(), V.data_ptr(), stats.data_ptr(),
-            cone_idx, cone_par, nc_u, nc_x, counter.data_ptr(),
+            cone_idx, cone_par, nc_u, nc_x, items, chunks,
+            counter.data_ptr(),
             B, nx, nu, N, T, 0 if const_seq is None else 1,
             int(max_iter), int(check_termination) if adaptive else 0,
             min(int(warmup_iters), int(max_iter) - 1) if adaptive else 0,

@@ -1813,7 +1813,9 @@ def bf16x3_path(dev: str = "cuda") -> tuple[dict, list]:
                                                    None)[0],
             "iters_mean": float(its.float().mean()),
             "split_iters_share": split / float(its.sum()),
-            "tile_threads_placement": [tile, threads, placement]})
+            "tile_threads_placement": [tile, threads, placement],
+            # the split kernels run the three coned passes
+            **({"cone_path": "three-pass"} if "cones" in name else {})})
     extra_ms["K1 polish=6"] = cuda_ms(lambda: fused_solve(
         x0s, cold, pp, max_iter=100, polish=6, **BF))
     extra_ms["K1 polish=8 placement=device"] = cuda_ms(lambda: fused_solve(
@@ -2328,6 +2330,58 @@ def main() -> None:
                      [f"mission vs tick loop: controls off by {loop_err}"])
         + ([] if mission_excess <= CONE_TOL else
            [f"mission: final slack violates a cone by {mission_excess}"])})
+
+    # Both coned paths of the float32 kernels give the same bits: the fused
+    # cone pass (the forward stage's pass over whole knots) and the three
+    # coned passes (fused_admm.FUSED_CONES off; the split kernels' path).
+    # Each case names the path it took (fused: the cases above took it too,
+    # at this batch's slots).
+    ten_cones_q = ConeSet(
+        input_cones=tuple(Cone((i,), (i + 1) % 4, 2.0, 1.0)
+                          for i in range(4)),
+        state_cones=(Cone(tuple(range(10)), 10, 5.0, 1.0),)
+        + tuple(Cone((k,), k + 1, 3.0, 2.0) for k in range(5)))
+    tcops = pad_cones(pp, ten_cones_q)
+
+    def paths_case(name, run, dims, cops, ncp=0):
+        tile, _t, _s, _p, ri = fused_admm._geometry(dims, B, dev, None, None,
+                                                    ncp)
+        path = fused_admm.cone_path(dims, tile, ri, cops)
+        fused = run()
+        fused_admm.FUSED_CONES = False
+        try:
+            three = run()
+        finally:
+            fused_admm.FUSED_CONES = True
+        bad = _unequal(fused, three)
+        return {"case": f"{name}: fused cone pass vs three passes",
+                "path": path, "slots": tile, "unequal_fields": bad,
+                "failures": ([f"{name}: {bad} differ between the paths"]
+                             if bad else [])
+                + ([] if path == "fused" else
+                   [f"{name}: took the {path} path"])}
+
+    for label, kw in (("fixed-100", fixed_kw), ("adaptive", adapt_kw)):
+        cone_cases.append(paths_case(
+            f"K4 lander {label}",
+            lambda: fused_solve(lx0, lcold, lpp, cone_ops=lcops, **kw),
+            lpp.dims, lcops))
+    cone_cases.append(paths_case(
+        "K4 lander adaptive per-instance",
+        lambda: fused_solve(lx0, lcold, lpp, cone_ops=lcops, **per_instance,
+                            **adapt_kw), lpp.dims, lcops, ncp=2))
+    cone_cases.append(paths_case(
+        "K4 quadrotor tilt cone adaptive",
+        lambda: fused_solve(x0s, cold, pp, cone_ops=qcops, max_iter=100,
+                            check_termination=1), pp.dims, qcops))
+    cone_cases.append(paths_case(
+        "K4 quadrotor ten cones fixed-30",
+        lambda: fused_solve(x0s, cold, pp, cone_ops=tcops, max_iter=30),
+        pp.dims, tcops))
+    cone_cases.append(paths_case(
+        "K4 lander coned mission 30 ticks",
+        lambda: fused_rollout(lx0, lcold, lpp, lrops, 30, cone_ops=lcops,
+                              **mission_kw), lpp.dims, lcops))
     torch.cuda.synchronize()
     emit("kernels_cones", batch=B, cases=cone_cases)
     raise_failures(cone_cases)
@@ -2861,6 +2915,12 @@ def main() -> None:
     lrops = rollout_ops(lproblem, lpp, device=dev)
     ldims = lpp.dims
     cone_ref = "accelerated_tinympc_tpu/ops/fused_admm.py:326"
+    ltile, _t, _s, _p, lri = fused_admm._geometry(ldims, MAIN_BATCH, dev, None,
+                                                  None)
+    # each K4 row with its slots a block, the path of its slack stage and
+    # its box-only twin's time (the same schedule, no cones) from this call
+    cone_row = dict(slots=ltile,
+                    cone_path=fused_admm.cone_path(ldims, ltile, lri, lcops))
     box_ms = {}
     for label, kw in (("fixed", fixed_kw), ("adaptive", adapt_kw)):
         box_ms[label] = cuda_ms(lambda: fused_solve(lx0, lcold, lpp, **kw))
@@ -2874,6 +2934,7 @@ def main() -> None:
                 f"K4 {label} main shape", g, w, kw["check_termination"],
                 lpp.rho_f, lcones, 6, 3),
             lambda g: g.stats[:, 0].sum(), MAIN_BATCH, dims=ldims)
+        kernels[-1].update(cone_row, box_only_ms=box_ms[label])
     box_ms["rollout"] = cuda_ms(
         lambda: fused_rollout(lx0, lcold, lpp, lrops, 30, **mission_kw))
     kernel_row(
@@ -2885,8 +2946,9 @@ def main() -> None:
                                      tol=1e-2),
         lambda g: g.iters.sum(), 30 * MAIN_BATCH, ticks=30, dims=ldims,
         long_plain=True)
+    kernels[-1].update(cone_row, box_only_ms=box_ms["rollout"])
     emit("cones_cost_at_main_shape", box_only_ms=box_ms,
-         coned_ms={r["name"]: r["ms"] for r in kernels[-3:]})
+         coned_ms={r["name"]: r["ms"] for r in kernels[-3:]}, **cone_row)
 
     # K5, K6 at the shapes the adaptive-rho path gives them: the quadrotor's
     # plant once per instance, rho mis-scaled over six decades (cold build),

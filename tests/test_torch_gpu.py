@@ -452,6 +452,103 @@ def test_coned_rollout_kernel_matches_plain(lander):
     assert float((got.x_final - want.x_final).abs().max()) <= ATOL
 
 
+# The coned float32 kernels run the cones in the forward stage's pass, each
+# warp over whole knots (fused_admm.cone_items), or in three passes
+# (fused_admm.FUSED_CONES off, the split kernels' path): the same bits.
+CONED_GEOMETRIES = [dict(), dict(placement="device"),
+                    dict(placement="device", register_tile=4)]
+
+
+def _both_paths(run):
+    fused = run()
+    fused_admm.FUSED_CONES = False
+    try:
+        three = run()
+    finally:
+        fused_admm.FUSED_CONES = True
+    return fused, three
+
+
+def _coned_sets(card, lander):
+    """(name, pp, cone ops, x0s): the lander's cones (input knot 12,
+    columns 126-128, crosses the float4 group 31 | 32 and, in the dense
+    items, a warp's boundary; knot 13 is the last group), overlapping input
+    cones on the lander (the second's ball holds the first's axis, applied
+    in order; the third at the last input column) and the ten cones on the
+    quadrotor (a ten-entry ball; knots of 12 states over three groups)."""
+    from accelerated_tinympc_tpu_torch.ops import pad_cones
+    from accelerated_tinympc_tpu_torch.solver.cones import Cone, ConeSet
+
+    _qproblem, qpp, qx0s, _cold = card
+    _problem, lpp, lcops, _cones, lx0s = lander
+    overlap = ConeSet(
+        input_cones=(Cone((0, 1), 2, 1.0, 3.0), Cone((2,), 0, 0.8, 0.5),
+                     Cone((1,), 2, 1.5, 2.0)),
+        state_cones=(Cone((0, 1), 2, 2.0, 0.1),))
+    ten = ConeSet(
+        input_cones=tuple(Cone((i,), (i + 1) % 4, 2.0, 1.0) for i in range(4)),
+        state_cones=(Cone(tuple(range(10)), 10, 5.0, 1.0),)
+        + tuple(Cone((k,), k + 1, 3.0, 2.0) for k in range(5)))
+    return [("lander", lpp, lcops, lx0s),
+            ("overlapping", lpp, pad_cones(lpp, overlap), lx0s),
+            ("ten cones", qpp, pad_cones(qpp, ten), qx0s)]
+
+
+@pytest.mark.parametrize("geo", CONED_GEOMETRIES,
+                         ids=["shared", "device", "device_ri4"])
+def test_coned_paths_agree_and_match_plain_at_every_placement_and_tile(
+        card, lander, geo):
+    for name, pp, cops, x0s in _coned_sets(card, lander):
+        B = x0s.shape[0]
+        cold = FusedCarry.zeros(B, pp)
+        tile, _t, _s, _p, ri = fused_admm._geometry(pp.dims, B, "cuda", None,
+                                                    None, **geo)
+        assert fused_admm.cone_path(pp.dims, tile, ri, cops) == "fused", name
+        for kw in (dict(max_iter=40),
+                   dict(max_iter=100, check_termination=2, abs_pri_tol=3e-2,
+                        abs_dua_tol=3e-2)):
+            kw.update(cone_ops=cops)
+            fused, three = _both_paths(
+                lambda: fused_solve(x0s, cold, pp, **geo, **kw))
+            for a, b in zip(_solve_fields(fused), _solve_fields(three)):
+                assert torch.equal(a, b), name
+            _assert_solve_close(fused, fused_solve_plain(x0s, cold, pp, **kw),
+                                min_agree=0.97)
+
+
+@pytest.mark.parametrize("geo", CONED_GEOMETRIES,
+                         ids=["shared", "device", "device_ri4"])
+def test_coned_mission_paths_agree_at_every_placement_and_tile(lander, geo):
+    problem, pp, cops, _cones, x0s = lander
+    cold = FusedCarry.zeros(x0s.shape[0], pp)
+    rops = rollout_ops(problem, pp)
+    kw = dict(max_iter=60, check_termination=2, abs_pri_tol=3e-2,
+              abs_dua_tol=3e-2, cone_ops=cops)
+    fused, three = _both_paths(
+        lambda: fused_rollout(x0s, cold, pp, rops, 6, **geo, **kw))
+    for a, b in zip(_mission_fields(fused), _mission_fields(three)):
+        assert torch.equal(a, b)
+    want = fused_rollout_plain(x0s, cold, pp, rops, 6, **kw)
+    assert float((fused.iters == want.iters).float().mean()) >= 0.95
+    same = (fused.iters == want.iters).all(dim=0)
+    assert float((fused.us - want.us)[:, same].abs().max()) <= ATOL
+
+
+def test_coned_kernel_per_instance_rows_on_both_paths(lander):
+    _problem, pp, cops, _cones, x0s = lander
+    B = x0s.shape[0]
+    cold = FusedCarry.zeros(B, pp)
+    lin = lambda a, b: torch.linspace(a, b, B, device="cuda")[None]
+    kw = dict(max_iter=80, check_termination=2, abs_pri_tol=3e-2,
+              abs_dua_tol=3e-2, cone_ops=cops, cone_mu_u=lin(0.6, 1.4),
+              cone_shift_u=lin(2.5, 3.5), cone_mu_x=lin(1.5, 2.5),
+              cone_shift_x=lin(0.05, 0.2))
+    fused, three = _both_paths(lambda: fused_solve(x0s, cold, pp, **kw))
+    for a, b in zip(_solve_fields(fused), _solve_fields(three)):
+        assert torch.equal(a, b)
+    _assert_solve_close(fused, fused_solve_plain(x0s, cold, pp, **kw))
+
+
 # ------------------------------------------------------ Riccati kernels ----
 
 def _plants(batch, nx, nu, seed=0):

@@ -13,7 +13,8 @@ checkout's ``chip_smoke.py`` workloads at batch 4,099 and the kernels' own
 launch geometry (32 slots a block at that batch, float32 and split alike):
 K1 quadrotor fixed-100 cold, K2 warm (check 1, tolerance 1e-3), K3 a
 12-tick adaptive mission, K4 a/b on the lander with its two cones
-(fixed-100; check 2, tolerance 1e-2) and K4 c a 10-tick coned mission.
+(fixed-100; check 2, tolerance 1e-2), static and with per-instance mu and
+shift rows (``chip_smoke.py``'s), and K4 c a 10-tick coned mission.
 ``--algo bf16x3`` runs the split kernels at ``chip_smoke.py``'s settings
 of them instead: K1 at polish 8, K2 warm at checks every 5 (tolerance
 0.05), K3 12 ticks at checks every 5 (tolerance 1e-2), K4 a/b/c as above,
@@ -77,6 +78,12 @@ res["K4a"] = solve(fused_solve(lx0, lcold, lpp, cone_ops=cops,
                                **cs.LANDER_FIXED, **bf))
 res["K4b"] = solve(fused_solve(lx0, lcold, lpp, cone_ops=cops,
                                **cs.LANDER_ADAPTIVE, **bf))
+lin = lambda a, b: torch.linspace(a, b, B, device=dev)[None]
+rows = dict(cone_mu_u=lin(0.6, 1.4), cone_shift_u=lin(2.5, 3.5),
+            cone_mu_x=lin(1.5, 2.5), cone_shift_x=lin(0.05, 0.2))
+for key, kw in (("K4a", cs.LANDER_FIXED), ("K4b", cs.LANDER_ADAPTIVE)):
+    res[key + " per-instance rows"] = solve(fused_solve(
+        lx0, lcold, lpp, cone_ops=cops, **rows, **kw, **bf))
 res["K4c 10 ticks"] = mission(fused_rollout(
     lx0, lcold, lpp, rollout_ops(lproblem, lpp, device=dev), 10,
     cone_ops=cops, **cs.LANDER_MISSION, **bf))

@@ -4,7 +4,7 @@ split-bf16) on one GPU, from clock counters put into a copy of a checkout's
 kernels.
 
     python3 tools/torch_fused_stage_clocks.py [ROOT] [--only K1,K3,...]
-        [--algos f32,bf16x3]
+        [--algos f32,bf16x3] [--cone-path fused|three-pass]
 
 The profilers that would split a kernel's time by stage (``ncu``) may not
 run where the card is, so this script copies ROOT's
@@ -18,12 +18,18 @@ reads the counters back. A source without the hooks stops the script.
 Block counters (thread 0 of every block reads ``clock64()`` after each
 barrier of the iteration loop; cycles per block-iteration): ``forward``
 the forward stage (with the split rows' product and elementwise work where
-they run beside it), ``cone`` and ``finish`` (coned kernels), ``backward``
-the bookkeeping with both backward products, ``refill`` the refill check and
-refill. Warp counters (lane 0 of every warp, cycles per warp and
-block-iteration): ``w_split_fwd``, ``w_forward``, ``w_split_bwd``,
+they run beside it; with the cones where the coned float32 kernels fold
+them into it), ``cone`` and ``finish`` (the three coned passes: the
+split-bf16 coned kernels, and the float32 ones with ``--cone-path
+three-pass`` or in a checkout without the fused pass),
+``backward`` the bookkeeping with both backward products, ``refill`` the
+refill check and refill. Warp counters (lane 0 of every warp, cycles per
+warp and block-iteration): ``w_split_fwd``, ``w_forward``, ``w_split_bwd``,
 ``w_backward``, the time a warp spends in each product's code before the
-next barrier, so the gap to the block counter is the wait at the barrier.
+next barrier, so the gap to the block counter is the wait at the barrier;
+in the folded coned pass ``w_forward`` is the product and the box clip,
+``w_cone`` the warp's cone projections and ``w_cone_finish`` its dual
+ascent and residual terms.
 Per retired slot, the cycles its warp spent retiring it and loading the
 next. The counters live in shared memory and are added to device memory once
 per block, so the times printed beside them are a little above the
@@ -33,10 +39,12 @@ Workloads: this checkout's ``chip_smoke.py`` workload functions at batch
 65,536, each split kernel beside its float32 twin on the same schedule:
 K1 quadrotor fixed-100 cold (split: polish 8), K2 warm check 1, K3 70
 ticks at checks every 5 (tol 1e-2), K4 a/b/c on the lander with both
-cones (c: 30 ticks). Beside the readings: the SASS instructions of each
-split kernel (``cuobjdump``, where the toolkit has it) and its registers
-and spills (``-Xptxas -v``). Prints one JSON line. Needs a CUDA device
-and nvcc.
+cones (c: 30 ticks), and ``K4a_box``, ``K4b_box``, ``K4c_box``, their
+box-only twins (the same schedules without the cones). Beside the
+readings: the SASS instructions of each split kernel and of each coned
+float32 kernel (``cuobjdump``, where the toolkit has it) and their
+registers and spills (``-Xptxas -v``). Prints one JSON line. Needs a CUDA
+device and nvcc.
 """
 
 from __future__ import annotations
@@ -52,11 +60,13 @@ import tempfile
 
 HERE = pathlib.Path(__file__).resolve().parents[1]
 
-NCLK = 16
+NCLK = 18
+NWARP = NCLK - 10
 # Counter indices: block counters, slot counters, warp counters.
 BLOCK = {"forward": 0, "cone": 1, "finish": 2, "backward": 3, "refill": 4}
 WARP = {"w_split_fwd": 10, "w_forward": 11, "w_split_bwd": 12,
-        "w_backward": 13, "w_split_fwd_finish": 14, "w_split_fwd_rest": 15}
+        "w_backward": 13, "w_split_fwd_finish": 14, "w_split_fwd_rest": 15,
+        "w_cone": 16, "w_cone_finish": 17}
 ITERS, RETIRED, RETIRE, LOAD = 7, 8, 5, 6
 
 # Block counters in shared memory (thread 0 adds them to g_clk at the end);
@@ -68,13 +78,13 @@ HOOK_DEFS = """
 namespace atm {
 __device__ unsigned long long g_clk[%(n)d];
 __shared__ unsigned long long s_ck_[%(n)d];
-__shared__ unsigned long long s_wk_[8][6];
+__shared__ unsigned long long s_wk_[8][%(w)d];
 __shared__ unsigned long long s_wt_[8];
 }
 #define ATM_CLK_BEGIN() \\
   if (threadIdx.x == 0) for (int k_ = 0; k_ < %(n)d; ++k_) atm::s_ck_[k_] = 0ull; \\
   if ((threadIdx.x & 31) == 0 && threadIdx.x < 256) \\
-    for (int k_ = 0; k_ < 6; ++k_) atm::s_wk_[threadIdx.x >> 5][k_] = 0ull; \\
+    for (int k_ = 0; k_ < %(w)d; ++k_) atm::s_wk_[threadIdx.x >> 5][k_] = 0ull; \\
   unsigned long long c0_ = 0ull
 #define ATM_CLK_MARK() c0_ = clock64()
 #define ATM_CLK(k) do { const unsigned long long t_ = clock64(); \\
@@ -99,9 +109,9 @@ __shared__ unsigned long long s_wt_[8];
     if (k_ != 5 && k_ != 6 && k_ != 8) \\
       atomicAdd(&atm::g_clk[k_], atm::s_ck_[k_]); \\
   for (int w_ = 0; w_ < (int)(blockDim.x >> 5); ++w_) \\
-    for (int k_ = 0; k_ < 6; ++k_) atomicAdd(&atm::g_clk[10 + k_], \\
+    for (int k_ = 0; k_ < %(w)d; ++k_) atomicAdd(&atm::g_clk[10 + k_], \\
                                              atm::s_wk_[w_][k_]); } } while (0)
-""" % {"n": NCLK}
+""" % {"n": NCLK, "w": NWARP}
 READ_BACK = """
 extern "C" int atm_clocks(unsigned long long* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, atm::g_clk, sizeof(atm::g_clk));
@@ -148,9 +158,9 @@ def build_fused(_build) -> None:
     return logs
 
 
-def kernel_sizes(_build, log: str) -> dict:
-    """Per split kernel: SASS instructions (``cuobjdump``) and the
-    compiler's registers, stack and spill line."""
+def kernel_sizes(_build, log: str, name: str) -> dict:
+    """Per kernel of library ``name``: SASS instructions (``cuobjdump``)
+    and the compiler's registers, stack and spill line."""
     import re
     import shutil as _sh
     import subprocess
@@ -165,8 +175,7 @@ def kernel_sizes(_build, log: str) -> dict:
         cuobjdump = pathlib.Path(_sh.which("cuobjdump"))
     if cuobjdump.exists():
         sass = subprocess.run(
-            [str(cuobjdump), "-sass",
-             str(_build.library_path("fused_admm_bf16x3"))],
+            [str(cuobjdump), "-sass", str(_build.library_path(name))],
             capture_output=True, text=True).stdout
         fn = None
         for line in sass.splitlines():
@@ -183,8 +192,13 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=str(HERE))
     ap.add_argument("--only", default="",
-                    help="comma-separated workloads (K1,K2,K3,K4a,K4b,K4c)")
+                    help="comma-separated workloads (K1,K2,K3,K4a,K4b,K4c, "
+                    "K4a_box,K4b_box,K4c_box)")
     ap.add_argument("--algos", default="f32,bf16x3")
+    ap.add_argument("--cone-path", default="fused",
+                    choices=("fused", "three-pass"),
+                    help="the coned float32 kernels' slack stage (a checkout "
+                    "without the fused cone pass runs three passes anyway)")
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
     sys.path.insert(0, str(HERE))
@@ -204,6 +218,8 @@ def main():
             pad_cones, rollout_ops,
         )
 
+        if args.cone_path == "three-pass":
+            fused_admm.FUSED_CONES = False
         logs = build_fused(_build)
         libs = {a: fused_admm._library(a) for a in ("f32", "bf16x3")}
         buf = (ctypes.c_ulonglong * NCLK)()
@@ -264,9 +280,18 @@ def main():
             "K4c": (lambda algo: fused_rollout(
                 lx, lcold, lpp, lrops, 30, cone_ops=cops,
                 **cs.LANDER_MISSION, algo=algo), lpp.dims),
+            # the box-only twins of K4 a/b/c: the lander's schedules
+            # without the cones
+            "K4a_box": (lambda algo: fused_solve(
+                lx, lcold, lpp, **cs.LANDER_FIXED, algo=algo), lpp.dims),
+            "K4b_box": (lambda algo: fused_solve(
+                lx, lcold, lpp, **cs.LANDER_ADAPTIVE, algo=algo), lpp.dims),
+            "K4c_box": (lambda algo: fused_rollout(
+                lx, lcold, lpp, lrops, 30, **cs.LANDER_MISSION, algo=algo),
+                lpp.dims),
         }
         only = [k for k in args.only.split(",") if k] or list(work)
-        row = {"root": str(root),
+        row = {"root": str(root), "cone_path": args.cone_path,
                "device": torch.cuda.get_device_name(0)}
         for key in only:
             fn, dims = work[key]
@@ -274,8 +299,12 @@ def main():
                         for algo in args.algos.split(",")}
         row["split_kernels"] = {
             k: v for k, v in kernel_sizes(
-                _build, logs["fused_admm_bf16x3"]).items()
+                _build, logs["fused_admm_bf16x3"], "fused_admm_bf16x3").items()
             if "bf16x3" in k}
+        row["coned_kernels"] = {
+            k: v for k, v in kernel_sizes(
+                _build, logs["fused_admm"], "fused_admm").items()
+            if "cones" in k}
         print(json.dumps(row), flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

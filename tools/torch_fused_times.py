@@ -15,18 +15,19 @@ Prints one JSON line: K1 fixed-100 cold, K2 warm adaptive (check 1, tol
 1e-3, after a 12-tick mission) and K3 (70 ticks adaptive) on the quadrotor
 (nx=12, nu=4, N=10) at batch 65,536, and K4 a/b/c on the powered-descent
 lander with both cones (nx=6, nu=3, N=15) at the same batch, as
-``chip_smoke.py`` runs them; CUDA events after a warm-up. Beside K1 and
-K4 a, the same fixed solves at 10 iterations (``*_it10_ms``): the two
-lengths split a fixed solve's time into a part per solve (loads, results,
-refills) and a part per iteration.
+``chip_smoke.py`` runs them; CUDA events after a warm-up. Beside each K4
+row its box-only twin (``K4*_box_ms``: the same schedule without the
+cones). Beside K1 and K4 a, the same fixed solves at 10 iterations
+(``*_it10_ms``): the two lengths split a fixed solve's time into a part
+per solve (loads, results, refills) and a part per iteration.
 
 ``--algo bf16x3`` times the split-bf16 kernels instead, on
 ``chip_smoke.py``'s workloads of them (its ``bf16x3_path`` rows), each
 beside its float32 twin on the same schedule (``*_f32_ms``) and with the
 slots a block of each (``*_slots``): K1 fixed-100 cold at polish 8, K2 warm
 at check 1 (no split iteration) and at checks every 5 (tolerance 0.05), K3
-70 ticks at checks every 5 (tolerance 1e-2), K4 a/b/c as above. Needs a
-CUDA device and nvcc.
+70 ticks at checks every 5 (tolerance 1e-2), K4 a/b/c as above (each with
+its split box-only twin, ``K4*_box_ms``). Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -89,17 +90,22 @@ def main():
     lcold = FusedCarry.zeros(B, lpp, device=dev)
     cops = pad_cones(lpp, cs.lander_cones())
     lrops = rollout_ops(lproblem, lpp, device=dev)
-    k4a = lambda n: lambda: fused_solve(
-        lx, lcold, lpp, cone_ops=cops, **{**cs.LANDER_FIXED, "max_iter": n})
+    k4a = lambda n, c=cops: lambda: fused_solve(
+        lx, lcold, lpp, cone_ops=c, **{**cs.LANDER_FIXED, "max_iter": n})
+    k4b = lambda c=cops: lambda: fused_solve(
+        lx, lcold, lpp, cone_ops=c, **cs.LANDER_ADAPTIVE)
+    k4c = lambda c=cops: lambda: fused_rollout(
+        lx, lcold, lpp, lrops, 30, cone_ops=c, **cs.LANDER_MISSION)
+    # each K4 row beside its box-only twin (the same schedule, no cones)
     row["K4a_ms"] = ms(k4a(100))
+    row["K4a_box_ms"] = ms(k4a(100, None))
     row["K4a_it10_ms"] = ms(k4a(10))
-    row["K4b_ms"] = ms(lambda: fused_solve(
-        lx, lcold, lpp, cone_ops=cops, **cs.LANDER_ADAPTIVE))
-    row["K4b_iters_mean"] = float(fused_solve(
-        lx, lcold, lpp, cone_ops=cops, **cs.LANDER_ADAPTIVE).stats[:, 0].mean())
-    row["K4c_ms"] = ms(lambda: fused_rollout(
-        lx, lcold, lpp, lrops, 30, cone_ops=cops, **cs.LANDER_MISSION),
-        reps=1)
+    row["K4b_ms"] = ms(k4b())
+    row["K4b_box_ms"] = ms(k4b(None))
+    row["K4b_iters_mean"] = float(k4b()().stats[:, 0].mean())
+    row["K4b_box_iters_mean"] = float(k4b(None)().stats[:, 0].mean())
+    row["K4c_ms"] = ms(k4c(), reps=1)
+    row["K4c_box_ms"] = ms(k4c(None), reps=1)
     print(json.dumps(row), flush=True)
 
 
@@ -132,14 +138,14 @@ def split_times(cs, root, ms) -> dict:
         "K3": (lambda **a: fused_rollout(
             x0s, cold, pp, rops, 70, **cs.BF16X3_MISSION, **a),
             cs.BF16X3_MISSION, pp.dims, 1),
-        "K4a": (lambda **a: fused_solve(
-            lx, lcold, lpp, cone_ops=cops, **cs.LANDER_FIXED, **a),
+        "K4a": (lambda c=cops, **a: fused_solve(
+            lx, lcold, lpp, cone_ops=c, **cs.LANDER_FIXED, **a),
             cs.LANDER_FIXED, lpp.dims, None),
-        "K4b": (lambda **a: fused_solve(
-            lx, lcold, lpp, cone_ops=cops, **cs.LANDER_ADAPTIVE, **a),
+        "K4b": (lambda c=cops, **a: fused_solve(
+            lx, lcold, lpp, cone_ops=c, **cs.LANDER_ADAPTIVE, **a),
             cs.LANDER_ADAPTIVE, lpp.dims, None),
-        "K4c": (lambda **a: fused_rollout(
-            lx, lcold, lpp, lrops, 30, cone_ops=cops, **cs.LANDER_MISSION,
+        "K4c": (lambda c=cops, **a: fused_rollout(
+            lx, lcold, lpp, lrops, 30, cone_ops=c, **cs.LANDER_MISSION,
             **a), cs.LANDER_MISSION, lpp.dims, 1),
     }
     row = {"root": str(root), "algo": "bf16x3"}
@@ -154,6 +160,9 @@ def split_times(cs, root, ms) -> dict:
             dims, B, dev, None, None, split=splits)[0]
         row[f"{key}_f32_slots"] = fused_admm._geometry(
             dims, B, dev, None, None)[0]
+        if key.startswith("K4"):   # the box-only twin: no cones
+            row[f"{key}_box_ms"] = ms(lambda: run(None, algo="bf16x3"),
+                                      **kw)
     return row
 
 
