@@ -883,8 +883,10 @@ __device__ inline void split_backward(const Args& a, const Smem& s) {
 // ----------------------------------------------------------------- stages --
 
 // The forward product of one register tile: acc[r][c] = sum_k D[i0 + r][k]
-// Wf[k][j0 + c] over the padded depth (zeros where no row is live).
-template <int RI, bool GOPS>
+// Wf[k][j0 + c] over the padded depth (zeros where no row is live). KDU,
+// KDZ (K1's own body, fixed_waves.cuh): DuP and DzP known at compile
+// time, so the 8-slot chain unrolls with immediate offsets (the same sums).
+template <int RI, bool GOPS, int KDU = 0, int KDZ = 0>
 __device__ __forceinline__ void forward_product(const Dims& d, const Smem& s,
                                                 int i0, int j0, bool live,
                                                 float (&acc)[RI][TJ]) {
@@ -933,18 +935,20 @@ __device__ __forceinline__ void forward_product(const Dims& d, const Smem& s,
           for (int c = 0; c < TJ; ++c)
             acc[r][c] = k0 == 0 ? part[r][c] : acc[r][c] + part[r][c];
       }
-    } else {   // one chain over the depth
-      for (int k = 0; k < d.DuP; k += 4) {
+    } else {
+      // One chain over the depth, a float4 step k at a time (ldd, ldw: the
+      // row strides of D and Wf); all steps unrolled where KDU, KDZ are
+      // known.
+      auto step = [&](int k, int ldd, int ldw) {
         float w[4][TJ];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          const float4 wv = ldw4<GOPS>(Wc + (k + kk) * d.DzP);
+          const float4 wv = ldw4<GOPS>(Wc + (k + kk) * ldw);
           w[kk][0] = wv.x; w[kk][1] = wv.y; w[kk][2] = wv.z; w[kk][3] = wv.w;
         }
 #pragma unroll
         for (int r = 0; r < RI; ++r) {
-          const float4 dv =
-              *reinterpret_cast<const float4*>(Dg + r * d.DuP + k);
+          const float4 dv = *reinterpret_cast<const float4*>(Dg + r * ldd + k);
 #pragma unroll
           for (int c = 0; c < TJ; ++c) {
             acc[r][c] = fmaf(dv.x, w[0][c], acc[r][c]);
@@ -953,6 +957,12 @@ __device__ __forceinline__ void forward_product(const Dims& d, const Smem& s,
             acc[r][c] = fmaf(dv.w, w[3][c], acc[r][c]);
           }
         }
+      };
+      if constexpr (KDU > 0) {
+#pragma unroll
+        for (int k = 0; k < KDU; k += 4) step(k, KDU, KDZ);
+      } else {
+        for (int k = 0; k < d.DuP; k += 4) step(k, d.DuP, d.DzP);
       }
     }
   }
@@ -1574,6 +1584,80 @@ __device__ inline int decide_stage(const Args& a, const Smem& s) {
   return live;
 }
 
+// One lane's part of a backward register tile: acc[r][c] = sum over the
+// lane's float4 steps q = h, h + H, ... (H = d.ksplit) of the depth of
+// Sg[r][k] Wc[k][c] (Sg the tile's first S row, Wc Wb's column c0, read
+// from device memory when G), summed in blocks of BWD_BLOCK steps (see
+// there), each a fresh chain added to the running sum. KDU, KDZ, KH (K1's
+// own body): DuP, DzP and H known at compile time, so a chain's steps
+// unroll (the same sums).
+template <int RI, bool G, int KDU = 0, int KDZ = 0, int KH = 0>
+__device__ __forceinline__ void backward_product(const Dims& d,
+                                                 const float* Sg,
+                                                 const float* Wc, int h,
+                                                 float (&acc)[RI][TJ]) {
+  const int H = KH ? KH : d.ksplit;
+  const int nq = (KDZ ? KDZ : d.DzP) >> 2;
+#pragma unroll
+  for (int r = 0; r < RI; ++r)
+#pragma unroll
+    for (int c = 0; c < TJ; ++c) acc[r][c] = 0.0f;
+  // FMA chains into dst over the lane's float4 steps q0, q0 + H, ... below
+  // q1, a float4 step q at a time (ldw, lds: the row strides of Wb and S).
+  auto chain = [&](float (&dst)[RI][TJ], int q0, int q1) {
+    auto kstep = [&](int q, int ldw, int lds) {
+      const int k = q << 2;
+      float w[4][TJ];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 wv = ldw4<G>(Wc + (k + kk) * ldw);
+        w[kk][0] = wv.x; w[kk][1] = wv.y;
+        w[kk][2] = wv.z; w[kk][3] = wv.w;
+      }
+#pragma unroll
+      for (int r = 0; r < RI; ++r) {
+        const float4 sv = *reinterpret_cast<const float4*>(Sg + r * lds + k);
+#pragma unroll
+        for (int c = 0; c < TJ; ++c) {
+          dst[r][c] = fmaf(sv.x, w[0][c], dst[r][c]);
+          dst[r][c] = fmaf(sv.y, w[1][c], dst[r][c]);
+          dst[r][c] = fmaf(sv.z, w[2][c], dst[r][c]);
+          dst[r][c] = fmaf(sv.w, w[3][c], dst[r][c]);
+        }
+      }
+    };
+    if constexpr (KDZ > 0) {
+      constexpr int STEPS = ((KDZ >> 2) + KH - 1) / KH;
+#pragma unroll
+      for (int st = 0; st < STEPS; ++st)
+        if (q0 + st * KH < q1) kstep(q0 + st * KH, KDU, KDZ);
+    } else {
+      for (int q = q0; q < q1; q += H) kstep(q, d.DuP, d.DzP);
+    }
+  };
+  if (nq <= H * BWD_BLOCK) {
+    chain(acc, h, nq);   // at most one block a lane: one chain
+  } else {
+    // Blocks of BWD_BLOCK (or BWD_FINE) steps, each a fresh chain added
+    // to acc.
+    const int step =
+        H * (RI == 4 && nq > 4 * H * BWD_BLOCK ? BWD_FINE : BWD_BLOCK);
+    for (int q0 = h; q0 < nq; q0 += step) {
+      float part[RI][TJ];
+#pragma unroll
+      for (int r = 0; r < RI; ++r)
+#pragma unroll
+        for (int c = 0; c < TJ; ++c) part[r][c] = 0.0f;
+      chain(part, q0, min(nq, q0 + step));
+#pragma unroll
+      for (int r = 0; r < RI; ++r)
+#pragma unroll
+        for (int c = 0; c < TJ; ++c)
+          acc[r][c] = q0 == h ? part[r][c] : acc[r][c] + part[r][c];
+    }
+  }
+}
+
 // Backward product: D[i][c] = sum_k S[i][k] Wb[k][c] + const_d[c], const_d
 // the slot's row (the tick's row when tracking). A register tile is RI slots
 // x TJ adjacent columns; its depth Dz is split over ksplit adjacent lanes
@@ -1587,7 +1671,6 @@ __device__ inline void backward_stage(const Args& a, const Smem& s) {
   const int H = d.ksplit;
   const int ncg = d.DuP / TJ;
   const int nitems = ncg * (d.tile / RI) * H;
-  const int nq = d.DzP >> 2;
   for (int base = 0; base < nitems; base += blockDim.x) {
     const int raw = base + threadIdx.x;
     const bool active = raw < nitems;
@@ -1606,71 +1689,21 @@ __device__ inline void backward_stage(const Args& a, const Smem& s) {
     }
     if (!__any_sync(0xffffffffu, live)) continue;  // warp-uniform
     float acc[RI][TJ];
-#pragma unroll
-    for (int r = 0; r < RI; ++r)
-#pragma unroll
-      for (int c = 0; c < TJ; ++c) acc[r][c] = 0.0f;
     if (live) {
       // The split kernels read Wb from device memory on a launch that
       // splits (make_layout stages its fragments instead).
-      auto products = [&](auto gtag) {
-        constexpr bool G = decltype(gtag)::value;
-        const float* Sg = s.S + i0 * d.DzP;
-        const float* Wc = (G != GOPS ? s.Wbg : s.Wb) + c0;
-        // FMA chains into dst over the lane's float4 steps q0, q0 + H, ...
-        // below q1.
-        auto chain = [&](float (&dst)[RI][TJ], int q0, int q1) {
-          for (int q = q0; q < q1; q += H) {
-            const int k = q << 2;
-            float w[4][TJ];
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-              const float4 wv = ldw4<G>(Wc + (k + kk) * d.DuP);
-              w[kk][0] = wv.x; w[kk][1] = wv.y;
-              w[kk][2] = wv.z; w[kk][3] = wv.w;
-            }
-#pragma unroll
-            for (int r = 0; r < RI; ++r) {
-              const float4 sv =
-                  *reinterpret_cast<const float4*>(Sg + r * d.DzP + k);
-#pragma unroll
-              for (int c = 0; c < TJ; ++c) {
-                dst[r][c] = fmaf(sv.x, w[0][c], dst[r][c]);
-                dst[r][c] = fmaf(sv.y, w[1][c], dst[r][c]);
-                dst[r][c] = fmaf(sv.z, w[2][c], dst[r][c]);
-                dst[r][c] = fmaf(sv.w, w[3][c], dst[r][c]);
-              }
-            }
-          }
-        };
-        if (nq <= H * BWD_BLOCK) {
-          chain(acc, h, nq);   // at most one block a lane: one chain
-        } else {
-          // Blocks of BWD_BLOCK (or BWD_FINE) steps, each a fresh chain added
-          // to acc.
-          const int step =
-              H * (RI == 4 && nq > 4 * H * BWD_BLOCK ? BWD_FINE : BWD_BLOCK);
-          for (int q0 = h; q0 < nq; q0 += step) {
-            float part[RI][TJ];
-#pragma unroll
-            for (int r = 0; r < RI; ++r)
-#pragma unroll
-              for (int c = 0; c < TJ; ++c) part[r][c] = 0.0f;
-            chain(part, q0, min(nq, q0 + step));
-#pragma unroll
-            for (int r = 0; r < RI; ++r)
-#pragma unroll
-              for (int c = 0; c < TJ; ++c)
-                acc[r][c] = q0 == h ? part[r][c] : acc[r][c] + part[r][c];
-          }
-        }
-      };
+      const float* Sg = s.S + i0 * d.DzP;
       if constexpr (SPLIT && !GOPS) {
-        if (d.split) products(std::true_type{});
-        else products(std::false_type{});
+        if (d.split) backward_product<RI, true>(d, Sg, s.Wbg + c0, h, acc);
+        else backward_product<RI, false>(d, Sg, s.Wb + c0, h, acc);
       } else {
-        products(std::integral_constant<bool, GOPS>{});
+        backward_product<RI, GOPS>(d, Sg, s.Wb + c0, h, acc);
       }
+    } else {
+#pragma unroll
+      for (int r = 0; r < RI; ++r)
+#pragma unroll
+        for (int c = 0; c < TJ; ++c) acc[r][c] = 0.0f;
     }
     // The H lanes of a tile are adjacent (item = H * tile + h and the items
     // of a warp start at a multiple of 32), so a butterfly over lane bits

@@ -2,7 +2,10 @@
 // receding-horizon mission, in one launch. The kernels share the iteration
 // body in admm_iteration.cuh (see the design note there: persistent blocks
 // of per-instance slots fed by a work counter, FP32 FMA products from
-// register tiles):
+// register tiles); the fixed box-only solve has a body of its own,
+// fixed_waves.cuh (waves of slots in lockstep, each thread's iterates in
+// its registers), wherever a block's forward items fit its threads, and
+// the shared body elsewhere, to the same bits:
 //
 //   fused_solve_fixed_kernel     replaces accelerated_tinympc_tpu/ops/
 //                                fused_admm.py _kernel_fixed

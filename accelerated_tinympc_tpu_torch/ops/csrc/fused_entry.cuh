@@ -6,6 +6,7 @@
 
 #pragma once
 #include "admm_iteration.cuh"
+#include "fixed_waves.cuh"
 
 #ifndef ATM_SPLIT
 #error "define ATM_SPLIT (0 or 1) before including fused_entry.cuh"
@@ -26,7 +27,23 @@ extern __shared__ float4 smem4[];
         a, reinterpret_cast<float*>(smem4));                        \
   }
 
+#if ATM_SPLIT
 ATM_KERNEL(fused_solve_fixed, false, false, false)
+#else
+// K1: its own body (fixed_waves.cuh, WAVES) wherever wave_fits, else the
+// shared slot body; every instantiation counts under the kernel's name.
+// KDU, KDZ, KH: a shape launch_waves compiles with its widths and depth
+// split known.
+template <bool GOPS, int RI, bool WAVES = false, int KDU = 0, int KDZ = 0,
+          int KH = 0>
+__global__ void __launch_bounds__(256, 1) fused_solve_fixed_kernel(Args a) {
+  if constexpr (WAVES)
+    run_waves<GOPS, KDU, KDZ, KH>(a, reinterpret_cast<float*>(smem4));
+  else
+    run_block<RI, false, false, false, GOPS, false>(
+        a, reinterpret_cast<float*>(smem4));
+}
+#endif
 ATM_KERNEL(fused_solve_adaptive, true, false, false)
 ATM_KERNEL(fused_solve_fixed_cones, false, true, false)
 ATM_KERNEL(fused_solve_adaptive_cones, true, true, false)
@@ -68,26 +85,21 @@ inline bool fill_cones(Args& a, const int* cone_idx, const float* cone_par,
   return true;
 }
 
-// The kernel of the operators' placement (GOPS when they are read from
-// device memory) and register tile: 8 slots, or 4 with GOPS only.
-template <typename K>
-int launch(K kernel_smem, K kernel_gops, K kernel_gops4, Args a,
-           int threads, int smem_bytes, cudaStream_t stream) {
-  if (a.d.ri != 8 && !(a.d.ri == 4 && a.d.gops)) return -1;
-  const K kernel = a.d.ri == 4 ? kernel_gops4
-                               : (a.d.gops ? kernel_gops : kernel_smem);
-  const int RI = a.d.ri;
-  const Layout L = make_layout(a.d);
-  if (smem_bytes != L.total * 4 || a.d.tile <= 0 || a.d.tile % RI != 0 ||
-      threads < a.d.tile || threads % 32 != 0 || threads > 256 || a.B <= 0 ||
-      a.max_iter < 1 || a.counter == nullptr)
-    return -1;
-  // Split the backward product's depth over as many adjacent lanes (at most
-  // 8) as it takes to give every thread of the block a tile.
-  const int btiles = (a.d.DuP / TJ) * (a.d.tile / RI);
+// The backward product's depth split: over as many adjacent lanes (at most
+// 8) as it takes to give every thread of the block a tile.
+inline int ksplit_of(const Dims& d, int threads) {
+  const int btiles = (d.DuP / TJ) * (d.tile / d.ri);
   int H = 1;
-  while (H < 8 && btiles * H * 2 <= threads && H * 2 <= (a.d.DzP >> 2)) H *= 2;
-  a.d.ksplit = H;
+  while (H < 8 && btiles * H * 2 <= threads && H * 2 <= (d.DzP >> 2)) H *= 2;
+  return H;
+}
+
+// Launches a persistent grid of `kernel` (the caller has checked the
+// geometry against the kernel's shared-memory layout).
+template <typename K>
+int launch_grid(K kernel, Args a, int threads, int smem_bytes,
+                cudaStream_t stream) {
+  a.d.ksplit = ksplit_of(a.d, threads);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -106,6 +118,52 @@ int launch(K kernel_smem, K kernel_gops, K kernel_gops4, Args a,
   kernel<<<blocks, threads, smem_bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
+
+// Whether a launch's scalars and geometry are in range.
+inline bool launch_ok(const Args& a, int threads) {
+  return a.d.tile > 0 && a.d.tile % a.d.ri == 0 && threads >= a.d.tile &&
+         threads % 32 == 0 && threads <= 256 && a.B > 0 && a.max_iter >= 1 &&
+         a.counter != nullptr;
+}
+
+// The kernel of the operators' placement (GOPS when they are read from
+// device memory) and register tile: 8 slots, or 4 with GOPS only.
+template <typename K>
+int launch(K kernel_smem, K kernel_gops, K kernel_gops4, Args a,
+           int threads, int smem_bytes, cudaStream_t stream) {
+  if (a.d.ri != 8 && !(a.d.ri == 4 && a.d.gops)) return -1;
+  const K kernel = a.d.ri == 4 ? kernel_gops4
+                               : (a.d.gops ? kernel_gops : kernel_smem);
+  if (smem_bytes != make_layout(a.d).total * 4 || !launch_ok(a, threads))
+    return -1;
+  return launch_grid(kernel, a, threads, smem_bytes, stream);
+}
+
+#if !ATM_SPLIT
+// K1's own body (fixed_waves.cuh), at either placement; refused where it
+// does not take the launch (wave_fits: over-relaxed solves among them). With
+// the operators in shared memory, the quadrotor (DuP 36, DzP 156) and the
+// lander (44, 132) at the depth splits of their usual geometries run
+// instantiations compiled for them (unrolled products, the same sums).
+inline int launch_waves(Args a, int threads, int smem_bytes,
+                        cudaStream_t stream) {
+  if (!wave_fits(a.d, threads, a.alpha) || !launch_ok(a, threads) ||
+      smem_bytes != make_wave_layout(a.d).total * 4)
+    return -1;
+  void (*kernel)(Args) = a.d.gops ? fused_solve_fixed_kernel<true, 8, true>
+                                  : fused_solve_fixed_kernel<false, 8, true>;
+  const int H = ksplit_of(a.d, threads);
+#define ATM_WAVE_SHAPE(U, Z, HH)                                  \
+  if (!a.d.gops && a.d.DuP == U && a.d.DzP == Z && H == HH)       \
+    kernel = fused_solve_fixed_kernel<false, 8, true, U, Z, HH>;
+  ATM_WAVE_SHAPE(36, 156, 4)
+  ATM_WAVE_SHAPE(36, 156, 8)
+  ATM_WAVE_SHAPE(44, 132, 2)
+  ATM_WAVE_SHAPE(44, 132, 4)
+#undef ATM_WAVE_SHAPE
+  return launch_grid(kernel, a, threads, smem_bytes, stream);
+}
+#endif
 
 #if ATM_SPLIT
 // The split-bf16 operator fragments (split_words in admm_iteration.cuh) of
@@ -181,6 +239,16 @@ int atm_fused_smem_bytes(int nx, int nu, int N, int tile, int ncp,
              .total * 4;
 }
 
+// Bytes of dynamic shared memory of K1's own body (fixed_waves.cuh; 0 in
+// the split-bf16 library, which runs K1 on the shared body).
+int atm_fused_fixed_smem_bytes(int nx, int nu, int N, int tile,
+                               int ops_global) {
+  return ATM_SPLIT ? 0
+                   : atm::make_wave_layout(atm::make_dims(
+                         nx, nu, N, tile, 0, ops_global != 0, 8, 0))
+                             .total * 4;
+}
+
 // Words of the split-bf16 operator fragments (the scratch the bf16x3 entries
 // take as w3; 0 for the float32 kernels).
 int atm_fused_split_words(int nx, int nu, int N) {
@@ -202,6 +270,9 @@ int atm_fused_split_words(int nx, int nu, int N) {
 // scratch for the operator fragments (atm_fused_split_words words; nullptr
 // for the float32 kernels, and for a split-bf16 launch whose schedule splits
 // no iteration); n3: a split-bf16 fixed solve's split iterations.
+// waves != 0: a fixed box-only float32 solve on K1's own body
+// (fixed_waves.cuh; smem_bytes then its layout's), refused (-1) where that
+// body does not take the launch; 0: the shared slot body.
 int atm_fused_solve(
     const float* x0, const float* D0, const float* Y0, const float* G0,
     const float* Z0, const float* V0,
@@ -215,7 +286,7 @@ int atm_fused_solve(
     int B, int nx, int nu, int N, int max_iter, int check_every, int warmup,
     float rho, float alpha, float pri_tol, float dua_tol,
     int tile, int threads, int smem_bytes, int ops_global, int ri,
-    uint32_t* w3, int n3, void* stream) {
+    int waves, uint32_t* w3, int n3, void* stream) {
   atm::Args a = {};
   a.W3 = w3; a.n3 = n3;
   a.x0 = x0; a.D0 = D0; a.Y0 = Y0; a.G0 = G0; a.Z0 = Z0; a.V0 = V0;
@@ -228,6 +299,8 @@ int atm_fused_solve(
   a.max_iter = max_iter; a.check_every = check_every; a.warmup = warmup;
   a.rho = rho; a.alpha = alpha; a.pri_tol = pri_tol; a.dua_tol = dua_tol;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (waves && (cone_idx != nullptr || check_every > 0 || ATM_SPLIT))
+    return -1;
   if (cone_idx != nullptr) {
     a.d = atm::make_dims(nx, nu, N, tile,
                          cone_mu != nullptr ? nc_u + nc_x : 0, ops_global, ri,
@@ -243,6 +316,9 @@ int atm_fused_solve(
                        ATM_SPLIT && w3 != nullptr);
   if (check_every > 0)
     return ATM_LAUNCH(fused_solve_adaptive);
+#if !ATM_SPLIT
+  if (waves) return atm::launch_waves(a, threads, smem_bytes, st);
+#endif
   return ATM_LAUNCH(fused_solve_fixed);
 }
 

@@ -16,7 +16,10 @@ the same order, so both placements give the same bits. Where one register
 tile of 8 slots' state does not fit even then (the quadrotor past N=78),
 the register tiles hold 4 slots (:func:`choose_register_tile`), again with
 the same bits; the quadrotor then runs to N=150, past the JAX package's
-N=129.
+N=129. The fixed box-only float32 solve (K1) runs on a body of its own
+(``csrc/fixed_waves.cuh``: waves of slots in lockstep, each thread's
+duals, slacks and x0 terms in its registers) wherever :func:`fixed_path`
+says so, at the same geometry and to the same bits.
 
 Semantics: stage for stage the reference iteration (reference:
 src/tinympc/admm.cpp:111-152) in a fixed-iteration mode and an adaptive mode
@@ -689,6 +692,75 @@ def kernel_smem_bytes(nx: int, nu: int, horizon: int, tile: int,
     return 4 * words
 
 
+def fixed_smem_bytes(nx: int, nu: int, horizon: int, tile: int,
+                     placement: str = "shared") -> int:
+    """Dynamic shared memory of K1's own body (the ``"waves"`` path of
+    :func:`fixed_path`): mirrors ``make_wave_layout`` in
+    ``csrc/fixed_waves.cuh`` (the C entry refuses a launch when the two
+    disagree). The operators Wf and Wb (unless ``placement="device"``),
+    the bounds, one const_d row, and per slot D, S, x0 and the residual
+    maxima: a slot's dual, slack and x0 terms live in registers."""
+    if placement not in PLACEMENTS:
+        raise ValueError(f"placement must be one of {PLACEMENTS}")
+    r4 = lambda n: (n + 3) & ~3
+    Dx, Du = horizon * nx, (horizon - 1) * nu
+    DuP, DzP = r4(Du), r4(Dx + Du)
+    words = (
+        (2 * DuP * DzP if placement == "shared" else 0)   # Wf, Wb
+        + 2 * DzP + DuP                                   # lo, hi; const_d
+        + tile * (DuP + DzP) + r4(tile * nx) + r4(tile * 4)
+        + 4                                               # the wave
+    )
+    return 4 * words
+
+
+# K1 (the fixed box-only float32 solve) runs on its own body, the slots of a
+# block in lockstep with each thread's iterates in its registers
+# (``csrc/fixed_waves.cuh``), wherever :func:`fixed_path` says "waves";
+# False runs every K1 launch on the shared slot body (``run_block``). At one
+# launch geometry both give the same bits.
+FIXED_WAVES = True
+
+
+def fixed_path(dims: tuple, tile: int, threads: int, ri: int,
+               algo: str = "f32", alpha: float = 1.0) -> str:
+    """The body a fixed box-only solve at ``tile`` slots, ``threads`` threads
+    and register tile ``ri`` runs: ``"waves"`` (K1's own body: float32,
+    register tiles of 8 slots, and every forward item of the block, a
+    register tile of 8 slots by 4 columns of z, held by a thread of its
+    own; ``wave_fits`` in ``csrc/fixed_waves.cuh``) where
+    :data:`FIXED_WAVES` holds, else ``"slots"`` (the shared body, which
+    the other kernels run). The geometry is the shared body's own
+    (:func:`geometry`), so both paths split the backward product's depth
+    alike and give the same bits. An over-relaxed solve (``alpha`` other
+    than 1) takes the shared body, and K1's own body has no relaxation (its
+    C entry refuses such a launch): nvcc fused ``alpha x + (1 - alpha) z``
+    into FMAs differently in the two bodies, which moved bits on an
+    H100."""
+    nx, nu, N = dims
+    DzP = (N * nx + (N - 1) * nu + 3) & ~3
+    if (algo != "f32" or not FIXED_WAVES or ri != REGISTER_TILE
+            or alpha != 1.0 or (tile // ri) * (DzP // 4) > threads):
+        return "slots"
+    return "waves"
+
+
+def backward_split(dims: tuple, tile: int, threads: int, ri: int) -> int:
+    """The backward product's depth split of a launch: the lanes over which
+    a register tile's depth is summed (``ksplit_of`` in
+    ``csrc/fused_entry.cuh``), as many (at most 8) as give every thread a
+    tile. It sets the order of that product's sums, so two launches give
+    the same bits only where it is the same."""
+    nx, nu, N = dims
+    r4 = lambda n: (n + 3) & ~3
+    DuP, DzP = r4((N - 1) * nu), r4(N * nx + (N - 1) * nu)
+    btiles = (DuP // 4) * (tile // ri)
+    H = 1
+    while H < 8 and btiles * H * 2 <= threads and H * 2 <= DzP // 4:
+        H *= 2
+    return H
+
+
 def _tpu_fits(nx: int, nu: int, horizon: int) -> bool:
     """Whether the JAX package's fused tier takes this horizon: its sizing
     (``accelerated_tinympc_tpu/ops/fused_admm.py`` ``fused_solve``) keeps
@@ -803,7 +875,7 @@ _F, _I, _P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 # The C entries' parameters in order (csrc/fused_entry.cuh); every pointer
 # and the stream are c_void_p.
 _SOLVE_ARGTYPES = ([_P] * 22 + [_I] * 2 + [_P] * 3 + [_I, _P] + [_I] * 7
-                   + [_F] * 4 + [_I] * 5 + [_P, _I, _P])
+                   + [_F] * 4 + [_I] * 6 + [_P, _I, _P])
 _ROLLOUT_ARGTYPES = ([_P] * 25 + [_I] * 2 + [_P, _I, _P] + [_I] * 9
                      + [_F] * 4 + [_I] * 5 + [_P, _I, _P])
 
@@ -823,6 +895,8 @@ def _library(algo: str = "f32") -> ctypes.CDLL:
         lib.atm_fused_smem_bytes.restype = _I
         lib.atm_fused_split_words.argtypes = [_I] * 3
         lib.atm_fused_split_words.restype = _I
+        lib.atm_fused_fixed_smem_bytes.argtypes = [_I] * 5
+        lib.atm_fused_fixed_smem_bytes.restype = _I
         lib.atm_fused_solve.argtypes = _SOLVE_ARGTYPES
         lib.atm_fused_solve.restype = _I
         lib.atm_fused_rollout.argtypes = _ROLLOUT_ARGTYPES
@@ -865,20 +939,32 @@ def _checked_operands(W_f, W_b, W_x, lo, hi, dims, device) -> tuple:
 def _geometry(dims: tuple, B: int, device, batch_tile, threads,
               ncp: int = 0, placement: str | None = None,
               register_tile: int | None = None, split: bool = False):
-    """``(tile, threads, smem bytes, placement, register tile)`` of one
-    launch; the placement is :func:`choose_placement`'s and the register
-    tile :func:`choose_register_tile`'s unless given. ``split``: the
-    ``algo="bf16x3"`` kernels."""
+    """:func:`geometry` on ``device``'s SMs and shared memory."""
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", SMEM_LIMIT_BYTES)
+    return geometry(dims, B, props.multi_processor_count, limit, batch_tile,
+                    threads, ncp, placement, register_tile, split)
+
+
+def geometry(dims: tuple, B: int, n_sm: int = 132,
+             limit: int = SMEM_LIMIT_BYTES, batch_tile=None, threads=None,
+             ncp: int = 0, placement: str | None = None,
+             register_tile: int | None = None, split: bool = False):
+    """``(tile, threads, smem bytes, placement, register tile)`` of one
+    launch on a card of ``n_sm`` SMs and ``limit`` bytes of shared memory a
+    block (an H100's by default); the placement is
+    :func:`choose_placement`'s and the register tile
+    :func:`choose_register_tile`'s unless given. ``split``: the
+    ``algo="bf16x3"`` kernels. The bytes are the shared body's layout
+    (:func:`kernel_smem_bytes`; K1's own body takes
+    :func:`fixed_smem_bytes` at the same tile)."""
     nx, nu, N = dims
     if placement is None:
         placement = choose_placement(dims, limit, ncp, split)
     ri = register_tile or choose_register_tile(dims, limit, ncp, placement,
                                                split)
     if batch_tile is None:
-        tile = choose_tile(dims, B, props.multi_processor_count, limit, ncp,
-                           placement, ri, split)
+        tile = choose_tile(dims, B, n_sm, limit, ncp, placement, ri, split)
     else:
         tile = max(ri, -(-int(batch_tile) // ri) * ri)
         tile = min(tile, choose_tile(dims, 10 ** 9, 1, limit, ncp,
@@ -1160,7 +1246,9 @@ def _launch_solve(
 ) -> FusedResult:
     """One launch of K1 (``check_termination == 0``) or K2 on CUDA tensors,
     float32 or split-bf16 (``algo``): checks the operands, sizes the launch
-    (:func:`_geometry`), zeroes the work counter, counts the launch.
+    (:func:`_geometry`; K1's box-only float32 launches on its own body
+    where :func:`fixed_path` says so), zeroes the work counter, counts the
+    launch.
     :func:`fused_solve` and the ``atm_torch::fused_solve`` op both launch
     through here."""
     nx, nu, N = dims
@@ -1190,12 +1278,16 @@ def _launch_solve(
         splits)
     items, chunks, _items = _cone_items_arg(cone_ops, dims, tile, ri, algo,
                                             dev)
+    adaptive = check_termination > 0
+    waves = (not adaptive and not coned
+             and fixed_path(dims, tile, threads, ri, algo, alpha) == "waves")
+    if waves:
+        smem = fixed_smem_bytes(nx, nu, N, tile, placement)
 
     new = lambda w: torch.empty((B, w), dtype=torch.float32, device=dev)
     U, X, D, Y, G, Z, V = (new(Du), new(Dx), new(Du), new(Du), new(Dx),
                            new(Du), new(Dx))
     stats = new(6)
-    adaptive = check_termination > 0
     counter = work_counter(dev)
     lib = _library(algo)
     w3 = _split_scratch(lib, dims, splits, dev)
@@ -1217,7 +1309,7 @@ def _launch_solve(
             min(int(warmup_iters), int(max_iter) - 1) if adaptive else 0,
             float(rho_f), float(alpha),
             float(abs_pri_tol), float(abs_dua_tol),
-            tile, threads, smem, int(placement == "device"), ri,
+            tile, threads, smem, int(placement == "device"), ri, int(waves),
             None if w3 is None else w3.data_ptr(),
             0 if adaptive else fixed_split_iterations(max_iter, polish, algo),
             stream,

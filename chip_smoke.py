@@ -2844,6 +2844,44 @@ def main() -> None:
          lambda: fused_solve_plain(xs_s, cold_s, pp, **kw1)),
         lambda g, w: compare_solve("K1 main shape", g, w, 0, pp.rho_f),
         lambda g: g.stats[:, 0].sum(), MAIN_BATCH)
+    # K1's path at the main batch (its own body, csrc/fixed_waves.cuh, or
+    # the shared slot body), its slots a block, threads and registers, and
+    # the two bodies bit for bit at the comparison batch and at the main one
+    # (same geometry; at the main batch each block of the own body runs
+    # several waves)
+    k1_tile, k1_threads, _s, _p, k1_ri = fused_admm._geometry(
+        dims, MAIN_BATCH, dev, None, None)
+    k1_path = fused_admm.fixed_path(dims, k1_tile, k1_threads, k1_ri)
+    # the instantiation: K1's own body compiled for these widths and depth
+    # split (<GOPS, RI, waves, DuP, DzP, H>), else its run-time one
+    k1_rows = [r for r in ptxas_per_kernel(_build.build_log("fused_admm"))
+               if r["kernel"].startswith("fused_solve_fixed_kernel<0,8,1,")]
+    k1_split = fused_admm.backward_split(dims, k1_tile, k1_threads, k1_ri)
+    k1_regs = [r for r in k1_rows if r["kernel"] == (
+        "fused_solve_fixed_kernel<0,8,1,%d,%d,%d>"
+        % (*pp.W_f.shape, k1_split))] or [
+        r for r in k1_rows if r["kernel"].endswith(",0,0,0>")]
+    k1_bits = {}
+    for flag in (True, False):
+        fused_admm.FIXED_WAVES = flag
+        k1_bits[flag] = []
+        for x, c in ((xs_s, cold_s), (x0s, cold)):
+            r = fused_solve(x, c, pp, **kw1)
+            k1_bits[flag] += [r.U, r.X, r.stats, *r.carry]
+    fused_admm.FIXED_WAVES = True
+    k1_same = all(torch.equal(a, b)
+                  for a, b in zip(k1_bits[True], k1_bits[False]))
+    kernels[-1].update(
+        path=k1_path, slots=k1_tile, threads=k1_threads,
+        kernel=k1_regs[0]["kernel"] if k1_regs else None,
+        registers=k1_regs[0].get("registers") if k1_regs else None,
+        spill_stores=k1_regs[0].get("spill_stores") if k1_regs else None,
+        paths_bit_exact=k1_same)
+    emit("k1_paths", batches=[KERNEL_BATCH, MAIN_BATCH], path=k1_path,
+         bit_exact=k1_same, ptxas=k1_regs)
+    assert k1_path == "waves", f"K1 at the main batch takes {k1_path}"
+    assert k1_same, "K1's two bodies disagree"
+    del k1_bits
     kw2 = WARM_KW
     x1, warm = warm_start(problem, pp, x0s, dev)
     x1_s, warm_s = warm_start(problem, pp, xs_s, dev)

@@ -275,6 +275,111 @@ def test_register_tiles_of_8_and_4_slots_are_bit_identical(card):
         assert all(torch.equal(x, y) for x, y in zip(fields(a), fields(b)))
 
 
+# ------------------------------------- K1's own body (csrc/fixed_waves.cuh)
+
+def _k1_shape(shape, batch):
+    """``(pp, x0s)`` of a K1 shape at ``batch``: the quadrotor at N=10, 40
+    or 129, or the lander (box-only)."""
+    if shape == "lander":
+        _problem, pp, _cops, _cones, x0s = _lander(batch=batch)
+        return pp, x0s
+    _problem, _cache, pp, x0s = _quadrotor(int(shape[1:]), batch=batch)
+    return pp, x0s
+
+
+@pytest.mark.parametrize("shape", ["N10", "lander", "N40", "N129"])
+def test_fixed_kernel_matches_plain_at_every_batch(card, shape):
+    """K1 fixed-100 cold against its plain version at batches 1, 37 and
+    4,099 (the last two end on a partly filled wave, or slot round, of the
+    launch): controls, D and Z within 1e-4, states, duals and V within
+    2e-4, iteration counts and solved flags equal, residual columns within
+    chip_smoke.py's bar (rtol 1e-3, plus 1e-6 and what the iterates'
+    disagreement e moves a residual: 2 max(1, rho) e). The flagship and
+    the lander run K1's own body, N=40 and N=129 the shared slot body
+    (fused_admm.fixed_path)."""
+    for batch in (1, 37, 4099):
+        pp, x0s = _k1_shape(shape, batch)
+        tile, threads, _smem, _pl, ri = fused_admm._geometry(
+            pp.dims, batch, "cuda", None, None)
+        path = fused_admm.fixed_path(pp.dims, tile, threads, ri)
+        assert path == ("waves" if shape in ("N10", "lander") else "slots")
+        cold = FusedCarry.zeros(batch, pp)
+        got = fused_solve(x0s, cold, pp, max_iter=100)
+        want = fused_solve_plain(x0s, cold, pp, max_iter=100)
+        _assert_solve_close(got, want, min_agree=1.0)
+        assert float((got.X - want.X).abs().max()) <= 2 * ATOL
+        assert torch.equal(got.stats[:, :2], want.stats[:, :2])
+        e = max(float((a - b).abs().max()) for a, b in zip(
+            (got.U, got.X) + tuple(got.carry),
+            (want.U, want.X) + tuple(want.carry)))
+        rg, rw = got.stats[:, 2:].double(), want.stats[:, 2:].double()
+        excess = float(((rg - rw).abs() - 1e-3 * rw.abs()).max())
+        assert excess <= 1e-6 + 2 * max(1.0, pp.rho_f) * e
+
+
+def test_fixed_kernel_is_bit_exact_under_a_permuted_batch(card):
+    """K1's own body: each instance's arithmetic depends on its own data,
+    not on its wave, slot or block, so a permuted batch gives the permuted
+    result bit for bit (4,099 and 37: partly filled last waves; warm
+    carries, so every input matters), and so does a second launch."""
+    for shape, batch in (("N10", 4099), ("N10", 37), ("lander", 4099)):
+        pp, x0s = _k1_shape(shape, batch)
+        warm = fused_solve(x0s, FusedCarry.zeros(batch, pp), pp,
+                           max_iter=7).carry
+        run = lambda x, *c: _solve_fields(
+            fused_solve(x, FusedCarry(*c), pp, max_iter=60))
+        assert _permuted_equal(run, (x0s,) + tuple(warm), batch), shape
+        first, second = run(x0s, *warm), run(x0s, *warm)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("case", ["N10_65536", "N10_4099", "N10_37",
+                                  "lander", "N18_shared", "N18_device",
+                                  "N19_37", "relaxed"])
+def test_fixed_kernel_paths_give_the_same_bits(card, case, monkeypatch):
+    """At a shape both bodies take, K1's own body and the shared slot body
+    (``fused_admm.FIXED_WAVES = False``) give the same bits: the same sums
+    in the same order at the same geometry. Warm carries, both
+    placements; at 65,536 each block of the own body runs several waves
+    (at 4,099 and 37 one); an over-relaxed solve takes the shared body
+    (``fixed_path``), so its bits are the shared body's."""
+    shape, batch = {"N10_65536": ("N10", 65536),
+                    "N10_4099": ("N10", 4099), "N10_37": ("N10", 37),
+                    "lander": ("lander", 4099), "N18_shared": ("N18", 133),
+                    "N18_device": ("N18", 133), "N19_37": ("N19", 37),
+                    "relaxed": ("N10", 4099)}[case]
+    pp, x0s = _k1_shape(shape, batch)
+    kw = dict(max_iter=50, alpha=1.6 if case == "relaxed" else 1.0)
+    if case.startswith("N18"):
+        kw.update(placement=case[4:], batch_tile=8, threads=128)
+    warm = fused_solve(x0s, FusedCarry.zeros(batch, pp), pp,
+                       max_iter=5).carry
+    tile, threads, _smem, _pl, ri = fused_admm._geometry(
+        pp.dims, batch, "cuda", kw.get("batch_tile"), kw.get("threads"),
+        placement=kw.get("placement"))
+    assert fused_admm.fixed_path(pp.dims, tile, threads, ri,
+                                 alpha=kw["alpha"]) == (
+        "slots" if case == "relaxed" else "waves")
+    res = {}
+    for flag in (True, False):
+        monkeypatch.setattr(fused_admm, "FIXED_WAVES", flag)
+        before = fused_admm.LAUNCH_COUNTS["fused_solve_fixed"]
+        res[flag] = _solve_fields(fused_solve(x0s, warm, pp, **kw))
+        assert fused_admm.LAUNCH_COUNTS["fused_solve_fixed"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(res[True], res[False]))
+
+
+def test_fixed_kernel_smem_bytes_of_the_wrapper_are_the_kernels(card):
+    """The wrapper's mirror of K1's own layout (fixed_smem_bytes) is the C
+    entry's count, at both placements."""
+    lib = fused_admm._library("f32")
+    for dims in ((12, 4, 10), (6, 3, 15), (12, 4, 18), (12, 4, 30)):
+        for tile in (8, 32, 48):
+            for gops, pl in ((0, "shared"), (1, "device")):
+                assert lib.atm_fused_fixed_smem_bytes(*dims, tile, gops) == \
+                    fused_admm.fixed_smem_bytes(*dims, tile, pl)
+
+
 @pytest.mark.parametrize("N", [100, 129])
 def test_tinympc_fused_with_4_slot_tiles_matches_the_plain_version(card, N):
     """Past N=78 one register tile of 8 slots no longer fits shared memory

@@ -5,6 +5,8 @@ kernels.
 
     python3 tools/torch_fused_stage_clocks.py [ROOT] [--only K1,K3,...]
         [--algos f32,bf16x3] [--cone-path fused|three-pass]
+        [--variants registers,no_dispatch,no_products,wave_adjacent_lanes,
+                    wave_runtime_widths]
 
 The profilers that would split a kernel's time by stage (``ncu``) may not
 run where the card is, so this script copies ROOT's
@@ -37,14 +39,34 @@ uninstrumented kernels'.
 
 Workloads: this checkout's ``chip_smoke.py`` workload functions at batch
 65,536, each split kernel beside its float32 twin on the same schedule:
-K1 quadrotor fixed-100 cold (split: polish 8), K2 warm check 1, K3 70
+K1 quadrotor fixed-100 cold (split: polish 8; ``K1_device`` with the
+operators read from device memory at K1's slots a block), K2 warm check 1,
+K3 70
 ticks at checks every 5 (tol 1e-2), K4 a/b/c on the lander with both
 cones (c: 30 ticks), and ``K4a_box``, ``K4b_box``, ``K4c_box``, their
 box-only twins (the same schedules without the cones). Beside the
 readings: the SASS instructions of each split kernel and of each coned
 float32 kernel (``cuobjdump``, where the toolkit has it) and their
-registers and spills (``-Xptxas -v``). Prints one JSON line. Needs a CUDA
-device and nvcc.
+registers and spills (``-Xptxas -v``), and those of the box-only float32
+kernels (``box_kernels``). Prints one JSON line. Needs a CUDA device and
+nvcc.
+
+``--variants`` also clocks throwaway variants of the shared iteration body
+(``forward_stage``, ``forward_product``, ``backward_stage`` of ROOT's
+``admm_iteration.cuh``, so K2-K4 and, up to the checkout that gave K1 a
+body of its own, K1), each in a copy of its own built beside the
+unchanged one, all compilers started together, measured in turn: their
+numbers are wrong on purpose, only their cycles count. ``registers``: the
+forward stage's elementwise work without its dual, slack and x0-term
+traffic through shared memory (zeros in place of the loads, no stores but
+S); ``no_dispatch``: without the per-row ``done``, ``flags`` and ``zpar``
+reads and the three-way mode dispatch; ``no_products``: without the
+forward and backward products. Each variant's readings are under
+``variant:<name>``; a text of a variant not found once in the body stops
+the script. ``wave_adjacent_lanes`` clocks K1's own body
+(``fixed_waves.cuh``) with its backward product's lanes adjacent, as the
+shared body's, in place of 32 / H apart; ``wave_runtime_widths`` with its
+widths and depth split read at run time at every shape.
 """
 
 from __future__ import annotations
@@ -121,8 +143,72 @@ extern "C" int atm_clocks(unsigned long long* out) {
 }
 """ % {"n": NCLK}
 
-def instrumented_copy(root: pathlib.Path, dst: pathlib.Path) -> str:
-    """Copies ROOT's package to ``dst`` with the stage hooks defined."""
+# The throwaway variants (--variants): text substitutions, each found
+# exactly once, in admm_iteration.cuh (the shared body) or, where an entry
+# names it first, in another source of csrc/.
+_ROW_LOADS = """\
+          const int zp = s.zpar[i];
+          const float4 xb4 = *reinterpret_cast<const float4*>(s.Xb + idx);
+          const float4 y4 = *reinterpret_cast<const float4*>(s.YG + idx);
+          const float4 z4 =
+              *reinterpret_cast<const float4*>(s.ZV + zp * zstride + idx);
+"""
+_ROW_STORES = """\
+          *reinterpret_cast<float4*>(s.YG + idx) =
+              make_float4(o1[0], o1[1], o1[2], o1[3]);
+          *reinterpret_cast<float4*>(s.ZV + (zp ^ 1) * zstride + idx) =
+              make_float4(zn[0], zn[1], zn[2], zn[3]);
+"""
+_ROW_FLAGS = """\
+      dn[r] = !active || s.done[i0 + r] != LIVE;
+      fl[r] = dn[r] ? 0 : s.flags[i0 + r];
+      if constexpr (SPLIT) {"""
+_DISPATCH = """\
+    const unsigned wfl = __reduce_or_sync(0xffffffffu, (unsigned)anyfl);
+    if (wfl == 0u) finish(std::integral_constant<int, 0>{});
+    else if (wfl == (unsigned)F_CHECK) finish(std::integral_constant<int, 1>{});
+    else finish(std::integral_constant<int, 2>{});
+  }
+}
+
+// The exact projection"""
+_ZERO4 = "make_float4(0.0f, 0.0f, 0.0f, 0.0f)"
+VARIANTS = {
+    "registers": [
+        (_ROW_LOADS, "          const int zp = s.zpar[i];\n"
+         f"          const float4 xb4 = {_ZERO4};\n"
+         f"          const float4 y4 = {_ZERO4};\n"
+         f"          const float4 z4 = {_ZERO4};\n"),
+        (_ROW_STORES, "          (void)zp;\n")],
+    "no_dispatch": [
+        (_ROW_FLAGS, "      dn[r] = !active;\n      fl[r] = 0;\n"
+         "      if constexpr (SPLIT) {"),
+        (_ROW_LOADS, _ROW_LOADS.replace("s.zpar[i]", "0")),
+        (_DISPATCH, "    finish(std::integral_constant<int, 0>{});\n"
+         + _DISPATCH.split("\n", 4)[4])],
+    "no_products": [
+        ("  if (live) {\n    const float* Dg = s.D + i0 * d.DuP;",
+         "  if (false) {\n    const float* Dg = s.D + i0 * d.DuP;"),
+        ("    if (live) {\n      // The split kernels read Wb",
+         "    if (false) {\n      // The split kernels read Wb")],
+    # K1's own body with its backward lanes adjacent, as backward_stage's
+    "wave_adjacent_lanes": [
+        ("fixed_waves.cuh", "  const int tw = lane & (TW - 1);\n"
+         "  const int hl = lane / TW;\n",
+         "  const int tw = lane / H;\n  const int hl = lane & (H - 1);\n"),
+        ("fixed_waves.cuh", "for (int off = TW; off < 32; off <<= 1)",
+         "for (int off = 1; off < H; off <<= 1)")],
+    # K1's own body with every width and the depth split read at run time
+    "wave_runtime_widths": [
+        ("fused_entry.cuh", "  if (!a.d.gops && a.d.DuP == U",
+         "  if (false && a.d.DuP == U")],
+}
+
+
+def instrumented_copy(root: pathlib.Path, dst: pathlib.Path,
+                      variant: str = "") -> str:
+    """Copies ROOT's package to ``dst`` with the stage hooks defined (and
+    the substitutions of ``variant``, :data:`VARIANTS`, made)."""
     pkg = dst / "accelerated_tinympc_tpu_torch"
     shutil.copytree(root / "accelerated_tinympc_tpu_torch", pkg,
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -130,23 +216,36 @@ def instrumented_copy(root: pathlib.Path, dst: pathlib.Path) -> str:
     cuh = csrc / "admm_iteration.cuh"
     if "ATM_CLK_BEGIN()" not in cuh.read_text():
         sys.exit(f"{cuh}: no stage hooks")
+    for sub in VARIANTS[variant] if variant else ():
+        src = csrc / (sub[0] if len(sub) == 3 else "admm_iteration.cuh")
+        old, new = sub[-2:]
+        text = src.read_text()
+        if text.count(old) != 1:
+            sys.exit(f"{src}: variant {variant}: text found "
+                     f"{text.count(old)} times:\n{old}")
+        src.write_text(text.replace(old, new))
     for name in ("fused_admm.cu", "fused_admm_bf16x3.cu"):
         cu = csrc / name
         cu.write_text(HOOK_DEFS + cu.read_text() + READ_BACK)
 
 
-def build_fused(_build) -> None:
-    """Builds the copy's two fused libraries (float32, split-bf16) with its
-    own ``_build`` flags, both compilers started together."""
+def build_fused(_build, names, copies=()) -> dict:
+    """Builds the copy's fused libraries ``names`` (``fused_admm``,
+    ``fused_admm_bf16x3``) with its own ``_build`` flags, and the float32
+    one of each variant copy in ``copies`` (``{variant: package dir}``,
+    into that copy), all compilers started together. Returns the logs by
+    library name (``fused_admm@<variant>`` for the variants')."""
     import subprocess
 
     out = _build.build_dir()
     out.mkdir(parents=True, exist_ok=True)
+    jobs = [(name, _build.CSRC, _build.library_path(name)) for name in names]
+    jobs += [(f"fused_admm@{v}", pkg / "ops" / "csrc", variant_library(pkg))
+             for v, pkg in copies.items()]
     procs, logs = [], {}
-    for name in ("fused_admm", "fused_admm_bf16x3"):
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-o", str(_build.library_path(name)),
-               str(_build.CSRC / f"{name}.cu")]
+    for name, csrc, so in jobs:
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc),
+               "-o", str(so), str(csrc / f"{name.split('@')[0]}.cu")]
         procs.append((name, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -158,9 +257,14 @@ def build_fused(_build) -> None:
     return logs
 
 
+def variant_library(pkg: pathlib.Path) -> pathlib.Path:
+    """Where a variant copy's float32 library is built."""
+    return pkg / "libfused_admm_variant.so"
+
+
 def kernel_sizes(_build, log: str, name: str) -> dict:
-    """Per kernel of library ``name``: SASS instructions (``cuobjdump``)
-    and the compiler's registers, stack and spill line."""
+    """Per kernel of library ``name`` (``_build``'s): SASS instructions
+    (``cuobjdump``) and the compiler's registers, stack and spill line."""
     import re
     import shutil as _sh
     import subprocess
@@ -192,9 +296,12 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=str(HERE))
     ap.add_argument("--only", default="",
-                    help="comma-separated workloads (K1,K2,K3,K4a,K4b,K4c, "
-                    "K4a_box,K4b_box,K4c_box)")
+                    help="comma-separated workloads (K1,K1_device,K2,K3,K4a,"
+                    "K4b,K4c,K4a_box,K4b_box,K4c_box)")
     ap.add_argument("--algos", default="f32,bf16x3")
+    ap.add_argument("--variants", default="",
+                    help="comma-separated variants of the shared body "
+                    f"({','.join(VARIANTS)}), clocked after the body itself")
     ap.add_argument("--cone-path", default="fused",
                     choices=("fused", "three-pass"),
                     help="the coned float32 kernels' slack stage (a checkout "
@@ -204,9 +311,17 @@ def main():
     sys.path.insert(0, str(HERE))
     import chip_smoke as cs   # this checkout's workloads and timer
 
+    variants = [v for v in args.variants.split(",") if v]
+    for v in variants:
+        if v not in VARIANTS:
+            sys.exit(f"unknown variant {v!r}; take {', '.join(VARIANTS)}")
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="atm_stage_clocks_"))
     try:
         instrumented_copy(root, tmp)
+        copies = {}
+        for v in variants:
+            instrumented_copy(root, tmp / "variants" / v, v)
+            copies[v] = tmp / "variants" / v / "accelerated_tinympc_tpu_torch"
         os.environ["ATM_TORCH_BUILD_DIR"] = str(tmp / "build")
         sys.path.insert(0, str(tmp))
         import torch
@@ -220,8 +335,13 @@ def main():
 
         if args.cone_path == "three-pass":
             fused_admm.FUSED_CONES = False
-        logs = build_fused(_build)
-        libs = {a: fused_admm._library(a) for a in ("f32", "bf16x3")}
+        algos = args.algos.split(",")
+        if variants and "f32" not in algos:
+            sys.exit("the variants are float32 builds: take --algos f32")
+        names = [{"f32": "fused_admm", "bf16x3": "fused_admm_bf16x3"}[a]
+                 for a in algos]
+        logs = build_fused(_build, names, copies)
+        libs = {a: fused_admm._library(a) for a in algos}
         buf = (ctypes.c_ulonglong * NCLK)()
 
         def measure(fn, algo, dims, batch):
@@ -266,6 +386,13 @@ def main():
 
         work = {
             "K1": (k1, pp.dims),
+            # K1 with its operators read from device memory (the same
+            # geometry and bits)
+            "K1_device": (lambda algo: fused_solve(
+                x0s, cold, pp, max_iter=100, placement="device",
+                batch_tile=fused_admm._geometry(pp.dims, B, dev, None,
+                                                None)[0], algo=algo),
+                pp.dims),
             "K2": (lambda algo: fused_solve(x1, warm, pp, **cs.WARM_KW,
                                             algo=algo), pp.dims),
             "K3": (lambda algo: fused_rollout(
@@ -295,16 +422,29 @@ def main():
                "device": torch.cuda.get_device_name(0)}
         for key in only:
             fn, dims = work[key]
-            row[key] = {algo: measure(fn, algo, dims, B)
-                        for algo in args.algos.split(",")}
-        row["split_kernels"] = {
-            k: v for k, v in kernel_sizes(
-                _build, logs["fused_admm_bf16x3"], "fused_admm_bf16x3").items()
-            if "bf16x3" in k}
-        row["coned_kernels"] = {
-            k: v for k, v in kernel_sizes(
-                _build, logs["fused_admm"], "fused_admm").items()
-            if "cones" in k}
+            row[key] = {algo: measure(fn, algo, dims, B) for algo in algos}
+        body_lib = libs.get("f32")
+        for v, pkg in copies.items():
+            # the variant's float32 library in place of the body's
+            _build._libs["fused_admm"] = ctypes.CDLL(
+                str(variant_library(pkg)))
+            libs["f32"] = fused_admm._library("f32")
+            row[f"variant:{v}"] = {
+                key: {"f32": measure(work[key][0], "f32", work[key][1], B)}
+                for key in only}
+        if copies:
+            _build._libs["fused_admm"] = body_lib
+        if "bf16x3" in algos:
+            row["split_kernels"] = {
+                k: v for k, v in kernel_sizes(
+                    _build, logs["fused_admm_bf16x3"],
+                    "fused_admm_bf16x3").items() if "bf16x3" in k}
+        if "f32" in algos:
+            sizes = kernel_sizes(_build, logs["fused_admm"], "fused_admm")
+            row["coned_kernels"] = {k: v for k, v in sizes.items()
+                                    if "cones" in k}
+            row["box_kernels"] = {k: v for k, v in sizes.items()
+                                  if "cones" not in k}
         print(json.dumps(row), flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -19,7 +19,15 @@ lander with both cones (nx=6, nu=3, N=15) at the same batch, as
 row its box-only twin (``K4*_box_ms``: the same schedule without the
 cones). Beside K1 and K4 a, the same fixed solves at 10 iterations
 (``*_it10_ms``): the two lengths split a fixed solve's time into a part
-per solve (loads, results, refills) and a part per iteration.
+per solve (loads, results, refills) and a part per iteration; K1 also
+with its operators read from device memory at the slots a block of the
+default placement (``K1_device_ms``: the same geometry and bits). K1's
+fixed-100 cold solve also at other shapes: the quadrotor at 4,099
+instances (``K1_b4099_ms``) and at one (``K1_b1_ms``, a single solve's
+latency), and at horizons 40 and 129 at 4,099 (``K1_N40_ms``,
+``K1_N129_ms``; the lander's box-only fixed solve is ``K4a_box_ms``), with
+the path each takes where ROOT's wrapper names one (``K1_paths``,
+``fused_admm.fixed_path``).
 
 ``--algo bf16x3`` times the split-bf16 kernels instead, on
 ``chip_smoke.py``'s workloads of them (its ``bf16x3_path`` rows), each
@@ -62,7 +70,8 @@ def main():
         sys.exit("needs a CUDA device")
     import accelerated_tinympc_tpu_torch as atm
     from accelerated_tinympc_tpu_torch.ops import (
-        FusedCarry, fused_rollout, fused_solve, pad_cones, rollout_ops,
+        FusedCarry, fused_admm, fused_rollout, fused_solve, pad_cones,
+        rollout_ops,
     )
 
     assert pathlib.Path(atm.__file__).resolve().is_relative_to(root)
@@ -80,16 +89,43 @@ def main():
     row = {"root": str(root),
            "K1_ms": ms(lambda: fused_solve(x0s, cold, pp, max_iter=100)),
            "K1_it10_ms": ms(lambda: fused_solve(x0s, cold, pp, max_iter=10)),
+           "K1_device_ms": ms(lambda: fused_solve(
+               x0s, cold, pp, max_iter=100, placement="device",
+               batch_tile=fused_admm._geometry(pp.dims, B, dev, None,
+                                               None)[0])),
            "K2_ms": ms(lambda: fused_solve(x1, warm, pp, **kw)),
            "K2_iters_mean": float(
                fused_solve(x1, warm, pp, **kw).stats[:, 0].mean()),
            "K3_ms": ms(
                lambda: fused_rollout(x0s, cold, pp, rops, 70, **kw), reps=1)}
 
+    # K1 at other shapes: batches 4,099 and 1, horizons 40 and 129
+    fixed_path = getattr(fused_admm, "fixed_path", None)
+    paths = {}
+
+    def path_of(dims, batch):
+        tile, threads, _smem, _placement, ri = fused_admm._geometry(
+            dims, batch, dev, None, None)
+        return fixed_path(dims, tile, threads, ri)
+
+    for key, batch, horizon, reps in (("K1_b4099", cs.KERNEL_BATCH, 10, 3),
+                                      ("K1_b1", 1, 10, 20),
+                                      ("K1_N40", cs.KERNEL_BATCH, 40, 3),
+                                      ("K1_N129", cs.KERNEL_BATCH, 129, 1)):
+        _p, _c, ppk, xk = cs.flagship(batch, dev, horizon=horizon)
+        ck = FusedCarry.zeros(batch, ppk, device=dev)
+        row[f"{key}_ms"] = ms(
+            lambda: fused_solve(xk, ck, ppk, max_iter=100), reps=reps)
+        if fixed_path is not None:
+            paths[key] = path_of(ppk.dims, batch)
     lproblem, _lcache, lpp, lx = cs.lander(B, dev)
     lcold = FusedCarry.zeros(B, lpp, device=dev)
     cops = pad_cones(lpp, cs.lander_cones())
     lrops = rollout_ops(lproblem, lpp, device=dev)
+    if fixed_path is not None:
+        paths["K1"] = path_of(pp.dims, B)
+        paths["K4a_box"] = path_of(lpp.dims, B)
+        row["K1_paths"] = paths
     k4a = lambda n, c=cops: lambda: fused_solve(
         lx, lcold, lpp, cone_ops=c, **{**cs.LANDER_FIXED, "max_iter": n})
     k4b = lambda c=cops: lambda: fused_solve(
